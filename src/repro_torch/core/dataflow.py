@@ -1,0 +1,236 @@
+"""Row-stationary (RS) dataflow model, batched over design points in torch.
+
+The port of ``repro.core.dataflow``'s batch path: a ``rows x cols`` PE
+grid running row-stationary dataflow (Chen et al., ISCA'16), per-PE
+scratchpads, a global buffer and DRAM behind a finite-bandwidth link.
+Hardware columns arrive as float64 tensors on one device, layer
+features as Python floats; the formulas below repeat the reference's
+elementwise operations one for one, in the same order, so every output
+is bit-identical to the numpy path.  Divisions go through
+:mod:`repro_torch.core.exact` (see there for why).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import pe as pe_lib
+from repro_torch.core.exact import div, floor_div
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLayer:
+  """One conv (or 1x1-conv-as-matmul) workload layer.
+
+  A: input feature-map spatial dim (assumed square A x A)
+  C: input channels;  F: output channels (filter count)
+  K: kernel size;     S: stride;     P: padding
+  rs/ds: ResNet regular / dotted (projection) skip-connection indicators.
+  """
+  name: str
+  A: int
+  C: int
+  F: int
+  K: int = 1
+  S: int = 1
+  P: int = 0
+  rs: int = 0
+  ds: int = 0
+
+  @property
+  def out_dim(self) -> int:
+    return (self.A + 2 * self.P - self.K) // self.S + 1
+
+  @property
+  def macs(self) -> int:
+    e = self.out_dim
+    return e * e * self.K * self.K * self.C * self.F
+
+  @property
+  def weight_count(self) -> int:
+    return self.K * self.K * self.C * self.F
+
+  @property
+  def ifmap_count(self) -> int:
+    return self.A * self.A * self.C
+
+  @property
+  def ofmap_count(self) -> int:
+    e = self.out_dim
+    return e * e * self.F
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratorConfig:
+  """The hardware half of QUIDAM's input space (Fig. 2)."""
+  pe_type: str = "INT16"
+  pe_rows: int = 16
+  pe_cols: int = 16
+  sp_if: int = 12      # ifmap scratchpad entries (words)
+  sp_fw: int = 224     # filter scratchpad entries
+  sp_ps: int = 24      # psum scratchpad entries
+  gbuf_kb: int = 128   # global buffer (KiB)
+  bandwidth_gbps: float = 12.8  # DRAM link bandwidth
+
+  @property
+  def n_pe(self) -> int:
+    return self.pe_rows * self.pe_cols
+
+  @property
+  def pe(self) -> pe_lib.PEType:
+    return pe_lib.pe_type(self.pe_type)
+
+
+@dataclasses.dataclass
+class LayerStatsBatch:
+  """Per-layer simulation output for N design points.  Fields that
+  depend on the layer alone stay Python floats; x * s and x * t with
+  ``t`` a tensor filled with ``s`` round identically, so this matches the
+  reference's broadcast arrays bit for bit."""
+  cycles: torch.Tensor
+  compute_cycles: torch.Tensor
+  dram_stall_cycles: torch.Tensor
+  utilization: torch.Tensor
+  macs: float
+  spad_writes: float
+  gbuf_reads: torch.Tensor
+  gbuf_writes: torch.Tensor
+  dram_reads: torch.Tensor
+  dram_writes: float
+
+
+def _layer_feats(layer: ConvLayer) -> Dict[str, float]:
+  """The layer-side constants the batch formulas consume."""
+  return {
+      "E": float(max(layer.out_dim, 1)),
+      "K": float(layer.K), "C": float(layer.C), "F": float(layer.F),
+      "macs": float(layer.macs),
+      "ifmap_words": float(layer.ifmap_count),
+      "weight_words": float(layer.weight_count),
+      "of_words": float(layer.ofmap_count),
+  }
+
+
+def _simulate_layer_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
+                          clock_mhz: torch.Tensor) -> LayerStatsBatch:
+  """The batch RS-dataflow formulas over HW columns ``c`` x one layer's
+  features ``f`` (reference: ``dataflow._simulate_layer_feats``)."""
+  pe_rows, pe_cols, n_pe = c["pe_rows"], c["pe_cols"], c["n_pe"]
+  E, K, C, F = f["E"], f["K"], f["C"], f["F"]
+  k_safe = max(K, 1.0)
+
+  # ---- spatial mapping -------------------------------------------------
+  col_folds = torch.ceil(div(E, pe_cols))
+  cols_used = torch.clamp(pe_cols, max=E)
+  k_rows = torch.clamp(pe_rows, max=K)
+  row_folds = torch.ceil(div(K, pe_rows))
+  one_fold = row_folds == 1
+  sets_per_col = torch.where(
+      one_fold, torch.clamp(floor_div(pe_rows, k_rows), min=1.0), 1.0)
+  spatial_util = torch.where(one_fold,
+                             div(k_rows * sets_per_col * cols_used, n_pe),
+                             div(pe_rows * cols_used, n_pe))
+
+  # ---- scratchpad-bounded tiling ----------------------------------------
+  f_tile = torch.clamp(torch.clamp(c["sp_ps"], max=F), min=1.0)
+  c_tile = torch.clamp(torch.clamp(
+      floor_div(c["sp_fw"], torch.clamp(K * f_tile, min=1.0)), max=C),
+      min=1.0)
+  c_tile = torch.clamp(torch.minimum(
+      c_tile, torch.clamp(floor_div(c["sp_if"], k_safe), min=1.0)
+      * sets_per_col), min=1.0)
+  n_c_passes = torch.ceil(div(C, c_tile))
+  n_f_passes = torch.ceil(div(F, f_tile))
+  n_c_passes_eff = torch.ceil(div(n_c_passes, sets_per_col))
+  passes = n_c_passes_eff * n_f_passes * col_folds * row_folds
+
+  # ---- compute cycles ----------------------------------------------------
+  per_pass = E * K * c_tile * f_tile + (K + cols_used)
+  compute_cycles = passes * per_pass
+  ideal_cycles = div(f["macs"], n_pe)
+  compute_cycles = torch.maximum(compute_cycles, ideal_cycles)
+  utilization = torch.clamp(
+      div(ideal_cycles, torch.clamp(compute_cycles, min=1.0)), max=1.0) \
+      * torch.clamp(spatial_util + 1e-9, max=1.0)
+
+  # ---- access counts -----------------------------------------------------
+  macs = f["macs"]
+  spad_writes = macs / k_safe
+  ifmap_words = f["ifmap_words"]
+  gbuf_bits = c["gbuf_kb"] * 1024 * 8
+  ifmap_fits = ifmap_words * c["act_bits"] <= 0.5 * gbuf_bits
+  dram_if = ifmap_words * torch.where(ifmap_fits, 1.0, n_f_passes)
+  gbuf_if_reads = ifmap_words * n_f_passes * row_folds
+  weight_words = f["weight_words"]
+  weights_fit = weight_words * c["weight_bits"] <= 0.25 * gbuf_bits
+  dram_w = weight_words * torch.where(weights_fit, 1.0, col_folds)
+  gbuf_w_reads = weight_words * col_folds
+  of_words = f["of_words"]
+  psum_spills = torch.clamp(n_c_passes_eff - 1.0, min=0.0)
+  dram_of = of_words
+  gbuf_reads = gbuf_if_reads + gbuf_w_reads + of_words * psum_spills
+  gbuf_writes = of_words * (psum_spills + 1.0)
+  dram_reads = dram_if + dram_w
+
+  # ---- bandwidth bound ---------------------------------------------------
+  cycle_s = div(1e-6, clock_mhz)
+  dram_bits = (dram_if * c["act_bits"] + dram_w * c["weight_bits"]
+               + dram_of * c["psum_bits"])
+  dram_time_s = div(div(dram_bits, 8.0), c["bandwidth_gbps"] * 1e9)
+  dram_cycles = div(dram_time_s, cycle_s)
+  dram_stall = torch.clamp(dram_cycles - 0.85 * compute_cycles, min=0.0)
+  cycles = compute_cycles + dram_stall
+
+  return LayerStatsBatch(
+      cycles=cycles, compute_cycles=compute_cycles,
+      dram_stall_cycles=dram_stall, utilization=utilization, macs=macs,
+      spad_writes=spad_writes, gbuf_reads=gbuf_reads,
+      gbuf_writes=gbuf_writes, dram_reads=dram_reads, dram_writes=dram_of)
+
+
+def _layer_energy_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
+                        stats: LayerStatsBatch, clock_mhz: torch.Tensor,
+                        leakage_mw: torch.Tensor) -> torch.Tensor:
+  """Hierarchical energy formulas (pJ per design point; reference:
+  ``dataflow._layer_energy_feats``)."""
+  e = pe_lib.ENERGY_PJ
+  mac_e = stats.macs * c["mac_energy_pj"]
+  k = max(f["K"], 1.0)
+  spad_read_bits = stats.macs * (c["act_bits"] + c["weight_bits"]
+                                 + div(c["psum_bits"], k))
+  spad_write_bits = stats.spad_writes * c["psum_bits"]
+  spad_e = (spad_read_bits + spad_write_bits) * e["spad_access_per_bit"]
+  gbuf_bits = (stats.gbuf_reads + stats.gbuf_writes) * div(
+      c["act_bits"] + c["weight_bits"] + c["psum_bits"], 3.0)
+  gbuf_e = gbuf_bits * e["gbuf_access_per_bit"]
+  dram_bits = (div(stats.dram_reads * (c["act_bits"] + c["weight_bits"]),
+                   2.0)
+               + stats.dram_writes * c["psum_bits"])
+  dram_e = dram_bits * e["dram_access_per_bit"]
+  time_s = div(stats.cycles, clock_mhz * 1e6)
+  leak_e = leakage_mw * 1e-3 * time_s * 1e12  # mW * s -> pJ
+  return mac_e + spad_e + gbuf_e + dram_e + leak_e
+
+
+def simulate_network_batch(c: Dict[str, torch.Tensor],
+                           layers: Sequence[ConvLayer],
+                           clock_mhz: torch.Tensor, leakage_mw: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+  """``(latency_s, energy_mj, utilization)`` per design point; utilization
+  is the cycle-weighted mean over layers."""
+  total_cycles = 0.0
+  total_energy_pj = 0.0
+  util_weighted = 0.0
+  for layer in layers:
+    f = _layer_feats(layer)
+    st = _simulate_layer_feats(c, f, clock_mhz)
+    total_cycles = total_cycles + st.cycles
+    total_energy_pj = total_energy_pj + _layer_energy_feats(
+        c, f, st, clock_mhz, leakage_mw)
+    util_weighted = util_weighted + st.utilization * st.cycles
+  latency_s = div(total_cycles, clock_mhz * 1e6)
+  utilization = div(util_weighted, torch.clamp(total_cycles, min=1e-12))
+  return latency_s, total_energy_pj * 1e-9, utilization  # pJ -> mJ

@@ -1,0 +1,243 @@
+"""Columnar exploration results (host numpy copy of the parts of
+``repro.explore.frame`` the plain sweep uses).
+
+A :class:`ResultFrame` holds latency / power / area / pe_type as parallel
+numpy arrays; ``pareto_mask`` and ``stable_topk_indices`` are the exact
+host selections the streaming reducers merge chunks with.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.dataflow import AcceleratorConfig
+from repro_torch.core.table import ConfigTable
+
+BASE_COLUMNS = ("latency_s", "power_mw", "area_mm2")
+
+# numeric columns derivable from the base metrics alone — the contract
+# the fused device program mirrors op for op (see explore/device.py)
+DERIVED_COLUMNS = ("perf", "perf_per_area", "energy_mj")
+
+# derived columns where "bigger is better" (auto-negated inside pareto())
+_MAXIMIZE_COLUMNS = frozenset({"perf", "perf_per_area"})
+
+
+# ---------------------------------------------------------------------------
+# Pareto machinery (vectorized)
+# ---------------------------------------------------------------------------
+
+def _pareto_mask_2d(obj: np.ndarray) -> np.ndarray:
+  """Exact 2-D front via one lexsort + prefix minima, O(n log n)."""
+  n = obj.shape[0]
+  order = np.lexsort((obj[:, 1], obj[:, 0]))  # by x asc, then y asc
+  xs, ys = obj[order, 0], obj[order, 1]
+  new_x = np.empty(n, np.bool_)
+  new_x[0] = True
+  new_x[1:] = xs[1:] != xs[:-1]
+  group_first = np.flatnonzero(new_x)
+  group_id = np.cumsum(new_x) - 1
+  # min y over all strictly-smaller-x points (dominates if <= our y) and
+  # min y within our own x group (dominates if < our y)
+  prefix_min = np.minimum.accumulate(ys)
+  before = np.full(group_first.shape, np.inf)
+  before[1:] = prefix_min[group_first[1:] - 1]
+  keep = (ys < before[group_id]) & (ys == ys[group_first][group_id])
+  mask = np.empty(n, np.bool_)
+  mask[order] = keep
+  return mask
+
+
+def _pareto_elim_nd(obj: np.ndarray) -> np.ndarray:
+  """General-dimension front by elimination in ascending objective-sum
+  order (the smallest-sum survivor is provably non-dominated), compacting
+  the survivor arrays each step."""
+  n = obj.shape[0]
+  order = np.argsort(obj.sum(axis=1), kind="stable")
+  o = obj[order]
+  pos = np.arange(n)
+  front = np.zeros(n, np.bool_)
+  while pos.size:
+    head = pos[0]
+    front[order[head]] = True
+    rest = pos[1:]
+    sub = o[rest]
+    x = o[head]
+    dominated = np.all(sub >= x, axis=1) & np.any(sub > x, axis=1)
+    pos = rest[~dominated]
+  return front
+
+
+# block size for the divide-and-conquer N-D front
+_ND_BLOCK = 4096
+
+
+def _pareto_mask_nd(obj: np.ndarray) -> np.ndarray:
+  """Block-decomposed general-dimension front: per-block elimination,
+  then recursive elimination over the surviving candidates."""
+  n = obj.shape[0]
+  if n <= _ND_BLOCK:
+    return _pareto_elim_nd(obj)
+  cand = np.concatenate([
+      lo + np.flatnonzero(_pareto_elim_nd(obj[lo:lo + _ND_BLOCK]))
+      for lo in range(0, n, _ND_BLOCK)])
+  if cand.size == n:  # degenerate: every block all-front; no progress
+    return _pareto_elim_nd(obj)
+  mask = np.zeros(n, np.bool_)
+  mask[cand[_pareto_mask_nd(obj[cand])]] = True
+  return mask
+
+
+def stable_topk_indices(key: np.ndarray, k: int,
+                        tie: Optional[np.ndarray] = None) -> np.ndarray:
+  """Indices of the k smallest ``key`` values in stable-sort order
+  (ascending key, ties by ascending ``tie`` — default the index itself),
+  via argpartition + sort-of-k; exactly ``np.argsort(key,
+  kind="stable")[:k]`` with ``tie=None``."""
+  key = np.asarray(key)
+  n = key.shape[0]
+  k = max(int(k), 0)
+  if k == 0:
+    return np.zeros(0, np.int64)
+  tie_of = np.arange(n) if tie is None else np.asarray(tie)
+  if k >= n:
+    sel = np.arange(n)
+    return sel[np.lexsort((tie_of, key))]
+  part = np.argpartition(key, k - 1)[:k]
+  if np.isnan(key[part]).any():  # NaN partitions unreliably; full sort
+    return np.lexsort((tie_of, key))[:k]
+  thresh = key[part].max()
+  strict = np.flatnonzero(key < thresh)
+  ties = np.flatnonzero(key == thresh)
+  need = k - strict.size
+  # boundary ties resolve exactly like the stable sort: smallest tie wins
+  ties = ties[np.argsort(tie_of[ties], kind="stable")[:need]]
+  sel = np.concatenate([strict, ties])
+  return sel[np.lexsort((tie_of[sel], key[sel]))]
+
+
+def pareto_mask(objectives: np.ndarray) -> np.ndarray:
+  """Boolean mask of non-dominated rows; all objectives are MINIMIZED."""
+  obj = np.asarray(objectives, np.float64)
+  if obj.ndim != 2:
+    raise ValueError(f"objectives must be 2-D, got shape {obj.shape}")
+  if obj.shape[0] == 0:
+    return np.zeros(0, np.bool_)
+  if obj.shape[1] == 1:
+    return obj[:, 0] == obj[:, 0].min()
+  if obj.shape[1] == 2:
+    return _pareto_mask_2d(obj)
+  return _pareto_mask_nd(obj)
+
+
+# ---------------------------------------------------------------------------
+# the frame
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class ResultFrame:
+  """Struct-of-arrays over evaluated design points; design points ride
+  along as per-point ``cfgs`` or as a columnar ``table``."""
+  latency_s: np.ndarray
+  power_mw: np.ndarray
+  area_mm2: np.ndarray
+  pe_type: np.ndarray
+  cfgs: Tuple[AcceleratorConfig, ...] = ()
+  network: str = "net"
+  meta: Dict[str, float] = dataclasses.field(default_factory=dict)
+  table: Optional[ConfigTable] = None
+
+  def __post_init__(self):
+    self.latency_s = np.asarray(self.latency_s, np.float64)
+    self.power_mw = np.asarray(self.power_mw, np.float64)
+    self.area_mm2 = np.asarray(self.area_mm2, np.float64)
+    self.pe_type = np.asarray(self.pe_type)
+    self.cfgs = tuple(self.cfgs)
+    n = len(self.latency_s)
+    for name, arr in (("power_mw", self.power_mw),
+                      ("area_mm2", self.area_mm2),
+                      ("pe_type", self.pe_type)):
+      if len(arr) != n:
+        raise ValueError(f"column {name!r} has {len(arr)} rows, expected {n}")
+    if self.cfgs and len(self.cfgs) != n:
+      raise ValueError(f"{len(self.cfgs)} cfgs for {n} rows")
+    if self.table is not None and len(self.table) != n:
+      raise ValueError(f"{len(self.table)}-row table for {n} rows")
+
+  def __len__(self) -> int:
+    return int(self.latency_s.shape[0])
+
+  @property
+  def perf(self) -> np.ndarray:
+    return 1.0 / np.maximum(self.latency_s, 1e-12)
+
+  @property
+  def perf_per_area(self) -> np.ndarray:
+    return self.perf / np.maximum(self.area_mm2, 1e-12)
+
+  @property
+  def energy_mj(self) -> np.ndarray:
+    return self.power_mw * self.latency_s  # mW * s = mJ
+
+  def column(self, name: str) -> np.ndarray:
+    if name in BASE_COLUMNS or name in DERIVED_COLUMNS:
+      return getattr(self, name)
+    if name == "pe_type":
+      return self.pe_type
+    raise KeyError(f"unknown column {name!r}; have base={BASE_COLUMNS}, "
+                   f"derived={DERIVED_COLUMNS}")
+
+  def config_at(self, i: int) -> AcceleratorConfig:
+    """The i-th design point, from ``cfgs`` or the columnar ``table``."""
+    if self.cfgs:
+      return self.cfgs[i]
+    if self.table is not None:
+      return self.table.config_at(i)
+    raise ValueError("frame carries neither cfgs nor a ConfigTable")
+
+  def select(self, index: Union[np.ndarray, Sequence[int]]) -> "ResultFrame":
+    """Sub-frame by boolean mask or integer index array."""
+    idx = np.asarray(index)
+    if idx.dtype == np.bool_:
+      idx = np.flatnonzero(idx)
+    cfgs = tuple(self.cfgs[i] for i in idx) if self.cfgs else ()
+    return ResultFrame(
+        self.latency_s[idx], self.power_mw[idx], self.area_mm2[idx],
+        self.pe_type[idx], cfgs, self.network, dict(self.meta),
+        self.table.select(idx) if self.table is not None else None)
+
+  @classmethod
+  def concat(cls, frames: Sequence["ResultFrame"]) -> "ResultFrame":
+    frames = list(frames)
+    if not frames:
+      raise ValueError("cannot concat zero frames")
+    cfgs = sum((f.cfgs for f in frames), ()) \
+        if all(f.cfgs or not len(f) for f in frames) else ()
+    tables = [f.table for f in frames]
+    table = ConfigTable.concat(tables) \
+        if all(t is not None for t in tables) else None
+    return cls(
+        np.concatenate([f.latency_s for f in frames]),
+        np.concatenate([f.power_mw for f in frames]),
+        np.concatenate([f.area_mm2 for f in frames]),
+        np.concatenate([f.pe_type for f in frames]),
+        cfgs, frames[0].network, table=table)
+
+  def pareto(self, cols: Sequence[str] = ("perf_per_area", "energy_mj"),
+             maximize: Optional[Sequence[str]] = None) -> np.ndarray:
+    """Non-dominated mask over the given columns.  Columns in `maximize`
+    (default: perf/perf_per_area) are negated; the rest minimized."""
+    mx = _MAXIMIZE_COLUMNS if maximize is None else frozenset(maximize)
+    obj = np.stack([-self.column(c) if c in mx else self.column(c)
+                    for c in cols], axis=1)
+    return pareto_mask(obj)
+
+  def top_k(self, k: int, by: str = "perf_per_area",
+            maximize: Optional[bool] = None) -> "ResultFrame":
+    """Sub-frame of the k best rows under one column (best-first order)."""
+    if maximize is None:
+      maximize = by in _MAXIMIZE_COLUMNS
+    vals = self.column(by)
+    return self.select(stable_topk_indices(-vals if maximize else vals, k))

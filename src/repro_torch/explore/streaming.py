@@ -1,0 +1,403 @@
+"""Streaming sweep engine: constant-memory exploration with online
+Pareto / top-k / stats / histogram reduction (the port of
+``repro.explore.streaming``'s plain path).
+
+Chunks come from ``DesignSpace.iter_tables``; each is dispatched to the
+device as a pending handle, and a window of ``DISPATCH_AHEAD`` handles
+stays in flight so host sampling overlaps device execution.  Every
+accumulator is chunk-order invariant and emits survivors in global row
+order, so streamed fronts and top-k are bit-identical to the one-shot
+frame's ``pareto``/``top_k`` on the same sweep.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.explore.frame import (_MAXIMIZE_COLUMNS, ResultFrame,
+                                       pareto_mask, stable_topk_indices)
+from repro_torch.explore.resilience import ChunkError, ChunkTask, Rung
+from repro_torch.explore.space import DesignSpace
+
+# how many device chunks stay in flight: chunk n+ahead is sampled and
+# dispatched while the device still runs chunk n
+DISPATCH_AHEAD = 2
+
+
+def _empty_frame() -> ResultFrame:
+  z = np.zeros(0)
+  return ResultFrame(z, z, z, np.zeros(0, dtype="<U1"))
+
+
+# ---------------------------------------------------------------------------
+# reducers
+# ---------------------------------------------------------------------------
+
+class Reducer:
+  """Online reduction over evaluated chunks.
+
+  ``fold(frame, indices)`` consumes one chunk (``indices`` are the
+  chunk's global row ids); ``result()`` emits the reduction.  Fusable
+  reducers also implement ``device_spec()`` (what the fused device
+  program computes per chunk) and ``fold_payload(payload)``.
+  """
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    raise NotImplementedError
+
+  def result(self):
+    raise NotImplementedError
+
+  def device_spec(self):
+    """The fused-device request, or None when this reducer needs full
+    chunks."""
+    return None
+
+  def fold_payload(self, payload) -> None:
+    """Consume one fused-chunk payload; the default handles the
+    ``("rows", frame, indices)`` form of every row-keeping reducer."""
+    kind, frame, indices = payload
+    if kind != "rows":
+      raise ValueError(f"{type(self).__name__} cannot fold {kind!r}")
+    self.fold(frame, indices)
+
+
+class ParetoAccumulator(Reducer):
+  """Online non-dominated front over the given columns: per-chunk
+  ``pareto_mask``, then a front-vs-front merge with the running front.
+  ``result()`` is a survivors-only frame in global row order."""
+
+  def __init__(self, cols: Sequence[str] = ("perf_per_area", "energy_mj"),
+               maximize: Optional[Sequence[str]] = None):
+    self.cols = tuple(cols)
+    self._mx = _MAXIMIZE_COLUMNS if maximize is None else frozenset(maximize)
+    self._obj: Optional[np.ndarray] = None
+    self._idx = np.zeros(0, np.int64)
+    self._frame: Optional[ResultFrame] = None
+
+  def _objectives(self, frame: ResultFrame) -> np.ndarray:
+    return np.stack([-frame.column(c) if c in self._mx else frame.column(c)
+                     for c in self.cols], axis=1).astype(np.float64)
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    if not len(frame):
+      return
+    obj = self._objectives(frame)
+    keep = np.flatnonzero(pareto_mask(obj))
+    cand_obj = obj[keep]
+    cand_idx = np.asarray(indices, np.int64)[keep]
+    cand_frame = frame.select(keep)
+    if self._frame is not None:
+      cand_obj = np.concatenate([self._obj, cand_obj])
+      cand_idx = np.concatenate([self._idx, cand_idx])
+      cand_frame = ResultFrame.concat([self._frame, cand_frame])
+    sel = np.flatnonzero(pareto_mask(cand_obj))
+    self._obj = cand_obj[sel]
+    self._idx = cand_idx[sel]
+    self._frame = cand_frame.select(sel)
+
+  @property
+  def indices(self) -> np.ndarray:
+    """Global row ids of the current front, ascending."""
+    return np.sort(self._idx)
+
+  def device_spec(self):
+    from repro_torch.explore.device import ParetoSpec
+    return ParetoSpec(self.cols,
+                      tuple(c for c in self.cols if c in self._mx))
+
+  def result(self) -> ResultFrame:
+    if self._frame is None:
+      return _empty_frame()
+    return self._frame.select(np.argsort(self._idx, kind="stable"))
+
+
+class TopKAccumulator(Reducer):
+  """Online k-best rows under one column (ties broken by global row id);
+  ``result()`` is a best-first frame equal to ``frame.top_k(k, by)``."""
+
+  def __init__(self, k: int, by: str = "perf_per_area",
+               maximize: Optional[bool] = None):
+    if k <= 0:
+      raise ValueError(f"k must be positive, got {k}")
+    self.k = int(k)
+    self.by = by
+    self.maximize = by in _MAXIMIZE_COLUMNS if maximize is None else maximize
+    self._key = np.zeros(0, np.float64)
+    self._idx = np.zeros(0, np.int64)
+    self._frame: Optional[ResultFrame] = None
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    if not len(frame):
+      return
+    vals = np.asarray(frame.column(self.by), np.float64)
+    key = -vals if self.maximize else vals
+    idx = np.asarray(indices, np.int64)
+    loc = stable_topk_indices(key, self.k, tie=idx)
+    cand_key = np.concatenate([self._key, key[loc]])
+    cand_idx = np.concatenate([self._idx, idx[loc]])
+    sub = frame.select(loc)
+    cand_frame = sub if self._frame is None \
+        else ResultFrame.concat([self._frame, sub])
+    sel = stable_topk_indices(cand_key, self.k, tie=cand_idx)
+    self._key = cand_key[sel]
+    self._idx = cand_idx[sel]
+    self._frame = cand_frame.select(sel)
+
+  @property
+  def indices(self) -> np.ndarray:
+    """Global row ids of the current k-best, best-first."""
+    return self._idx.copy()
+
+  def device_spec(self):
+    from repro_torch.explore.device import TopKSpec
+    return TopKSpec(self.by, self.k, self.maximize)
+
+  def result(self) -> ResultFrame:
+    return self._frame if self._frame is not None else _empty_frame()
+
+
+class StatsAccumulator(Reducer):
+  """Streaming count/mean/std/min/max of one column (Chan's parallel
+  Welford merge: exact min/max/count, float-associativity-level mean and
+  std)."""
+
+  def __init__(self, col: str):
+    self.col = col
+    self.n = 0
+    self._mean = 0.0
+    self._m2 = 0.0
+    self._min = np.inf
+    self._max = -np.inf
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    v = np.asarray(frame.column(self.col), np.float64)
+    if not v.size:
+      return
+    mean_b = float(v.mean())
+    m2_b = 0.0 if v.size == 1 else float(((v - mean_b) ** 2).sum())
+    self._merge(v.size, mean_b, m2_b, float(v.min()), float(v.max()))
+
+  def _merge(self, n_b: int, mean_b: float, m2_b: float, min_b: float,
+             max_b: float) -> None:
+    if not self.n:
+      # adopt the first partial directly (NaN-free for +-inf means)
+      self.n = n_b
+      self._mean = mean_b
+      self._m2 += m2_b
+      self._min = min(self._min, min_b)
+      self._max = max(self._max, max_b)
+      return
+    delta = mean_b - self._mean
+    total = self.n + n_b
+    self._m2 += m2_b + delta * delta * self.n * n_b / total
+    self._mean += delta * n_b / total
+    self.n = total
+    self._min = min(self._min, min_b)
+    self._max = max(self._max, max_b)
+
+  def device_spec(self):
+    from repro_torch.explore.device import StatsSpec
+    return StatsSpec(self.col)
+
+  def fold_payload(self, payload) -> None:
+    kind, data = payload[0], payload[1]
+    if kind != "stats":
+      return super().fold_payload(payload)
+    if data["n"]:
+      self._merge(data["n"], data["mean"], data["m2"], data["min"],
+                  data["max"])
+
+  def result(self) -> Dict[str, float]:
+    if not self.n:
+      return {k: float("nan")
+              for k in ("count", "mean", "std", "min", "max")}
+    return {"count": float(self.n), "mean": self._mean,
+            "std": float(np.sqrt(self._m2 / self.n)),
+            "min": self._min, "max": self._max}
+
+
+class HistogramAccumulator(Reducer):
+  """Streaming fixed-range histogram of one column; values outside
+  ``(lo, hi)`` are clipped into the edge bins."""
+
+  def __init__(self, col: str, lo: float, hi: float, bins: int = 64):
+    if not hi > lo:
+      raise ValueError(f"need hi > lo, got ({lo}, {hi})")
+    if bins <= 0:
+      raise ValueError(f"bins must be positive, got {bins}")
+    self.col = col
+    self.edges = np.linspace(float(lo), float(hi), int(bins) + 1)
+    self.counts = np.zeros(int(bins), np.int64)
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    v = np.asarray(frame.column(self.col), np.float64)
+    if not v.size:
+      return
+    v = np.clip(v, self.edges[0], self.edges[-1])
+    self.counts += np.histogram(v, bins=self.edges)[0]
+
+  def device_spec(self):
+    from repro_torch.explore.device import HistSpec
+    return HistSpec(self.col, float(self.edges[0]), float(self.edges[-1]),
+                    len(self.counts))
+
+  def fold_payload(self, payload) -> None:
+    kind, data = payload[0], payload[1]
+    if kind != "hist":
+      return super().fold_payload(payload)
+    self.counts += np.asarray(data, np.int64)
+
+  def result(self) -> Dict[str, np.ndarray]:
+    return {"counts": self.counts.copy(), "edges": self.edges.copy()}
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamResult:
+  """Outcome of a streaming sweep: one entry per reducer (by name) plus
+  run stats."""
+  results: Dict[str, object]
+  n_rows: int
+  seconds: float
+  meta: Dict[str, float]
+
+  def __getitem__(self, name: str):
+    return self.results[name]
+
+
+def new_counters() -> Dict[str, int]:
+  return {"n_rows": 0, "n_chunks": 0, "n_transferred": 0,
+          "n_overflows": 0, "n_retries": 0, "n_demotions": 0}
+
+
+def fold_chunk(reducers: Dict[str, Reducer], counters: Dict[str, int],
+               result) -> None:
+  """Resolve (if pending) and fold one completed chunk into every
+  reducer, updating ``counters``."""
+  if hasattr(result, "resolve"):
+    result = result.resolve()
+  counters["n_chunks"] += 1
+  payloads = getattr(result, "payloads", None)
+  if payloads is not None:  # a device FusedChunk
+    counters["n_rows"] += result.n_rows
+    counters["n_transferred"] += result.n_transferred
+    counters["n_overflows"] += result.n_overflows
+    for name, payload in payloads.items():
+      reducers[name].fold_payload(payload)
+    return
+  frame, indices = result
+  counters["n_rows"] += len(frame)
+  counters["n_transferred"] += len(frame)
+  for r in reducers.values():
+    r.fold(frame, indices)
+
+
+def run_stream(tasks: Iterable[ChunkTask],
+               reducers: Dict[str, Reducer]) -> StreamResult:
+  """Drain ``tasks`` (each producing one evaluated chunk), folding every
+  reducer as chunks complete.  Pending handles wait in a window of
+  ``DISPATCH_AHEAD`` before they are resolved, so the host prepares the
+  next chunks while the device runs earlier ones.  A failing chunk
+  raises :class:`ChunkError` carrying its global index."""
+  t0 = time.perf_counter()
+  counters = new_counters()
+
+  def finish(index, result) -> None:
+    try:
+      fold_chunk(reducers, counters, result)
+    except Exception as e:
+      raise ChunkError(index, f"{type(e).__name__}: {e}") from e
+
+  window: "deque" = deque()
+  for i, task in enumerate(tasks):
+    index = getattr(task, "index", i)
+    try:
+      res = task()
+    except Exception as e:
+      raise ChunkError(index, f"{type(e).__name__}: {e}") from e
+    if hasattr(res, "resolve"):
+      window.append((index, res))
+      if len(window) > DISPATCH_AHEAD:
+        finish(*window.popleft())
+    else:
+      finish(index, res)
+  while window:
+    finish(*window.popleft())
+  seconds = time.perf_counter() - t0
+  meta = {"seconds": seconds,
+          "n_chunks": float(counters["n_chunks"]),
+          "rows_transferred": float(counters["n_transferred"]),
+          "rows_per_sec": counters["n_rows"] / max(seconds, 1e-12),
+          "n_retries": float(counters["n_retries"]),
+          "n_demotions": float(counters["n_demotions"]),
+          "n_overflows": float(counters["n_overflows"])}
+  return StreamResult(
+      results={name: r.result() for name, r in reducers.items()},
+      n_rows=counters["n_rows"], seconds=seconds, meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# drivers
+# ---------------------------------------------------------------------------
+
+def default_explore_reducers() -> Dict[str, Reducer]:
+  """The paper's default plain-sweep reduction plan."""
+  return {"pareto": ParetoAccumulator()}
+
+
+def explore_tasks(backend, space: DesignSpace, layers, network: str,
+                  n_per_type: int, seed: int, method: str, chunk_size: int,
+                  reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
+  """The chunk tasks of a plain streamed sweep.  Each carries the
+  backend's device rungs only: ``fused-device`` when every reducer is
+  fusable, then ``device`` (there is no host rung to degrade to)."""
+  from repro_torch.explore.device import build_plan
+  plan = build_plan(reducers)
+  layers = tuple(layers)
+
+  def make_task(chunk, idx, ci) -> ChunkTask:
+    rungs = []
+    if plan is not None:
+      rungs.append(Rung(
+          "fused-device",
+          lambda: backend.fused_eval_pending(chunk, layers, network, plan,
+                                             idx),
+          layer="device"))
+    rungs.append(Rung(
+        "device", lambda: backend.eval_pending(chunk, layers, network, idx),
+        layer="device"))
+    return ChunkTask(index=ci, rungs=tuple(rungs))
+
+  def gen() -> Iterator[ChunkTask]:
+    offset = 0
+    for ci, chunk in enumerate(
+        space.iter_tables(n_per_type, seed=seed, method=method,
+                          chunk_size=chunk_size)):
+      idx = np.arange(offset, offset + len(chunk), dtype=np.int64)
+      offset += len(chunk)
+      yield make_task(chunk, idx, ci)
+
+  return gen()
+
+
+def stream_explore(backend, space: DesignSpace, layers, network: str = "net",
+                   n_per_type: int = 200, seed: int = 17,
+                   method: str = "random",
+                   reducers: Optional[Dict[str, Reducer]] = None,
+                   chunk_size: int = 65536) -> StreamResult:
+  """Sample -> evaluate -> reduce a plain HW sweep in bounded memory.
+  Global row ids follow the one-shot sample order, so survivors match the
+  one-shot frame row for row."""
+  if reducers is None:
+    reducers = default_explore_reducers()
+  return run_stream(explore_tasks(backend, space, layers, network,
+                                  n_per_type, seed, method, chunk_size,
+                                  reducers), reducers)
