@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's design-space sweep on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep
+and serving qwen3-0.6b with an int8 KV cache.
 
 Run from the root of a checkout on a machine with an H100 (or another
 sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
@@ -8,17 +9,22 @@ sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
 
 It builds the CUDA kernels from ``src/repro_torch`` (into ``build/``),
 checks exact float64 arithmetic on the card, holds each kernel against
-its plain torch version at the sweep's shapes and times both, runs the
+its plain torch version at its path's shapes and times both, runs the
 paper's full design space at 1,000,000 designs through
 ``ExplorationSession(TorchOracleBackend()).explore(..., stream=True)``
-and checks that sweep against the same code on the CPU.  Any failure
-raises, so the exit code is non-zero; without a CUDA device, or without
-the package beside it, the script stops before printing any result.
-The last line of its output is one JSON object naming the device.
+and checks that sweep against the same code on the CPU.  Then it serves
+eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
+weights from seed 0) through ``ServeEngine``, twice, and holds a
+two-layer float32 copy of the model on the card to the same model on the
+CPU.  Any failure raises, so the exit code is non-zero; without a CUDA
+device, or without the package beside it, the script stops before
+printing any result.  The last line of its output is one JSON object
+naming the device.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -27,44 +33,84 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 bandwidth and the FP64 (non-tensor-core)
-# rate; a float64 compare is counted as one FP64 operation
+# H100 SXM data sheet: HBM3 bandwidth, the FP64 (non-tensor-core) rate
+# (a float64 compare is counted as one FP64 operation), the dense bf16
+# tensor-core rate and the float32 non-tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
+PEAK_BF16_PER_S = 989e12
+PEAK_FP32_PER_S = 67e12
 
 K1_SHAPE = (3, 65536, 128)  # D, N (one sweep chunk), block
 K2_SHAPE = (3, 4096)        # D, N (the survivor cap)
 SWEEP_PER_TYPE = 250_000    # x 4 paper PE types = 1,000,000 designs
 SWEEP_CHUNK = 65536
 
+# serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
+# K5 decode shape (one slot's cache of 2,048 positions) and the traffic
+K6_SHAPE = (1, 512, 16, 8, 128)       # B, S, H, Hkv, D
+K6_WINDOW = 128
+K5_SHAPE = (1, 16, 8, 2048, 128)      # B, H, Hkv, S, D
+K5_LENGTHS = (1, 300, 2048)
+K5_COLD_CACHES = 16                    # x 4.3 MB: more than the 50 MB L2
+SERVE_REQUESTS = 8
+SERVE_NEW_TOKENS = 32
+SERVE_ENGINE = dict(batch_slots=4, max_len=2048, prompt_bucket=512)
+PARITY_LAYERS = 2
+
 
 def log(msg: str = "") -> None:
   print(msg, flush=True)
 
 
-def cuda_ms(fn, samples: int = 25, inner: int = 10, warmup: int = 3) -> float:
-  """Median device time of one ``fn()`` call, from CUDA events around
-  ``inner`` back-to-back calls (so host launch overhead overlaps)."""
+def capture(fn, warmup: int = 2):
+  """``fn`` captured as one CUDA graph, after ``warmup`` eager calls on a
+  side stream (as capture asks); returns the graph and ``fn``'s result
+  from the capture, which each replay rewrites."""
   import torch
-  for _ in range(warmup):
-    fn()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(warmup):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = fn()
+  return graph, out
+
+
+def replay_ms(graph, samples: int = 25) -> float:
+  """Median time of one replay of ``graph`` between CUDA events."""
+  import torch
+  graph.replay()
   torch.cuda.synchronize()
   times = []
   for _ in range(samples):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(inner):
-      fn()
+    graph.replay()
     end.record()
     end.synchronize()
-    times.append(start.elapsed_time(end) / inner)
+    times.append(start.elapsed_time(end))
   return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def cuda_ms(fn, samples: int = 25, inner: int = 10) -> float:
+  """Median device time of one ``fn()`` call: ``inner`` back-to-back calls
+  are captured as one CUDA graph and its replays timed, so the host's
+  launch cost, which is not the kernel's, is left out."""
+  def calls():
+    for _ in range(inner):
+      fn()
+  graph, _ = capture(calls)
+  return replay_ms(graph, samples) / inner
+
+
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP64_PER_S):
   t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-  t_ops = n_ops / PEAK_FP64_PER_S * 1e3
+  t_ops = n_ops / peak_ops * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -98,9 +144,14 @@ def phase_setup():
   built = _build.build_all()
   log(f"[build] {len(built)} source(s) compiled in "
       f"{time.perf_counter() - t0:.2f} s: {sorted(built)}")
-  for line in _build.build_log("pareto_front").splitlines():
-    if "registers" in line or "spill" in line or "Compiling" in line:
-      log(f"[build] {line.strip()}")
+  for src in _build.sources():
+    text = _build.build_log(src.stem)
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    spills = [line.strip() for line in text.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    log(f"[build] {src.name}: {len(regs)} kernels, at most "
+        f"{max(regs, default=0)} registers a thread, "
+        f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}")
   return smi
 
 
@@ -272,15 +323,9 @@ def phase_breakdown(layers):
   for name, host_ms, event_ms in rows:
     log(f"[breakdown] {name}: host {host_ms:.3f} ms, events {event_ms:.3f} ms")
 
-  side = torch.cuda.Stream()
-  side.wait_stream(torch.cuda.current_stream())
-  with torch.cuda.stream(side):
-    oracle.characterize_batch(placed, layers)  # warm-up before capture
-  torch.cuda.current_stream().wait_stream(side)
-  graph = torch.cuda.CUDAGraph()
-  with torch.cuda.graph(graph):
-    captured = oracle.characterize_batch(placed, layers)
-  graph_ms = cuda_ms(graph.replay, samples=10, inner=3)
+  graph, captured = capture(lambda: oracle.characterize_batch(placed,
+                                                              layers))
+  graph_ms = replay_ms(graph, samples=10)
   for f in ("latency_s", "power_mw", "area_mm2"):
     if not torch.equal(getattr(captured, f), getattr(ch, f)):
       raise AssertionError(f"graph replay changed {f}")
@@ -350,6 +395,396 @@ def phase_parity(layers, sweep):
   return rel
 
 
+# ---------------------------------------------------------------------------
+# serving: K6, K5, the engine, and the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _randn(rng, shape, dtype):
+  import numpy as np
+  import torch
+  return torch.from_numpy(rng.standard_normal(shape).astype("float32")).to(
+      device="cuda", dtype=dtype)
+
+
+def _live_pairs(s: int, causal: bool, window: int) -> int:
+  """(query, key) pairs the mask keeps: the work the data needs."""
+  total = 0
+  for i in range(s):
+    lo = max(0, i - window + 1) if window else 0
+    total += (i + 1 if causal else s) - lo
+  return total
+
+
+def _reference_bf16_rounding(q, k, v):
+  """Causal attention rounded where the reference's model attention
+  rounds in bf16 (``models/attention.py``): q is scaled in bf16 and p is
+  cast to bf16 before an f32-accumulated PV.  The reference takes keys in
+  chunks of 512, so for S <= 512 its online softmax is this plain one."""
+  import torch
+  s, h, d = q.shape[1], q.shape[2], q.shape[3]
+  g = h // k.shape[2]
+  qs = (q * (1.0 / d ** 0.5)).float().transpose(1, 2)      # (B, H, S, D)
+  kf = k.repeat_interleave(g, dim=2).float().transpose(1, 2)
+  vf = v.repeat_interleave(g, dim=2).float().transpose(1, 2)
+  scores = qs @ kf.transpose(-1, -2)
+  mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+  scores = torch.where(mask, scores, -1e30)
+  p = torch.exp(scores - scores.amax(-1, keepdim=True))
+  out = (p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True)
+  return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def phase_attention_kernels():
+  """K6 and K5 vs their plain versions on the card, at serving shapes."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+  from repro_torch.kernels.flash_attention import ops as fa
+  from repro_torch.kernels.quant_decode_attn import ops as qda
+  results = {}
+  b, s, h, hkv, d = K6_SHAPE
+  rng = np.random.RandomState(6)
+  for dtype, window in ((torch.bfloat16, 0), (torch.float32, 0),
+                        (torch.bfloat16, K6_WINDOW)):
+    q = _randn(rng, (b, s, h, d), dtype)
+    kv = _randn(rng, (b, s, 2, hkv, d), dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model passes v
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_reference(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-4 * scale:
+      raise AssertionError(f"K6 differs from its plain version: {err} "
+                           f"(max |out| {scale})")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                            window=window))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=True, window=window), inner=2)
+    es = q.element_size()
+    n_bytes = (b * s * h * d + 2 * b * s * hkv * d) * es + b * s * h * d * 4
+    n_ops = 4 * _live_pairs(s, True, window) * b * h * d
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
+    lib_ms = None
+    if not window:
+      qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+      lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+          qt, kt, vt, is_causal=True, enable_gqa=True))
+    tag = f"{str(dtype).split('.')[-1]} {'window ' + str(window) if window else 'causal'}"
+    log(f"[K6] B={b} S={s} H={h} Hkv={hkv} D={d} {tag}: max_abs_err "
+        f"{err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of it); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP), "
+        f"library (scaled_dot_product_attention) "
+        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not timed (window)'}")
+    if dtype == torch.bfloat16 and not window:
+      model_out = got.to(torch.bfloat16).float()   # as the model casts it
+      ref_out = _reference_bf16_rounding(q, k, v).float()
+      gap = float((model_out - ref_out).abs().max() / ref_out.abs().max())
+      log(f"[K6] bf16 gap: the model's K6 attention in bf16 vs the same "
+          f"attention rounded where the reference rounds (q scaled in bf16, "
+          f"p cast to bf16 before PV): max |diff| / max |out| = {gap:.3g} "
+          f"(bf16 keeps 8 bits: 2^-8 = 3.9e-3; failing above 3e-2)")
+      if not gap <= 3e-2:
+        raise AssertionError(f"K6's bf16 gap to the reference's rounding is "
+                             f"{gap}")
+      results["flash_attention"] = dict(
+          name="flash_attention (K6)", route="cuda",
+          source="src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu",
+          replaces="src/repro/kernels/flash_attention/kernel.py:78",
+          on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+  b, h, hkv, s, d = K5_SHAPE
+  q = _randn(rng, (b, h, d), torch.bfloat16)
+  # In a decode step each layer's cache was last read a whole step ago, with
+  # the other layers' caches and 1.2 GB of weights read since: K5 finds it
+  # cold.  So the timings cycle through enough caches to overflow the
+  # 50 MB L2 and count one call on each.
+  caches = [qda.quantize_kv(_randn(rng, (b, hkv, s, d), torch.float32),
+                            _randn(rng, (b, hkv, s, d), torch.float32))
+            for _ in range(K5_COLD_CACHES)]
+  cache = caches[0]
+  for n in K5_LENGTHS:
+    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    got = qda.quant_decode_attn(q, *cache, lens)
+    want = qda.quant_decode_attn_reference(q, *cache, lens)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-4 * scale:
+      raise AssertionError(f"K5 differs from its plain version at length "
+                           f"{n}: {err} (max |out| {scale})")
+    ms = cuda_ms(lambda: [qda.quant_decode_attn(q, *c, lens)
+                          for c in caches], inner=1) / len(caches)
+    plain_ms = cuda_ms(lambda: [qda.quant_decode_attn_reference(q, *c, lens)
+                                for c in caches], inner=1) / len(caches)
+    n_bytes = (b * h * d * 2 + 2 * b * hkv * n * (d + 4) + b * 4
+               + b * h * d * 4)
+    n_ops = 4 * b * h * n * d + 2 * b * hkv * n * d
+    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
+    log(f"[K5] B={b} H={h} Hkv={hkv} S={s} D={d} bf16 q, length {n}: "
+        f"max_abs_err {err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of "
+        f"it); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (each over "
+        f"{len(caches)} caches in turn: cold in L2), bound {b_ms:.3g} ms "
+        f"({b_by}: {n_bytes / 1e6:.3f} MB)")
+    if n == s:
+      results["quant_decode_attn"] = dict(
+          name="quant_decode_attn (K5)", route="cuda",
+          source="src/repro_torch/kernels/quant_decode_attn/csrc/"
+                 "quant_decode_attn.cu",
+          replaces="src/repro/kernels/quant_decode_attn/kernel.py:68",
+          on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          library_note="no single PyTorch call attends over int8 codes "
+                       "with per-position scales")
+  log("[K5] library: none (no single PyTorch call attends over int8 codes "
+      "with per-position scales)")
+  return results
+
+
+def serve_prompts(vocab: int):
+  import numpy as np
+  rng = np.random.RandomState(0)
+  lengths = rng.randint(64, 513, size=SERVE_REQUESTS)
+  return [rng.randint(0, vocab, size=n) for n in lengths]
+
+
+def _timed(fn, rows):
+  """``fn`` with its host time and CUDA-event time recorded per call.  It
+  synchronizes after the call; the engine reads the logits right after
+  every call anyway, so the sync adds no wait of its own."""
+  import torch
+
+  def call(*args):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    rows.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end)))
+    return out
+  return call
+
+
+def serve_once(model, params, prompts):
+  import torch
+  from repro_torch.kernels.flash_attention import kernel as fa_kernel
+  from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
+  from repro_torch.serve import EngineConfig, ServeEngine
+  engine = ServeEngine(model, params, EngineConfig(**SERVE_ENGINE))
+  pre, dec = [], []
+  engine._prefill = _timed(engine._prefill, pre)
+  engine._decode = _timed(engine._decode, dec)
+  for p in prompts:
+    engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+  fa_kernel.reset_launch_counts()
+  qda_kernel.reset_launch_counts()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = engine.run_until_drained()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {"flash_attention": fa_kernel.LAUNCHES["flash_attention"],
+              "quant_decode_attn": qda_kernel.LAUNCHES["quant_decode_attn"]}
+  return out, wall, pre, dec, launches
+
+
+def phase_serve():
+  """The main path of serving: full-width qwen3-0.6b, bf16, int8 KV cache,
+  eight requests through ServeEngine, twice."""
+  import dataclasses
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), kv_quant="int8")
+  model = build_model(cfg)
+  t0 = time.perf_counter()
+  params = model.init(0)
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in params.parameters())
+  log(f"[serve] qwen3-0.6b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+      f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, "
+      f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
+      f"kv_quant {cfg.kv_quant}; {n_params:,} parameters initialised from "
+      f"seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+  prompts = serve_prompts(cfg.vocab_size)
+  log(f"[serve] {len(prompts)} requests, prompt lengths "
+      f"{[len(p) for p in prompts]}, {SERVE_NEW_TOKENS} new tokens each, "
+      f"engine {SERVE_ENGINE}")
+  runs = []
+  for run in (1, 2):
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, pre, dec, launches = serve_once(model, params, prompts)
+    runs.append(out)
+    n_tokens = sum(len(t) for t in out.values())
+    log(f"[serve] run {run}: {n_tokens} tokens in {wall:.3f} s = "
+        f"{n_tokens / wall:.2f} tokens/s; prefill per request: host "
+        f"{statistics.median(r[0] for r in pre):.3f} ms, events "
+        f"{statistics.median(r[1] for r in pre):.3f} ms (medians of "
+        f"{len(pre)}); decode per token: host "
+        f"{statistics.median(r[0] for r in dec):.3f} ms, events "
+        f"{statistics.median(r[1] for r in dec):.3f} ms (medians of "
+        f"{len(dec)}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    want_k6 = cfg.n_layers * SERVE_REQUESTS
+    want_k5 = cfg.n_layers * SERVE_REQUESTS * (SERVE_NEW_TOKENS - 1)
+    if launches != {"flash_attention": want_k6, "quant_decode_attn": want_k5}:
+      raise AssertionError(f"expected K6 {want_k6} and K5 {want_k5} "
+                           f"launches, got {launches}")
+    if sorted(out) != list(range(1, SERVE_REQUESTS + 1)) or any(
+        len(t) != SERVE_NEW_TOKENS or not all(0 <= x < cfg.vocab_size
+                                               for x in t)
+        for t in out.values()):
+      raise AssertionError(f"bad generations: {out}")
+    if run == 1:
+      main_launches = launches
+  if runs[0] != runs[1]:
+    raise AssertionError("a second run gave other tokens")
+  log(f"[serve] the second run gave the same {SERVE_REQUESTS} x "
+      f"{SERVE_NEW_TOKENS} tokens; first tokens: "
+      f"{[runs[0][u][:4] for u in sorted(runs[0])][:3]}")
+  phase_decode_graph(model, params, prompts[0],
+                     statistics.median(r[1] for r in dec))
+  return main_launches
+
+
+PROFILE_GROUPS = (("K5", ("quant_decode",)), ("K6", ("flash_fwd",)),
+                  ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
+                              "nvjet")))
+PROFILE_TOP = 8   # kernels listed by name, the most device time first
+
+
+def _device_profile(name, fn):
+  """Device work of one ``fn()`` call by kernel group, from
+  ``torch.profiler``: operation count and summed device time per group.
+  Prints "not measured" when the profiler records no device time."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  groups, kernels = {}, []
+  for e in prof.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    if e.self_device_time_total <= 0:
+      continue
+    key = next((g for g, words in PROFILE_GROUPS
+                if any(w in e.key.lower() for w in words)), "other")
+    n, us = groups.get(key, (0, 0.0))
+    groups[key] = (n + e.count, us + e.self_device_time_total)
+    kernels.append((e.self_device_time_total, e.count, e.key))
+  if not groups:
+    log(f"[serve-profile] {name}: not measured (the profiler recorded no "
+        "device time)")
+    return
+  total_n = sum(n for n, _ in groups.values())
+  total_us = sum(us for _, us in groups.values())
+  parts = "; ".join(f"{g} {n} ops {us / 1e3:.3f} ms ({us / total_us:.1%})"
+                    for g, (n, us) in sorted(groups.items(),
+                                             key=lambda kv: -kv[1][1]))
+  log(f"[serve-profile] {name}: {total_n} device operations, "
+      f"{total_us / 1e3:.3f} ms of device time: {parts}")
+  for us, n, key in sorted(kernels, reverse=True)[:PROFILE_TOP]:
+    log(f"[serve-profile]   {us / 1e3:.3f} ms in {n} x {key[:90]}")
+
+
+def phase_decode_graph(model, params, prompt, eager_ms):
+  """One decode step captured as a CUDA graph: its replay time is the
+  step's device time without launch gaps, so replay / eager is the share
+  of an eager step the card is busy."""
+  import numpy as np
+  import torch
+  bucket = SERVE_ENGINE["prompt_bucket"]
+  toks = np.concatenate([np.full(bucket - len(prompt), prompt[0]), prompt])
+  toks = torch.from_numpy(toks[None].astype(np.int32)).cuda()
+  _, cache = model.prefill(params, toks, SERVE_ENGINE["max_len"])
+  tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+  def one_step():  # the step rewrites one slot and reads 513 positions
+    cache["length"] = bucket
+    return model.decode_step(params, tok, cache)[0]
+  graph, logits = capture(one_step)
+  graph_ms = replay_ms(graph, samples=10)
+  cache["length"] = bucket
+  eager, _ = model.decode_step(params, tok, cache)
+  graph.replay()
+  torch.cuda.synchronize()
+  diff = float((logits.float() - eager.float()).abs().max()
+               / eager.float().abs().max())
+  if diff > 1e-2:
+    raise AssertionError(f"the captured decode step gives other logits: "
+                         f"{diff}")
+  log(f"[serve-breakdown] one decode step at length {bucket} as a CUDA graph "
+      f"replay (logits within {diff:.3g} of the eager step's, relative): "
+      f"{graph_ms:.3f} ms on the card; eager median {eager_ms:.3f} "
+      f"ms between events, so the card is busy {graph_ms / eager_ms:.1%} of "
+      "an eager step (the rest is launch overhead)")
+  _device_profile(f"one eager decode step at length {bucket}", one_step)
+  _device_profile(f"one {bucket}-token prefill",
+                  lambda: model.prefill(params, toks, SERVE_ENGINE["max_len"]))
+
+
+def phase_serve_parity():
+  """Full-width qwen3-0.6b in float32, depth cut to two layers: the card
+  against the CPU on the same weights, TF32 off."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  from repro_torch.serve import EngineConfig, ServeEngine
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), kv_quant="int8",
+                            dtype="float32", n_layers=PARITY_LAYERS)
+  gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
+  gpu_params = gpu_model.init(0)
+  cpu_params = cpu_model.from_state(
+      {k: v.cpu() for k, v in gpu_params.state_dict().items()})
+  prompts = serve_prompts(cfg.vocab_size)
+  bucket = SERVE_ENGINE["prompt_bucket"]
+  p = prompts[0]
+  toks = torch.from_numpy(np.concatenate(
+      [np.full(bucket - len(p), p[0]), p])[None].astype(np.int32))
+  errs = []
+  want, cpu_cache = cpu_model.prefill(cpu_params, toks, SERVE_ENGINE["max_len"])
+  got, gpu_cache = gpu_model.prefill(gpu_params, toks.cuda(),
+                                     SERVE_ENGINE["max_len"])
+  errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
+  same = [int(got.argmax()) == int(want.argmax())]
+  for _ in range(4):
+    nxt = want.argmax(-1).to(torch.int32)
+    want, _ = cpu_model.decode_step(cpu_params, nxt, cpu_cache)
+    got, _ = gpu_model.decode_step(gpu_params, nxt.cuda(), gpu_cache)
+    errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
+    same.append(int(got.argmax()) == int(want.argmax()))
+  runs = {}
+  for device, model, params in (("cuda", gpu_model, gpu_params),
+                                ("cpu", cpu_model, cpu_params)):
+    engine = ServeEngine(model, params, EngineConfig(**SERVE_ENGINE),
+                         device=device)
+    for q in prompts[:2]:
+      engine.submit(q, max_new_tokens=8)
+    runs[device] = engine.run_until_drained()
+  log(f"[serve-parity] qwen3-0.6b at full width, float32, {PARITY_LAYERS} "
+      f"layers, int8 KV, TF32 off: card vs CPU logits, prefill then 4 decode "
+      f"steps, max |diff| / max |logit| = {[f'{e:.3g}' for e in errs]} "
+      f"(tolerance 1e-3); greedy tokens equal {same}; engine, 2 requests x 8 "
+      f"tokens: {'equal' if runs['cuda'] == runs['cpu'] else 'DIFFERENT'}")
+  if max(errs) > 1e-3 or not all(same) or runs["cuda"] != runs["cpu"]:
+    raise AssertionError("the card and the CPU disagree on serving")
+  return max(errs)
+
+
 def main() -> int:
   if not (ROOT / "src" / "repro_torch").is_dir():
     sys.exit("chip_smoke.py: src/repro_torch is not beside this script; "
@@ -367,10 +802,14 @@ def main() -> int:
   sweep, launches = phase_sweep(layers)
   phase_breakdown(layers)
   phase_parity(layers, sweep)
+  kernels.update(phase_attention_kernels())
+  launches.update(phase_serve())
+  phase_serve_parity()
   for name, entry in kernels.items():
     entry["launches"] = launches[name]
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
-      "its plain version on the card, with its launches during the sweep:")
+      "its plain version on the card, with its launches during its path's "
+      "run (K1, K2: the sweep; K5, K6: the first serve run):")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

@@ -1,19 +1,24 @@
-"""Carry the sweep's state into the port: design points and workloads.
+"""Carry the reference's state into the port: design points, workloads
+and model parameters.
 
-For this system the state is not weights but the design points (a
-ConfigTable's columns) and the workload's layers.  Both arrive as plain
-numpy arrays and tuples, so a caller holding the reference package's
-objects hands over ``{name: getattr(table, name)}`` and
-``dataclasses.astuple(layer)`` without this module importing it.
+The sweep's state is the design points (a ConfigTable's columns) and the
+workload's layers; a model's is its parameter tree.  All arrive as plain
+numpy arrays, tuples and dicts, so a caller holding the reference
+package's objects hands over ``{name: getattr(table, name)}``,
+``dataclasses.astuple(layer)`` or ``jax.tree_util.tree_map(np.asarray,
+params)`` without this module importing it.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Mapping, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.table import COLUMNS, ConfigTable
+from repro_torch.models.common import model_dtype
 
 
 def table_from_columns(cols: Mapping[str, np.ndarray],
@@ -33,3 +38,52 @@ def layers_from_tuples(layers: Iterable[Sequence]) -> List[ConvLayer]:
   """ConvLayers from ``(name, A, C, F, K, S, P, rs, ds)`` tuples (the
   field order of the reference's ConvLayer)."""
   return [ConvLayer(*fields) for fields in layers]
+
+
+# (module path in the port, path in a reference block's layer, is a
+# matmul weight) for the attention-and-dense-MLP layer
+_LAYER_LEAVES = (
+    ("mix_norm.scale", ("mix_norm", "scale"), False),
+    ("mix.wq", ("mix", "wq"), True),
+    ("mix.wkv", ("mix", "wkv"), True),
+    ("mix.wo", ("mix", "wo"), True),
+    ("mix.q_norm", ("mix", "q_norm"), False),
+    ("mix.k_norm", ("mix", "k_norm"), False),
+    ("ffn_norm.scale", ("ffn_norm", "scale"), False),
+    ("ffn.wi", ("ffn", "wi"), True),
+    ("ffn.wg", ("ffn", "wg"), True),
+    ("ffn.wo", ("ffn", "wo"), True),
+)
+
+
+def params_from_jax(cfg: ModelConfig,
+                    params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The port's ``Transformer`` state dict (CPU tensors) from the
+  reference's parameter tree as numpy arrays, ``blocks`` leaves stacked on
+  a leading ``n_blocks`` axis.
+
+  Matmul weights and the embedding are cast once to the model dtype (the
+  reference casts its float32 copies at every use: the same rounding);
+  norm scales stay float32.
+  """
+  dt = model_dtype(cfg)
+
+  def tensor(a, cast: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return t.to(dt) if cast else t
+
+  state = {"embed": tensor(params["embed"], True),
+           "final_norm.scale": tensor(params["final_norm"]["scale"], False)}
+  if not cfg.tie_embeddings:
+    state["lm_head"] = tensor(params["lm_head"], True)
+  pattern = cfg.block_pattern()
+  for b in range(cfg.n_blocks):
+    for i, (kind, is_moe) in enumerate(pattern):
+      if kind != "attn" or is_moe:
+        raise NotImplementedError(f"{kind} layers come with a later slice")
+      sub = params["blocks"][f"sub{i}"]
+      layer = b * len(pattern) + i
+      for name, (group, leaf), cast in _LAYER_LEAVES:
+        if leaf in sub[group]:
+          state[f"layers.{layer}.{name}"] = tensor(sub[group][leaf][b], cast)
+  return state

@@ -1,11 +1,14 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-torch version, and the device sweep against the same code on the CPU.
+torch version, and the device sweep and the serving engine against the
+same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,7 +19,14 @@ from repro_torch.explore import (DesignSpace, HistogramAccumulator,
                                  ParetoAccumulator, StatsAccumulator,
                                  TopKAccumulator, TorchOracleBackend,
                                  stream_explore)
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.pareto_front import kernel, ops, ref
+from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
+from repro_torch.kernels.quant_decode_attn import ops as qda
+from repro_torch.models import build_model
+from repro_torch.serve import EngineConfig, ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -101,3 +111,157 @@ def test_fused_stream_identical_to_cpu(cuda):
   np.testing.assert_array_equal(g["hist"]["counts"], c["hist"]["counts"])
   for k, v in c["stats"].items():
     assert g["stats"][k] == pytest.approx(v, rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K5 (serving).  The kernels and their plain versions read the same
+# inputs and both accumulate in float32 (matmul TF32 is off by default);
+# they differ only in the order of the sums, hence 1e-4 of the largest
+# |output| for float32 and bf16 inputs alike.
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want) -> float:
+  return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def _normal(rng, shape, device, dtype=torch.float32):
+  return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+      device=device, dtype=dtype)
+
+
+# (b, s, h, hkv, d, causal, window): the serving shape, windowed, ragged S,
+# G = 1, 2, 4 and 8, non-causal, every head dim
+FLASH_CASES = [(1, 512, 16, 8, 128, True, 0), (1, 512, 16, 8, 128, True, 128),
+               (1, 300, 8, 2, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
+               (1, 70, 8, 1, 16, True, 24)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, case, dtype):
+  b, s, h, hkv, d, causal, window = case
+  rng = np.random.RandomState(s + h)
+  q = _normal(rng, (b, s, h, d), cuda, dtype)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, dtype)
+  k, v = kv[:, :, 0], kv[:, :, 1]  # strided views, as the model passes v
+  fa_kernel.reset_launch_counts()
+  got = fa.flash_attention(q, k, v, causal=causal, window=window)
+  assert fa_kernel.LAUNCHES["flash_attention"] == 1
+  want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float32 and got.shape == (b, s, h, d)
+  assert _rel_err(got, want) < 1e-4
+
+
+DECODE_CASES = [(1, 16, 8, 2048, 128, (1,)), (1, 16, 8, 2048, 128, (300,)),
+                (1, 16, 8, 2048, 128, (2048,)), (2, 8, 2, 70, 16, (70, 9)),
+                (1, 4, 4, 96, 32, (37,)), (1, 16, 2, 600, 64, (599,))]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(cuda, case, dtype):
+  b, h, hkv, s, d, lengths = case
+  rng = np.random.RandomState(s + h)
+  q = _normal(rng, (b, h, d), cuda, dtype)
+  cache = qda.quantize_kv(_normal(rng, (b, hkv, s, d), cuda),
+                          _normal(rng, (b, hkv, s, d), cuda))
+  lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+  qda_kernel.reset_launch_counts()
+  got = qda.quant_decode_attn(q, *cache, lens)
+  assert qda_kernel.LAUNCHES["quant_decode_attn"] == 1
+  want = qda.quant_decode_attn_reference(q, *cache, lens)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float32 and got.shape == (b, h, d)
+  assert _rel_err(got, want) < 1e-4
+
+
+def test_decode_kernel_gives_zero_for_an_empty_cache(cuda):
+  rng = np.random.RandomState(0)
+  q = _normal(rng, (1, 4, 32), cuda)
+  cache = qda.quantize_kv(_normal(rng, (1, 2, 40, 32), cuda),
+                          _normal(rng, (1, 2, 40, 32), cuda))
+  out = qda.quant_decode_attn(q, *cache,
+                              torch.zeros(1, dtype=torch.int32, device=cuda))
+  assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_quantize_kv_on_the_card_equals_the_cpu(cuda):
+  rng = np.random.RandomState(1)
+  k = _normal(rng, (1, 8, 512, 128), "cpu") * 3
+  v = _normal(rng, (1, 8, 512, 128), "cpu")
+  for got, want in zip(qda.quantize_kv(k.to(cuda), v.to(cuda)),
+                       qda.quantize_kv(k, v)):
+    assert torch.equal(got.cpu(), want)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+  q = torch.zeros((1, 64, 4, 32), device=cuda)
+  kv = torch.zeros((1, 64, 2, 32), device=cuda)
+  with pytest.raises(ValueError, match="expected a CUDA tensor"):
+    fa_kernel.flash_attention(q, kv.cpu(), kv, 0.1)
+  with pytest.raises(ValueError, match="head dim"):
+    fa_kernel.flash_attention(q[..., :24], kv[..., :24], kv[..., :24], 0.1)
+  with pytest.raises(ValueError, match="like q"):
+    fa_kernel.flash_attention(q, kv.bfloat16(), kv, 0.1)
+  with pytest.raises(ValueError, match="multiple"):
+    fa.flash_attention(q[:, :, :3], kv, kv)
+  codes = torch.zeros((1, 2, 64, 32), dtype=torch.int8, device=cuda)
+  scales = torch.zeros((1, 2, 64), device=cuda)
+  lens = torch.ones(1, dtype=torch.int32, device=cuda)
+  with pytest.raises(ValueError, match="is on cpu"):
+    qda_kernel.quant_decode_attn(q[:, 0], codes, scales, codes, scales,
+                                 lens.cpu(), 0.1)
+  with pytest.raises(ValueError, match="contiguous"):
+    qda_kernel.quant_decode_attn(q[:, 0], codes.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), scales, codes, scales,
+                                 lens, 0.1)
+  with pytest.raises(ValueError, match="must be one of"):
+    qda_kernel.quant_decode_attn(q[:, 0, :3], codes[:, :1].contiguous(),
+                                 scales[:, :1].contiguous(),
+                                 codes[:, :1].contiguous(),
+                                 scales[:, :1].contiguous(), lens, 0.1)
+  with pytest.raises(ValueError, match="int32"):
+    qda_kernel.quant_decode_attn(q[:, 0], codes, scales, codes, scales,
+                                 lens.long(), 0.1)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "none"])
+def test_serve_engine_on_the_card_matches_the_cpu(cuda, kv_quant):
+  # The card's K and V differ from the CPU's in the last bits (other sum
+  # orders), so a value within an ulp of a rounding boundary can take the
+  # neighbouring int8 code: decode over an int8 cache is held to 1e-3 of
+  # the largest |logit| (the serving smoke's bound), the rest to 1e-4.
+  decode_tol = 1e-3 if kv_quant == "int8" else 1e-4
+  cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen3-0.6b")),
+                            kv_quant=kv_quant)
+  cpu_model = build_model(cfg, device="cpu")
+  cpu_params = cpu_model.init(0)
+  gpu_model = build_model(cfg)
+  gpu_params = gpu_model.from_state(cpu_params.state_dict())
+  toks = torch.from_numpy(
+      np.random.RandomState(2).randint(0, 512, (1, 40)).astype(np.int32))
+  want, want_cache = cpu_model.prefill(cpu_params, toks, 64)
+  got, got_cache = gpu_model.prefill(gpu_params, toks.to(cuda), 64)
+  assert _rel_err(got.cpu(), want) < 1e-4
+  nxt = want.argmax(-1).to(torch.int32)
+  want, _ = cpu_model.decode_step(cpu_params, nxt, want_cache)
+  got, _ = gpu_model.decode_step(gpu_params, nxt.to(cuda), got_cache)
+  assert _rel_err(got.cpu(), want) < decode_tol
+
+  rng = np.random.RandomState(3)
+  prompts = [rng.randint(0, 512, n) for n in (5, 9, 16, 20)]
+  ecfg = EngineConfig(batch_slots=2, max_len=64, prompt_bucket=16)
+  runs = {}
+  for device, model, params in (("cpu", cpu_model, cpu_params),
+                                ("cuda", gpu_model, gpu_params)):
+    engine = ServeEngine(model, params, ecfg, device=device)
+    for p in prompts:
+      engine.submit(p, max_new_tokens=6)
+    fa_kernel.reset_launch_counts()
+    qda_kernel.reset_launch_counts()
+    runs[device] = engine.run_until_drained()
+  assert runs["cuda"] == runs["cpu"]
+  assert fa_kernel.LAUNCHES["flash_attention"] == cfg.n_layers * 4
+  assert qda_kernel.LAUNCHES["quant_decode_attn"] == (
+      cfg.n_layers * 4 * 5 if kv_quant == "int8" else 0)

@@ -127,7 +127,9 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
 
 def test_build_targets_are_keyed_on_source_content():
   srcs = _build.sources()
-  assert [s.name for s in srcs] == ["pareto_front.cu"]
-  target = _build._target(srcs[0])
-  assert target.parent == _build.BUILD_DIR
-  assert target.name.startswith("libpareto_front-")
+  assert [s.name for s in srcs] == ["flash_attention.cu", "pareto_front.cu",
+                                    "quant_decode_attn.cu"]
+  for src in srcs:
+    target = _build._target(src)
+    assert target.parent == _build.BUILD_DIR
+    assert target.name.startswith(f"lib{src.stem}-")
