@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep
-and serving qwen3-0.6b with an int8 KV cache.
+"""Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep,
+serving qwen3-0.6b with an int8 KV cache, and serving rwkv6-1.6b.
 
 Run from the root of a checkout on a machine with an H100 (or another
 sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
@@ -16,9 +16,11 @@ and checks that sweep against the same code on the CPU.  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
-CPU.  Any failure raises, so the exit code is non-zero; without a CUDA
-device, or without the package beside it, the script stops before
-printing any result.  The last line of its output is one JSON object
+CPU.  The same traffic then goes through a full-width rwkv6-1.6b (bf16,
+random weights from seed 0; its prefill runs the WKV6 kernel K7), twice,
+with the same two-layer card-vs-CPU check.  Any failure raises, so the
+exit code is non-zero; without a CUDA device, or without the package
+beside it, the script stops before printing any result.  The last line of its output is one JSON object
 naming the device.
 """
 from __future__ import annotations
@@ -57,6 +59,9 @@ SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_ENGINE = dict(batch_slots=4, max_len=2048, prompt_bucket=512)
 PARITY_LAYERS = 2
+# K7 at the rwkv6-1.6b prefill shape (one 512-token bucket) and a ragged T
+K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
+K7_RAGGED_T = 300
 
 
 def log(msg: str = "") -> None:
@@ -545,6 +550,81 @@ def phase_attention_kernels():
   return results
 
 
+def _k7_counts(b, t, h, d, elem_bytes, with_s0):
+  """Bytes K7 must move (each input read once, each output written once)
+  and the operations the WKV6 recurrence needs, whatever form computes it:
+  per head and token, r S (2 D^2), w * S + k^T v (3 D^2) and the bonus
+  (r . u k) v added to the output (5 D).  The chunked form's pairwise
+  decays and exps are extra work of that form, not of the function."""
+  n_bytes = (b * t * h * d * (3 * elem_bytes + 4 + 4) + h * d * 4
+             + b * h * d * d * 4 * (2 if with_s0 else 1))
+  n_ops = b * h * t * (5 * d * d + 5 * d)
+  return n_bytes, n_ops
+
+
+def phase_wkv_kernel():
+  """K7 vs its plain chunked version on the card, at the rwkv6-1.6b
+  prefill shape (bf16 and float32) and at a ragged T with a nonzero
+  initial state.  Both compute in float32 and differ in the order of the
+  sums and in expf: held to 1e-4 of the largest |value|."""
+  import numpy as np
+  import torch
+  from repro_torch.kernels.rwkv6_scan import ops as wkv
+  from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+  results = {}
+  b, t_full, h, d, chunk = K7_SHAPE
+  rng = np.random.RandomState(7)
+  for dtype, t, with_s0 in ((torch.bfloat16, t_full, False),
+                            (torch.float32, t_full, False),
+                            (torch.bfloat16, K7_RAGGED_T, True)):
+    def heads(x):  # the model's (B, T, H * D) projections as (B, H, T, D)
+      return x.view(b, t, h, d).transpose(1, 2)
+    r, k, v = (heads(_randn(rng, (b, t, h * d), dtype) * sc)
+               for sc in (0.5, 0.5, 1.0))
+    # -log w log-normal around 0.05: mostly slow decays, as the model's
+    # (w0 = -6 at init gives w = 0.9975), down to fast ones
+    w = heads(torch.exp(-torch.exp(
+        2.0 * _randn(rng, (b, t, h * d), torch.float32) - 3.0)))
+    u = _randn(rng, (h, d), torch.float32) * 0.3
+    s0 = _randn(rng, (b, h, d, d), torch.float32) * 0.1 if with_s0 else None
+    s0_plain = s0 if with_s0 else torch.zeros((b, h, d, d), device="cuda")
+    got_o, got_s = wkv.wkv6(r, k, v, w, u, s0, chunk=chunk)
+    want_o, want_s = wkv_ref.wkv6_chunked(r, k, v, w, u, s0_plain, chunk)
+    torch.cuda.synchronize()
+    errs = [float((g - want).abs().max()) for g, want in
+            ((got_o, want_o), (got_s, want_s))]
+    scales = [float(want_o.abs().max()), float(want_s.abs().max())]
+    if not all(e <= 1e-4 * sc for e, sc in zip(errs, scales)):
+      raise AssertionError(f"K7 differs from its plain version: out "
+                           f"{errs[0]} (max {scales[0]}), state {errs[1]} "
+                           f"(max {scales[1]})")
+    ms = cuda_ms(lambda: wkv.wkv6(r, k, v, w, u, s0, chunk=chunk))
+    plain_ms = cuda_ms(lambda: wkv_ref.wkv6_chunked(r, k, v, w, u, s0_plain,
+                                                    chunk), inner=2)
+    n_bytes, n_ops = _k7_counts(b, t, h, d, r.element_size(), with_s0)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
+    tag = (f"{str(dtype).split('.')[-1]} r/k/v, f32 w, "
+           f"{'nonzero' if with_s0 else 'zero'} s0")
+    log(f"[K7] B={b} T={t} H={h} D={d} chunk={chunk}, {tag}: max_abs_err "
+        f"out {errs[0]:.3g} (max |out| {scales[0]:.3g}), final state "
+        f"{errs[1]:.3g} (max |state| {scales[1]:.3g}), tolerance 1e-4 of "
+        f"each; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB at 3.35 TB/s, "
+        f"{n_ops / 1e9:.3f} GFLOP at 67 TFLOP/s f32)")
+    if dtype == torch.bfloat16 and t == t_full:
+      results["wkv6"] = dict(
+          name="wkv6 (K7)", route="cuda",
+          source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+          replaces="src/repro/kernels/rwkv6_scan/kernel.py:82",
+          on_main_path=True, max_abs_err=max(errs), ms=ms,
+          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          library_note="no single PyTorch call computes the WKV6 "
+                       "recurrence")
+  log("[K7] library: none (no single PyTorch call computes the WKV6 "
+      "recurrence)")
+  return results
+
+
 def serve_prompts(vocab: int):
   import numpy as np
   rng = np.random.RandomState(0)
@@ -571,10 +651,17 @@ def _timed(fn, rows):
   return call
 
 
-def serve_once(model, params, prompts):
-  import torch
+def _launch_counters():
+  """The serving kernels' launch-count modules, by kernel name."""
   from repro_torch.kernels.flash_attention import kernel as fa_kernel
   from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
+  from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+  return {"flash_attention": fa_kernel, "quant_decode_attn": qda_kernel,
+          "wkv6": wkv_kernel}
+
+
+def serve_once(model, params, prompts):
+  import torch
   from repro_torch.serve import EngineConfig, ServeEngine
   engine = ServeEngine(model, params, EngineConfig(**SERVE_ENGINE))
   pre, dec = [], []
@@ -582,38 +669,70 @@ def serve_once(model, params, prompts):
   engine._decode = _timed(engine._decode, dec)
   for p in prompts:
     engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
-  fa_kernel.reset_launch_counts()
-  qda_kernel.reset_launch_counts()
+  counters = _launch_counters()
+  for mod in counters.values():
+    mod.reset_launch_counts()
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   out = engine.run_until_drained()
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = {"flash_attention": fa_kernel.LAUNCHES["flash_attention"],
-              "quant_decode_attn": qda_kernel.LAUNCHES["quant_decode_attn"]}
+  launches = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
   return out, wall, pre, dec, launches
+
+
+def _describe(cfg) -> str:
+  if cfg.family == "ssm":
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} wkv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+            f"{cfg.dtype}, {cfg.norm}, chunk {cfg.ssm_chunk}")
+  return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, "
+          f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
+          f"kv_quant {cfg.kv_quant}")
 
 
 def phase_serve():
   """The main path of serving: full-width qwen3-0.6b, bf16, int8 KV cache,
   eight requests through ServeEngine, twice."""
   import dataclasses
-  import torch
   from repro_torch.configs import get_config
-  from repro_torch.models import build_model
   cfg = dataclasses.replace(get_config("qwen3-0.6b"), kv_quant="int8")
+  want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
+          "quant_decode_attn": (cfg.n_layers * SERVE_REQUESTS
+                                * (SERVE_NEW_TOKENS - 1)),
+          "wkv6": 0}
+  return serve_twice("serve", cfg, want)
+
+
+def phase_serve_rwkv():
+  """Serving rwkv6-1.6b at full width, bf16: the same eight requests
+  through ServeEngine, twice; every prefill layer runs K7."""
+  from repro_torch.configs import get_config
+  cfg = get_config("rwkv6-1.6b")
+  want = {"flash_attention": 0, "quant_decode_attn": 0,
+          "wkv6": cfg.n_layers * SERVE_REQUESTS}
+  return serve_twice("serve-rwkv", cfg, want)
+
+
+def serve_twice(tag, cfg, want):
+  """``cfg`` served at full width from seed-0 weights: the eight requests
+  through ServeEngine twice, each run's kernel launches held to ``want``
+  and the rerun's tokens to the first run's.  Returns the first run's
+  launches of the kernels this model runs."""
+  import torch
+  from repro_torch.models import build_model
   model = build_model(cfg)
   t0 = time.perf_counter()
   params = model.init(0)
   torch.cuda.synchronize()
   n_params = sum(p.numel() for p in params.parameters())
-  log(f"[serve] qwen3-0.6b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-      f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, "
-      f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
-      f"kv_quant {cfg.kv_quant}; {n_params:,} parameters initialised from "
-      f"seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+  log(f"[{tag}] {cfg.name}: {_describe(cfg)}; {n_params:,} parameters "
+      f"initialised from seed 0 on the card in "
+      f"{time.perf_counter() - t0:.2f} s")
   prompts = serve_prompts(cfg.vocab_size)
-  log(f"[serve] {len(prompts)} requests, prompt lengths "
+  log(f"[{tag}] {len(prompts)} requests, prompt lengths "
       f"{[len(p) for p in prompts]}, {SERVE_NEW_TOKENS} new tokens each, "
       f"engine {SERVE_ENGINE}")
   runs = []
@@ -622,7 +741,7 @@ def phase_serve():
     out, wall, pre, dec, launches = serve_once(model, params, prompts)
     runs.append(out)
     n_tokens = sum(len(t) for t in out.values())
-    log(f"[serve] run {run}: {n_tokens} tokens in {wall:.3f} s = "
+    log(f"[{tag}] run {run}: {n_tokens} tokens in {wall:.3f} s = "
         f"{n_tokens / wall:.2f} tokens/s; prefill per request: host "
         f"{statistics.median(r[0] for r in pre):.3f} ms, events "
         f"{statistics.median(r[1] for r in pre):.3f} ms (medians of "
@@ -632,35 +751,33 @@ def phase_serve():
         f"{len(dec)}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches}")
-    want_k6 = cfg.n_layers * SERVE_REQUESTS
-    want_k5 = cfg.n_layers * SERVE_REQUESTS * (SERVE_NEW_TOKENS - 1)
-    if launches != {"flash_attention": want_k6, "quant_decode_attn": want_k5}:
-      raise AssertionError(f"expected K6 {want_k6} and K5 {want_k5} "
-                           f"launches, got {launches}")
+    if launches != want:
+      raise AssertionError(f"expected launches {want}, got {launches}")
     if sorted(out) != list(range(1, SERVE_REQUESTS + 1)) or any(
         len(t) != SERVE_NEW_TOKENS or not all(0 <= x < cfg.vocab_size
                                                for x in t)
         for t in out.values()):
       raise AssertionError(f"bad generations: {out}")
     if run == 1:
-      main_launches = launches
+      main_launches = {k: n for k, n in launches.items() if want[k]}
   if runs[0] != runs[1]:
     raise AssertionError("a second run gave other tokens")
-  log(f"[serve] the second run gave the same {SERVE_REQUESTS} x "
+  log(f"[{tag}] the second run gave the same {SERVE_REQUESTS} x "
       f"{SERVE_NEW_TOKENS} tokens; first tokens: "
       f"{[runs[0][u][:4] for u in sorted(runs[0])][:3]}")
-  phase_decode_graph(model, params, prompts[0],
+  phase_decode_graph(tag, model, params, prompts[0],
                      statistics.median(r[1] for r in dec))
   return main_launches
 
 
 PROFILE_GROUPS = (("K5", ("quant_decode",)), ("K6", ("flash_fwd",)),
+                  ("K7", ("wkv6",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")))
 PROFILE_TOP = 8   # kernels listed by name, the most device time first
 
 
-def _device_profile(name, fn):
+def _device_profile(tag, name, fn):
   """Device work of one ``fn()`` call by kernel group, from
   ``torch.profiler``: operation count and summed device time per group.
   Prints "not measured" when the profiler records no device time."""
@@ -683,7 +800,7 @@ def _device_profile(name, fn):
     groups[key] = (n + e.count, us + e.self_device_time_total)
     kernels.append((e.self_device_time_total, e.count, e.key))
   if not groups:
-    log(f"[serve-profile] {name}: not measured (the profiler recorded no "
+    log(f"[{tag}-profile] {name}: not measured (the profiler recorded no "
         "device time)")
     return
   total_n = sum(n for n, _ in groups.values())
@@ -691,13 +808,13 @@ def _device_profile(name, fn):
   parts = "; ".join(f"{g} {n} ops {us / 1e3:.3f} ms ({us / total_us:.1%})"
                     for g, (n, us) in sorted(groups.items(),
                                              key=lambda kv: -kv[1][1]))
-  log(f"[serve-profile] {name}: {total_n} device operations, "
+  log(f"[{tag}-profile] {name}: {total_n} device operations, "
       f"{total_us / 1e3:.3f} ms of device time: {parts}")
   for us, n, key in sorted(kernels, reverse=True)[:PROFILE_TOP]:
-    log(f"[serve-profile]   {us / 1e3:.3f} ms in {n} x {key[:90]}")
+    log(f"[{tag}-profile]   {us / 1e3:.3f} ms in {n} x {key[:90]}")
 
 
-def phase_decode_graph(model, params, prompt, eager_ms):
+def phase_decode_graph(tag, model, params, prompt, eager_ms):
   """One decode step captured as a CUDA graph: its replay time is the
   step's device time without launch gaps, so replay / eager is the share
   of an eager step the card is busy."""
@@ -709,13 +826,20 @@ def phase_decode_graph(model, params, prompt, eager_ms):
   _, cache = model.prefill(params, toks, SERVE_ENGINE["max_len"])
   tok = torch.zeros(1, dtype=torch.int32, device="cuda")
 
-  def one_step():  # the step rewrites one slot and reads 513 positions
+  def one_step():  # an attention step rewrites one slot, reads 513 positions
     cache["length"] = bucket
     return model.decode_step(params, tok, cache)[0]
   graph, logits = capture(one_step)
   graph_ms = replay_ms(graph, samples=10)
+  # the step updates the cache in place (an rwkv state advances), so the
+  # eager step and the replay it is held to start from one saved cache
+  state = [t for layer in cache["layers"] for t in layer.values()]
+  saved = [t.clone() for t in state]
   cache["length"] = bucket
   eager, _ = model.decode_step(params, tok, cache)
+  with torch.inference_mode():  # the cache's tensors are inference tensors
+    for t, s in zip(state, saved):
+      t.copy_(s)
   graph.replay()
   torch.cuda.synchronize()
   diff = float((logits.float() - eager.float()).abs().max()
@@ -723,29 +847,47 @@ def phase_decode_graph(model, params, prompt, eager_ms):
   if diff > 1e-2:
     raise AssertionError(f"the captured decode step gives other logits: "
                          f"{diff}")
-  log(f"[serve-breakdown] one decode step at length {bucket} as a CUDA graph "
+  log(f"[{tag}-breakdown] one decode step at length {bucket} as a CUDA graph "
       f"replay (logits within {diff:.3g} of the eager step's, relative): "
       f"{graph_ms:.3f} ms on the card; eager median {eager_ms:.3f} "
       f"ms between events, so the card is busy {graph_ms / eager_ms:.1%} of "
       "an eager step (the rest is launch overhead)")
-  _device_profile(f"one eager decode step at length {bucket}", one_step)
-  _device_profile(f"one {bucket}-token prefill",
+  _device_profile(tag, f"one eager decode step at length {bucket}", one_step)
+  _device_profile(tag, f"one {bucket}-token prefill",
                   lambda: model.prefill(params, toks, SERVE_ENGINE["max_len"]))
 
 
 def phase_serve_parity():
-  """Full-width qwen3-0.6b in float32, depth cut to two layers: the card
-  against the CPU on the same weights, TF32 off."""
+  """Full-width qwen3-0.6b in float32, depth cut to two layers, int8 KV:
+  the card against the CPU on the same weights, TF32 off.  Logits within
+  1e-3 of the largest |logit|: a K or V value within an ulp of an int8
+  rounding boundary can take the next code on the other device."""
   import dataclasses
+  from repro_torch.configs import get_config
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), kv_quant="int8",
+                            dtype="float32", n_layers=PARITY_LAYERS)
+  return serve_parity("serve-parity", cfg, "int8 KV", 1e-3)
+
+
+def phase_serve_rwkv_parity():
+  """Full-width rwkv6-1.6b in float32, depth cut to two layers: the card
+  (K7) against the CPU (the plain chunked form) on the same weights, TF32
+  off.  Logits within 1e-4 of the largest |logit|: no rounding boundary
+  here, only other summation orders."""
+  import dataclasses
+  from repro_torch.configs import get_config
+  cfg = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                            n_layers=PARITY_LAYERS)
+  return serve_parity("serve-rwkv-parity", cfg, "K7 prefill", 1e-4)
+
+
+def serve_parity(tag, cfg, what, tol):
   import numpy as np
   import torch
-  from repro_torch.configs import get_config
   from repro_torch.models import build_model
   from repro_torch.serve import EngineConfig, ServeEngine
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
-  cfg = dataclasses.replace(get_config("qwen3-0.6b"), kv_quant="int8",
-                            dtype="float32", n_layers=PARITY_LAYERS)
   gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
   gpu_params = gpu_model.init(0)
   cpu_params = cpu_model.from_state(
@@ -775,12 +917,12 @@ def phase_serve_parity():
     for q in prompts[:2]:
       engine.submit(q, max_new_tokens=8)
     runs[device] = engine.run_until_drained()
-  log(f"[serve-parity] qwen3-0.6b at full width, float32, {PARITY_LAYERS} "
-      f"layers, int8 KV, TF32 off: card vs CPU logits, prefill then 4 decode "
+  log(f"[{tag}] {cfg.name} at full width, float32, {cfg.n_layers} "
+      f"layers, {what}, TF32 off: card vs CPU logits, prefill then 4 decode "
       f"steps, max |diff| / max |logit| = {[f'{e:.3g}' for e in errs]} "
-      f"(tolerance 1e-3); greedy tokens equal {same}; engine, 2 requests x 8 "
-      f"tokens: {'equal' if runs['cuda'] == runs['cpu'] else 'DIFFERENT'}")
-  if max(errs) > 1e-3 or not all(same) or runs["cuda"] != runs["cpu"]:
+      f"(tolerance {tol:g}); greedy tokens equal {same}; engine, 2 requests "
+      f"x 8 tokens: {'equal' if runs['cuda'] == runs['cpu'] else 'DIFFERENT'}")
+  if max(errs) > tol or not all(same) or runs["cuda"] != runs["cpu"]:
     raise AssertionError("the card and the CPU disagree on serving")
   return max(errs)
 
@@ -805,11 +947,15 @@ def main() -> int:
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()
+  kernels.update(phase_wkv_kernel())
+  launches.update(phase_serve_rwkv())
+  phase_serve_rwkv_parity()
   for name, entry in kernels.items():
     entry["launches"] = launches[name]
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
       "its plain version on the card, with its launches during its path's "
-      "run (K1, K2: the sweep; K5, K6: the first serve run):")
+      "run (K1, K2: the sweep; K5, K6: the first serve run; K7: the first "
+      "serve-rwkv run):")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,6 @@ VOCAB_PAD_MULTIPLE = 256  # Megatron-style padding of the vocab
 # the architectures of the reference that the port does not serve yet,
 # with the slice of the port that brings each (ROADMAP.md, Queue 1)
 LATER_SLICES: Dict[str, str] = {
-    "rwkv6-1.6b": "slice 3 (rwkv6-1.6b serving, with the WKV6 kernel)",
     "olmo-1b": "slice 8 (the rest of the model zoo)",
     "granite-34b": "slice 8 (the rest of the model zoo)",
     "minitron-4b": "slice 8 (the rest of the model zoo)",

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.table import COLUMNS, ConfigTable
 from repro_torch.models.common import model_dtype
+from repro_torch.models.ssm import FLOAT32_LEAVES
 
 
 def table_from_columns(cols: Mapping[str, np.ndarray],
@@ -41,19 +42,24 @@ def layers_from_tuples(layers: Iterable[Sequence]) -> List[ConvLayer]:
 
 
 # (module path in the port, path in a reference block's layer, is a
-# matmul weight) for the attention-and-dense-MLP layer
-_LAYER_LEAVES = (
-    ("mix_norm.scale", ("mix_norm", "scale"), False),
+# matmul weight) for the attention-and-dense-MLP layer; the norms' leaves
+# (scale, and bias for layernorm) are taken as the reference has them
+_ATTN_LEAVES = (
     ("mix.wq", ("mix", "wq"), True),
     ("mix.wkv", ("mix", "wkv"), True),
     ("mix.wo", ("mix", "wo"), True),
     ("mix.q_norm", ("mix", "q_norm"), False),
     ("mix.k_norm", ("mix", "k_norm"), False),
-    ("ffn_norm.scale", ("ffn_norm", "scale"), False),
     ("ffn.wi", ("ffn", "wi"), True),
     ("ffn.wg", ("ffn", "wg"), True),
     ("ffn.wo", ("ffn", "wo"), True),
 )
+
+# the same for the rwkv layer: every leaf of the reference's ``init_rwkv``
+_RWKV_LEAVES = tuple(
+    (f"mix.{name}", ("mix", name), name not in FLOAT32_LEAVES)
+    for name in ("mix", "wr", "wk", "wv", "wg", "wo", "w0", "w_lora_a",
+                 "w_lora_b", "u", "ln_x", "cmix", "cm_wr", "cm_wk", "cm_wv"))
 
 
 def params_from_jax(cfg: ModelConfig,
@@ -62,28 +68,38 @@ def params_from_jax(cfg: ModelConfig,
   reference's parameter tree as numpy arrays, ``blocks`` leaves stacked on
   a leading ``n_blocks`` axis.
 
-  Matmul weights and the embedding are cast once to the model dtype (the
-  reference casts its float32 copies at every use: the same rounding);
-  norm scales stay float32.
+  Matmul weights, the embedding and the LM head are cast once to the model
+  dtype (the reference casts its float32 copies at every use: the same
+  rounding); norm scales and biases and rwkv's lerps, decay base, bonus
+  and group-norm scale stay float32.
   """
+  if cfg.family == "encdec":
+    raise NotImplementedError("encoder-decoder models come with slice 8 of "
+                              "the port")
   dt = model_dtype(cfg)
 
   def tensor(a, cast: bool) -> torch.Tensor:
     t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return t.to(dt) if cast else t
 
-  state = {"embed": tensor(params["embed"], True),
-           "final_norm.scale": tensor(params["final_norm"]["scale"], False)}
+  state = {"embed": tensor(params["embed"], True)}
+  for leaf, a in params["final_norm"].items():
+    state[f"final_norm.{leaf}"] = tensor(a, False)
   if not cfg.tie_embeddings:
     state["lm_head"] = tensor(params["lm_head"], True)
   pattern = cfg.block_pattern()
   for b in range(cfg.n_blocks):
     for i, (kind, is_moe) in enumerate(pattern):
-      if kind != "attn" or is_moe:
-        raise NotImplementedError(f"{kind} layers come with a later slice")
+      if kind == "mamba" or is_moe:
+        raise NotImplementedError(f"{'MoE' if is_moe else kind} layers "
+                                  "come with slice 8 of the port")
       sub = params["blocks"][f"sub{i}"]
       layer = b * len(pattern) + i
-      for name, (group, leaf), cast in _LAYER_LEAVES:
+      for norm in ("mix_norm", "ffn_norm"):
+        for leaf, a in sub[norm].items():
+          state[f"layers.{layer}.{norm}.{leaf}"] = tensor(a[b], False)
+      leaves = _RWKV_LEAVES if kind == "rwkv" else _ATTN_LEAVES
+      for name, (group, leaf), cast in leaves:
         if leaf in sub[group]:
           state[f"layers.{layer}.{name}"] = tensor(sub[group][leaf][b], cast)
   return state

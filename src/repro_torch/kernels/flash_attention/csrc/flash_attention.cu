@@ -220,14 +220,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 template <typename T, int D>
 int launch(const Params& p, int64_t bh, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  static bool configured = false;  // the attribute is set once per kernel
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // The attribute belongs to the current device, so it is set on every
+  // launch (a cheap call) rather than once per process.
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((p.s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(bh));
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);

@@ -229,14 +229,12 @@ int launch(const void* q, const int8_t* kc, const float* ks,
   static_assert(kThreads % D == 0, "D must divide the block");
   static_assert(kThreads / D * G * D <= G * kBS, "partials must fit in P");
   constexpr size_t smem = Smem<G, D>::bytes;
-  static bool configured = false;  // the attribute is set once per kernel
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        quant_decode_kernel<T, G, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // The attribute belongs to the current device, so it is set on every
+  // launch (a cheap call) rather than once per process.
+  const cudaError_t err = cudaFuncSetAttribute(
+      quant_decode_kernel<T, G, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   quant_decode_kernel<T, G, D><<<static_cast<unsigned>(bh), kThreads, smem,
                                  stream>>>(
       static_cast<const T*>(q), kc, ks, vc, vs, length, out, hkv, s,

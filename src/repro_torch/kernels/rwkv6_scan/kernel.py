@@ -1,0 +1,107 @@
+"""Launch wrapper for the CUDA chunked WKV6 kernel (``csrc/rwkv6_scan.cu``,
+built and loaded through ``ctypes``).
+
+The wrapper takes r/k/v (B, H, T, D) float32 or bf16 and w (B, H, T, D)
+float32 in any strides whose last dim is contiguous (the model passes
+(B, T, H, D) projections as transposed views), u (H, D) and an optional
+s0 (B, H, D, D), float32 and contiguous, all on one CUDA device.  It
+allocates the float32 outputs, launches on the current stream and raises
+if the launch was refused.  The output is written in (B, T, H, D) memory
+order and returned as its (B, H, T, D) view, so the model's move back to
+(B, T, H, D) is free.  ``LAUNCHES`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import _build
+
+HEAD_DIMS = (16, 32, 64)
+MAX_CHUNK = 64
+DTYPES = (torch.float32, torch.bfloat16)
+
+LAUNCHES: Dict[str, int] = {"wkv6": 0}
+
+
+def reset_launch_counts() -> None:
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+  lib = _build.load("rwkv6_scan")
+  p, i64 = ctypes.c_void_p, ctypes.c_int64
+  lib.wkv6_forward.argtypes = [p] * 8 + [i64] * 20 + [ctypes.c_int, p]
+  lib.wkv6_forward.restype = ctypes.c_int
+  return lib
+
+
+def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 s0: Optional[torch.Tensor], chunk: int) -> None:
+  """Raise ValueError on what the kernel does not take."""
+  dev = r.device
+  if dev.type != "cuda":
+    raise ValueError(f"r: expected a CUDA tensor, got one on {dev}")
+  for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+    if t.device != dev:
+      raise ValueError(f"{name} is on {t.device}, r on {dev}")
+    if t.dim() != 4 or t.stride(-1) != 1:
+      raise ValueError(f"{name}: expected (B, H, T, D) with a contiguous "
+                       f"last dim, got shape {tuple(t.shape)} strides "
+                       f"{t.stride()}")
+    if t.shape != r.shape:
+      raise ValueError(f"{name} shape {tuple(t.shape)} does not match r "
+                       f"{tuple(r.shape)}")
+  for name, t in (("r", r), ("k", k), ("v", v)):
+    if t.dtype not in DTYPES or t.dtype != r.dtype:
+      raise ValueError(f"{name}: expected float32 or bfloat16 like r, got "
+                       f"{t.dtype}")
+  b, h, _, d = r.shape
+  if d not in HEAD_DIMS:
+    raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+  if not 1 <= chunk <= MAX_CHUNK:
+    raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
+  state = [("w", w, tuple(r.shape)), ("u", u, (h, d))]
+  if s0 is not None:
+    state.append(("s0", s0, (b, h, d, d)))
+  for name, t, shape in state:
+    if t.device != dev:
+      raise ValueError(f"{name} is on {t.device}, r on {dev}")
+    if t.dtype != torch.float32:
+      raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+      raise ValueError(f"{name}: expected shape {shape}, got "
+                       f"{tuple(t.shape)}")
+    if name != "w" and not t.is_contiguous():
+      raise ValueError(f"{name} must be contiguous")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, s0: Optional[torch.Tensor] = None,
+         chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K7: (B, H, T, D) inputs -> (out (B, H, T, D) float32, final state
+  (B, H, D, D) float32); s0 None is a zero state."""
+  check_inputs(r, k, v, w, u, s0, chunk)
+  b, h, t, d = r.shape
+  out = torch.empty((b, t, h, d), dtype=torch.float32, device=r.device)
+  s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+  with torch.cuda.device(r.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    status = _lib().wkv6_forward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(),
+        out.data_ptr(), s_out.data_ptr(),
+        b, h, t, d, int(chunk),
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1),
+        int(r.dtype == torch.bfloat16), stream)
+  if status != 0:
+    raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {status}")
+  LAUNCHES["wkv6"] += 1
+  return out.permute(0, 2, 1, 3), s_out

@@ -3,9 +3,11 @@ KV cache, on one card (the port of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 It serves a narrow copy of the architecture (``--smoke``, always on, as
-in the reference).  ``--device`` defaults to ``cuda`` and the launcher
+in the reference).  ``--kv-quant`` has no effect on rwkv6-1.6b, which
+keeps no KV cache.  ``--device`` defaults to ``cuda`` and the launcher
 raises without a card; pass ``--device cpu`` to run on the CPU.
 """
 from __future__ import annotations

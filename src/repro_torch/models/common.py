@@ -1,5 +1,5 @@
 """Shared model components: device and dtype, initializers, norms, RoPE
-(the port of ``repro.models.common``, rmsnorm path).
+(the port of ``repro.models.common``: rmsnorm and layernorm).
 
 Every function keeps the reference's float32 internals and casts back to
 its input's dtype at the end, so bf16 activations round where the
@@ -8,7 +8,7 @@ reference rounds them.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -61,28 +61,40 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
-               eps: float = 1e-5) -> torch.Tensor:
-  if cfg.norm != "rmsnorm":
+               eps: float = 1e-5,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """rmsnorm, or layernorm with the population variance (``jnp.var``),
+  in float32; the result takes x's dtype."""
+  xf = x.float()
+  if cfg.norm == "rmsnorm":
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+  if cfg.norm != "layernorm":
     raise NotImplementedError(
         f"norm {cfg.norm!r} comes with slice 8 of the port (the rest of "
         "the model zoo)")
-  xf = x.float()
-  var = torch.mean(xf * xf, dim=-1, keepdim=True)
-  return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+  centered = xf - torch.mean(xf, dim=-1, keepdim=True)
+  var = torch.mean(centered * centered, dim=-1, keepdim=True)
+  return (centered * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
 class Norm(nn.Module):
-  """Pre-norm over d_model with a float32 scale (rmsnorm): the reference's
-  ``make_norm_params`` and ``apply_norm`` as one module."""
+  """Pre-norm over d_model with a float32 scale (and a float32 bias for
+  layernorm): the reference's ``make_norm_params`` and ``apply_norm`` as
+  one module."""
 
   def __init__(self, cfg: ModelConfig, device: Device = None):
     super().__init__()
     self.cfg = cfg
     self.scale = frozen(torch.ones(cfg.d_model, dtype=torch.float32,
                                    device=device))
+    self.bias = None
+    if cfg.norm == "layernorm":
+      self.bias = frozen(torch.zeros(cfg.d_model, dtype=torch.float32,
+                                     device=device))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return apply_norm(self.scale, x, self.cfg)
+    return apply_norm(self.scale, x, self.cfg, bias=self.bias)
 
 
 def rms_head_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,5 +1,6 @@
 """Model facade: ``build_model(cfg) -> Model`` with the reference's API
-for the decoder family (the port of ``repro.models.model``).
+for the decoder family, attention (qwen3-0.6b) and RWKV-6 (rwkv6-1.6b)
+layers (the port of ``repro.models.model``).
 
   init(seed)                        -> params (a Transformer module)
   from_state(state)                 -> params from a state dict

@@ -1,7 +1,10 @@
-"""Decoder-only transformer LM, attention-and-dense-MLP path (the port of
-``repro.models.transformer`` for serving): parameters as ``nn.Module``s,
-a per-layer KV cache (optionally int8, QUIDAM's precision axis applied to
-serving), prefill through K6 and decode through K5.
+"""Decoder-only LM for serving (the port of ``repro.models.transformer``):
+parameters as ``nn.Module``s and two layer kinds.  Attention layers (with
+a dense SwiGLU MLP) keep a per-layer KV cache, optionally int8 (QUIDAM's
+precision axis applied to serving), and run prefill through K6 and decode
+through K5.  RWKV-6 layers (time mix + channel mix, attention-free) keep a
+recurrent state and run prefill through K7 and decode through the
+per-token WKV6 update.
 
 Differences from the reference, none of them in the numbers:
   * the reference scans over stacked blocks; here the layers are a
@@ -14,8 +17,8 @@ Differences from the reference, none of them in the numbers:
     new one) so a step allocates no second cache, and the cache's
     ``length`` is a Python int, so that no step waits on the card for it.
 
-Mamba, RWKV, MoE, encoder-decoder and training raise
-``NotImplementedError`` naming the slice of the port that brings them.
+Mamba, MoE, encoder-decoder and training raise ``NotImplementedError``
+naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.quant_decode_attn.ops import quantize_kv
+from repro_torch.models import ssm
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.common import (Device, Norm, apply_rope,
                                        dense_init, embed_init, frozen,
@@ -40,8 +44,6 @@ Cache = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
   """Raise NotImplementedError for what this slice of the port lacks."""
   reasons = []
-  if cfg.family == "ssm":
-    reasons.append("RWKV layers come with slice 3 (rwkv6-1.6b serving)")
   if cfg.family == "hybrid":
     reasons.append("mamba layers come with slice 8 (the rest of the zoo)")
   if cfg.family == "encdec":
@@ -50,8 +52,11 @@ def check_supported(cfg: ModelConfig) -> None:
     reasons.append("MoE layers come with slice 8")
   if cfg.pos_embed not in ("rope", "none"):
     reasons.append(f"{cfg.pos_embed} positions come with slice 8")
-  if cfg.norm != "rmsnorm" or cfg.mlp_variant != "swiglu":
-    reasons.append(f"{cfg.norm} / {cfg.mlp_variant} come with slice 8")
+  if cfg.norm not in ("rmsnorm", "layernorm"):
+    reasons.append(f"{cfg.norm} comes with slice 8")
+  # an rwkv layer has no MLP: its channel mix ignores mlp_variant
+  if cfg.family != "ssm" and cfg.mlp_variant != "swiglu":
+    reasons.append(f"{cfg.mlp_variant} MLPs come with slice 8")
   if reasons:
     raise NotImplementedError(f"{cfg.name}: " + "; ".join(reasons))
 
@@ -189,20 +194,29 @@ def prefill_attn_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# one layer = attention + dense MLP (pre-norm)
+# one layer = token mixer + ffn (pre-norm)
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
+  """Attention + dense MLP, or an RWKV layer, whose channel mix lives in
+  its ``mix`` (``cm_*``), with no ``ffn``."""
+
   def __init__(self, cfg: ModelConfig, device: Device = None):
     super().__init__()
+    self.kind = cfg.layer_kinds()[0]
     self.mix_norm = Norm(cfg, device)
-    self.mix = Attention(cfg, device)
+    if self.kind == "rwkv":
+      self.mix = ssm.RWKVMix(cfg, device)
+    else:
+      self.mix = Attention(cfg, device)
     self.ffn_norm = Norm(cfg, device)
-    self.ffn = MLP(cfg, cfg.d_ff, device)
+    if self.kind != "rwkv":
+      self.ffn = MLP(cfg, cfg.d_ff, device)
 
   def init_(self, gen: torch.Generator) -> "Layer":
     self.mix.init_(gen)
-    self.ffn.init_(gen)
+    if self.kind != "rwkv":
+      self.ffn.init_(gen)
     return self
 
 
@@ -211,7 +225,8 @@ class Layer(nn.Module):
 # ---------------------------------------------------------------------------
 
 class Transformer(nn.Module):
-  """Embedding, the layer stack and the final norm (tied LM head)."""
+  """Embedding, the layer stack, the final norm and the LM head (the
+  embedding's transpose when tied)."""
 
   def __init__(self, cfg: ModelConfig, device: Device = None):
     super().__init__()
@@ -264,9 +279,13 @@ def train_loss(*args, **kwargs):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> Cache:
   check_supported(cfg)
-  return {"layers": [init_attn_cache(cfg, batch, max_len, device)
-                     for _ in range(cfg.n_layers)],
-          "length": 0}
+  if cfg.family == "ssm":
+    layers = [ssm.init_rwkv_cache(cfg, batch, device)
+              for _ in range(cfg.n_layers)]
+  else:
+    layers = [init_attn_cache(cfg, batch, max_len, device)
+              for _ in range(cfg.n_layers)]
+  return {"layers": layers, "length": 0}
 
 
 def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
@@ -281,10 +300,19 @@ def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
   if cfg.pos_embed == "rope":
     pos = torch.full((b,), length, dtype=torch.int32, device=dev)
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-  lens = torch.full((b,), length + 1, dtype=torch.int32, device=dev)
+  lens = None
+  if cfg.family != "ssm":
+    lens = torch.full((b,), length + 1, dtype=torch.int32, device=dev)
   layer_caches: List[Cache] = cache["layers"]
   for layer, c in zip(params.layers, layer_caches):
     h = layer.mix_norm(x)
+    if layer.kind == "rwkv":
+      out, _ = ssm.rwkv_decode_step(layer.mix, h, c, cfg)
+      x = x + out
+      h2 = layer.ffn_norm(x)
+      x = x + ssm.rwkv_channel_decode(layer.mix, h2, c["cm_prev"], cfg)
+      c["cm_prev"].copy_(h2)
+      continue
     out, _ = apply_attn_decode(layer.mix, h, c, length, cfg, rope_cs, lens)
     x = x + out
     x = x + layer.ffn(layer.ffn_norm(x))
@@ -306,6 +334,16 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
   layer_caches = []
   for layer in params.layers:
     h = layer.mix_norm(x)
+    if layer.kind == "rwkv":
+      # from a zero state; the cache keeps K7's final state and the last
+      # normed inputs of both mixes
+      out, s_final = ssm.apply_rwkv_time_mix(layer.mix, h, cfg)
+      x = x + out
+      h2 = layer.ffn_norm(x)
+      x = x + ssm.apply_rwkv_channel_mix(layer.mix, h2, cfg)
+      layer_caches.append({"s": s_final, "tm_prev": h[:, -1].clone(),
+                           "cm_prev": h2[:, -1].clone()})
+      continue
     q, k, v = _project_qkv(layer.mix, h, cfg)
     if rope_cs is not None:
       q = apply_rope(q, *rope_cs)
@@ -318,3 +356,4 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
   logits = x[:, -1, :] @ lm_head_weight(params, cfg)
   cache = {"layers": layer_caches, "length": s}
   return logits[:, :cfg.vocab_size], cache
+

@@ -4,9 +4,13 @@ of ``repro.serve.engine``).
   * a fixed pool of decode slots, one request per slot; each decode call
     has batch 1, as in the reference
   * per-request state (prompt, generated, remaining budget)
-  * prompts are left-padded with their first token to a fixed bucket
-  * KV caches optionally int8-quantized (cfg.kv_quant): decode attention
-    then runs K5 over the codes, prefill attention K6
+  * prompts are left-padded with their first token to a fixed bucket (an
+    RWKV model's recurrent state takes in the pad copies, as the
+    reference's does)
+  * attention models: KV caches optionally int8-quantized
+    (cfg.kv_quant): decode attention then runs K5 over the codes, prefill
+    attention K6; RWKV-6 models: a recurrent state per slot, prefill
+    through K7
   * per-request deadlines (:class:`repro_torch.explore.service.Deadline`):
     expired queued requests are evicted before prefill, expired active
     requests release their slot mid-decode

@@ -1,6 +1,6 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-torch version, and the device sweep and the serving engine against the
-same code on the CPU.
+torch version, and the device sweep and the serving engine (qwen3-0.6b and
+rwkv6-1.6b) against the same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -25,6 +25,9 @@ from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.pareto_front import kernel, ops, ref
 from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
 from repro_torch.kernels.quant_decode_attn import ops as qda
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_scan import ops as wkv
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.models import build_model
 from repro_torch.serve import EngineConfig, ServeEngine
 
@@ -265,3 +268,121 @@ def test_serve_engine_on_the_card_matches_the_cpu(cuda, kv_quant):
   assert fa_kernel.LAUNCHES["flash_attention"] == cfg.n_layers * 4
   assert qda_kernel.LAUNCHES["quant_decode_attn"] == (
       cfg.n_layers * 4 * 5 if kv_quant == "int8" else 0)
+
+
+# ---------------------------------------------------------------------------
+# K7 (rwkv6 prefill).  The kernel and its plain chunked version read the
+# same inputs and both compute in float32; they differ in the order of the
+# sums and in expf, hence 1e-4 of the largest |value|.
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(rng, b, t, h, d, device, dtype, s0):
+  """r/k/v/w as the model passes them: (B, H, T, D) views of (B, T, H, D)
+  projections; w float32 in (0, 1) from the model's exp(-exp(.))."""
+  def heads(x):
+    return x.view(b, t, h, d).transpose(1, 2)
+  r, k, v = (heads(_normal(rng, (b, t, h * d), device, dtype) * s)
+             for s in (0.5, 0.5, 1.0))
+  w = heads(torch.exp(-torch.exp(_normal(rng, (b, t, h * d), device) - 1.0)))
+  u = _normal(rng, (h, d), device) * 0.3
+  state = _normal(rng, (b, h, d, d), device) * 0.1 if s0 else None
+  return r, k, v, w, u, state
+
+
+# (b, t, h, d, chunk, s0): the serving shape, ragged T, every head dim
+WKV_CASES = [(1, 512, 32, 64, 64, False), (1, 512, 32, 64, 64, True),
+             (2, 300, 4, 64, 64, True), (1, 40, 4, 16, 16, True),
+             (2, 100, 3, 32, 32, False), (1, 1, 2, 64, 64, True)]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain_version(cuda, case, dtype):
+  b, t, h, d, chunk, s0 = case
+  rng = np.random.RandomState(t + h + d)
+  r, k, v, w, u, state = _wkv_inputs(rng, b, t, h, d, cuda, dtype, s0)
+  wkv_kernel.reset_launch_counts()
+  got_o, got_s = wkv.wkv6(r, k, v, w, u, state, chunk=chunk)
+  assert wkv_kernel.LAUNCHES["wkv6"] == 1
+  zero = torch.zeros((b, h, d, d), device=cuda)
+  want_o, want_s = wkv_ref.wkv6_chunked(r, k, v, w, u,
+                                        zero if state is None else state,
+                                        chunk)
+  torch.cuda.synchronize()
+  assert got_o.dtype == got_s.dtype == torch.float32
+  assert got_o.shape == (b, h, t, d) and got_s.shape == (b, h, d, d)
+  assert _rel_err(got_o, want_o) < 1e-4
+  assert _rel_err(got_s, want_s) < 1e-4
+  assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
+  rng = np.random.RandomState(0)
+  r, k, v, w, u, state = _wkv_inputs(rng, 1, 16, 2, 64, cuda,
+                                     torch.float32, True)
+  with pytest.raises(ValueError, match="expected a CUDA tensor"):
+    wkv_kernel.wkv6(r.cpu(), k, v, w, u, state)
+  with pytest.raises(ValueError, match="u is on cpu"):
+    wkv_kernel.wkv6(r, k, v, w, u.cpu(), state)
+  with pytest.raises(ValueError, match="like r"):
+    wkv_kernel.wkv6(r, k.bfloat16(), v, w, u, state)
+  with pytest.raises(ValueError, match="w: expected float32"):
+    wkv_kernel.wkv6(r, k, v, w.bfloat16(), u, state)
+  with pytest.raises(ValueError, match="head dim"):
+    wkv_kernel.wkv6(*(x[..., :48] for x in (r, k, v, w)), u[:, :48])
+  with pytest.raises(ValueError, match="chunk"):
+    wkv_kernel.wkv6(r, k, v, w, u, state, chunk=65)
+  with pytest.raises(ValueError, match="s0: expected shape"):
+    wkv_kernel.wkv6(r, k, v, w, u, state[:, :1])
+  with pytest.raises(ValueError, match="contiguous last dim"):
+    wkv_kernel.wkv6(r.transpose(2, 3), k, v, w, u, state)
+
+
+def test_rwkv6_full_width_two_layers_on_the_card_match_the_cpu(cuda):
+  """rwkv6-1.6b at full width, float32, depth cut to 2 layers, TF32 off:
+  a prefill (K7 on the card) and 3 decode steps, the card against the
+  CPU on the same weights; logits within 1e-4 of the largest |logit|."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                            n_layers=2)
+  cpu_model = build_model(cfg, device="cpu")
+  cpu_params = cpu_model.init(0)
+  gpu_model = build_model(cfg)
+  gpu_params = gpu_model.from_state(cpu_params.state_dict())
+  toks = torch.from_numpy(np.random.RandomState(5).randint(
+      0, cfg.vocab_size, (1, 70)).astype(np.int32))
+  wkv_kernel.reset_launch_counts()
+  want, want_cache = cpu_model.prefill(cpu_params, toks, 128)
+  got, got_cache = gpu_model.prefill(gpu_params, toks.to(cuda), 128)
+  assert wkv_kernel.LAUNCHES["wkv6"] == cfg.n_layers
+  assert _rel_err(got.cpu(), want) < 1e-4
+  for g, c in zip(got_cache["layers"], want_cache["layers"]):
+    assert _rel_err(g["s"].cpu(), c["s"]) < 1e-4
+  for _ in range(3):
+    nxt = want.argmax(-1).to(torch.int32)
+    assert torch.equal(got.argmax(-1).cpu(), nxt.long())
+    want, _ = cpu_model.decode_step(cpu_params, nxt, want_cache)
+    got, _ = gpu_model.decode_step(gpu_params, nxt.to(cuda), got_cache)
+    assert _rel_err(got.cpu(), want) < 1e-4
+  assert wkv_kernel.LAUNCHES["wkv6"] == cfg.n_layers
+
+
+def test_rwkv_serve_engine_on_the_card_matches_the_cpu(cuda):
+  cfg = reduce_for_smoke(get_config("rwkv6-1.6b"))
+  cpu_model = build_model(cfg, device="cpu")
+  cpu_params = cpu_model.init(0)
+  gpu_model = build_model(cfg)
+  gpu_params = gpu_model.from_state(cpu_params.state_dict())
+  rng = np.random.RandomState(3)
+  prompts = [rng.randint(0, 512, n) for n in (5, 9, 16, 20)]
+  ecfg = EngineConfig(batch_slots=2, max_len=64, prompt_bucket=16)
+  runs = {}
+  for device, model, params in (("cpu", cpu_model, cpu_params),
+                                ("cuda", gpu_model, gpu_params)):
+    engine = ServeEngine(model, params, ecfg, device=device)
+    for p in prompts:
+      engine.submit(p, max_new_tokens=6)
+    wkv_kernel.reset_launch_counts()
+    runs[device] = engine.run_until_drained()
+  assert runs["cuda"] == runs["cpu"]
+  assert wkv_kernel.LAUNCHES["wkv6"] == cfg.n_layers * len(prompts)

@@ -35,6 +35,7 @@ from repro_torch.models import build_model, common, transformer
 from repro_torch.serve import EngineConfig, ServeEngine
 
 ARCH = "qwen3-0.6b"
+SERVED = ("qwen3-0.6b", "rwkv6-1.6b")   # the archs the port serves
 
 
 def ref_and_port(kv_quant="int8", **overrides):
@@ -56,19 +57,20 @@ def rel_err(got, want) -> float:
   return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
 
 
-def test_config_is_a_copy():
+@pytest.mark.parametrize("arch", SERVED)
+def test_config_is_a_copy(arch):
   for ref_cfg, cfg in (
-      (ref_get_config(ARCH), get_config(ARCH)),
-      (ref_reduce(ref_get_config(ARCH)), reduce_for_smoke(get_config(ARCH))),
-      (ref_reduce(ref_get_config(ARCH), d_model=128, n_layers=4),
-       reduce_for_smoke(get_config(ARCH), d_model=128, n_layers=4))):
+      (ref_get_config(arch), get_config(arch)),
+      (ref_reduce(ref_get_config(arch)), reduce_for_smoke(get_config(arch))),
+      (ref_reduce(ref_get_config(arch), d_model=128, n_layers=4),
+       reduce_for_smoke(get_config(arch), d_model=128, n_layers=4))):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
     assert cfg.padded_vocab == ref_cfg.padded_vocab
     assert cfg.block_pattern() == ref_cfg.block_pattern()
-  assert list_archs() == [ARCH]
+  assert list_archs() == list(SERVED)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - {ARCH}))
+@pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - set(SERVED)))
 def test_other_archs_name_the_slice_that_brings_them(arch):
   with pytest.raises(NotImplementedError, match="slice"):
     get_config(arch)
@@ -76,8 +78,9 @@ def test_other_archs_name_the_slice_that_brings_them(arch):
 
 def test_unported_layer_kinds_raise():
   cfg = reduce_for_smoke(get_config(ARCH))
-  for change in (dict(n_experts=4), dict(family="ssm"),
-                 dict(pos_embed="learned"), dict(norm="layernorm")):
+  for change in (dict(n_experts=4), dict(family="hybrid", attn_period=2),
+                 dict(pos_embed="learned"), dict(norm="layernorm_np"),
+                 dict(mlp_variant="gelu"), dict(family="encdec")):
     with pytest.raises(NotImplementedError, match="slice"):
       build_model(dataclasses.replace(cfg, **change), device="cpu")
   with pytest.raises(NotImplementedError, match="slice 7"):
