@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep,
-serving qwen3-0.6b with an int8 KV cache, and serving rwkv6-1.6b.
+serving qwen3-0.6b with an int8 KV cache, serving rwkv6-1.6b, and
+deploying qwen3-0.6b under each PE type's codec.
 
 Run from the root of a checkout on a machine with an H100 (or another
 sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
@@ -18,7 +19,13 @@ weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
 CPU.  The same traffic then goes through a full-width rwkv6-1.6b (bf16,
 random weights from seed 0; its prefill runs the WKV6 kernel K7), twice,
-with the same two-layer card-vs-CPU check.  Any failure raises, so the
+with the same two-layer card-vs-CPU check.  Last, the codec matmuls K3
+(int8) and K4 (LightPE) are held against their plain versions, a
+full-width, 28-layer qwen3-0.6b (bf16, seed 0) is packed with
+``quant.pack_params`` under each PE type and every packed matmul leaf of
+every layer runs through K3 or K4 at a decode and a prefill shape, and a
+two-layer float32 copy is packed on the card and on the CPU and held
+byte for byte.  Any failure raises, so the
 exit code is non-zero; without a CUDA device, or without the package
 beside it, the script stops before printing any result.  The last line of its output is one JSON object
 naming the device.
@@ -42,6 +49,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
 PEAK_BF16_PER_S = 989e12
 PEAK_FP32_PER_S = 67e12
+PEAK_INT8_PER_S = 1979e12
 
 K1_SHAPE = (3, 65536, 128)  # D, N (one sweep chunk), block
 K2_SHAPE = (3, 4096)        # D, N (the survivor cap)
@@ -62,6 +70,16 @@ PARITY_LAYERS = 2
 # K7 at the rwkv6-1.6b prefill shape (one 512-token bucket) and a ragged T
 K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
 K7_RAGGED_T = 300
+# the codecs: K3 and K4 at qwen3-0.6b's ffn/wi (K, N), a decode token and
+# the engine's prompt bucket, and a ragged shape; the matmul leaves of a
+# layer; the PE types packed (FP32 is the no-op)
+CODEC_KN = (1024, 3072)
+CODEC_MS = (1, 512)
+CODEC_RAGGED = (5, 1000, 70)
+CODEC_LEAVES = (("mix", "wq"), ("mix", "wkv"), ("mix", "wo"),
+                ("ffn", "wi"), ("ffn", "wg"), ("ffn", "wo"))
+CODEC_PE_TYPES = ("INT16", "INT8", "INT4", "LightPE-1", "LightPE-2")
+CODEC_PARITY_M = 64
 
 
 def log(msg: str = "") -> None:
@@ -927,6 +945,326 @@ def serve_parity(tag, cfg, what, tol):
   return max(errs)
 
 
+# ---------------------------------------------------------------------------
+# the deploy codecs: K3, K4, qwen3-0.6b packed under each PE type, and the
+# card against the CPU
+# ---------------------------------------------------------------------------
+
+def _int_mm_ms(xq, wq):
+  """Time of ``torch._int_mm`` on the same codes (the int32 product
+  without the epilogue), or why it refuses the shape."""
+  import torch
+  try:
+    return cuda_ms(lambda: torch._int_mm(xq, wq)), None
+  except RuntimeError as e:   # the library's own shape rules, not a check
+    return None, str(e).splitlines()[0][:120]
+
+
+def phase_codec_kernels():
+  """K3 and K4 vs their plain versions on the card, on seeded codes, at
+  qwen3-0.6b's ffn/wi shape for a decode token and a 512-token prompt
+  and at a ragged shape.  K3 must equal its plain version exactly; K4 is
+  held to 1e-5 of the largest |out| (it multiplies by the scale after the
+  K sum, the plain version folds it into the weights)."""
+  import numpy as np
+  import torch
+  from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+  from repro_torch.kernels.int8_matmul import ref as i8_ref
+  from repro_torch.kernels.pow2_matmul import kernel as p2_kernel
+  from repro_torch.kernels.pow2_matmul import ref as p2_ref
+  torch.backends.cuda.matmul.allow_tf32 = False
+  results = {}
+  k_dim, n_dim = CODEC_KN
+  shapes = [(m, k_dim, n_dim) for m in CODEC_MS] + [CODEC_RAGGED]
+  rng = np.random.RandomState(3)
+
+  def dev(a):
+    return torch.from_numpy(a).cuda()
+
+  for m, k, n in shapes:
+    xq = dev(rng.randint(-128, 128, (m, k)).astype(np.int8))
+    wq = dev(rng.randint(-128, 128, (k, n)).astype(np.int8))
+    ws = dev(rng.uniform(1e-4, 1e-2, n).astype(np.float32))
+    lib_ms, lib_why = _int_mm_ms(xq, wq)
+    for xs_dtype in (torch.float32, torch.bfloat16):
+      xs = dev(rng.uniform(1e-3, 1e-1, m).astype(np.float32)).to(xs_dtype)
+      got = i8_kernel.int8_matmul(xq, wq, xs, ws)
+      want = i8_ref.int8_matmul_ref(xq, wq, xs, ws)
+      torch.cuda.synchronize()
+      err = float((got - want).abs().max())
+      if not torch.equal(got, want):
+        raise AssertionError(f"K3 differs from its plain version at "
+                             f"{(m, k, n)}: max_abs_err {err}")
+      ms = cuda_ms(lambda: i8_kernel.int8_matmul(xq, wq, xs, ws))
+      plain_ms = cuda_ms(lambda: i8_ref.int8_matmul_ref(xq, wq, xs, ws),
+                         inner=2)
+      n_bytes = m * k + k * n + m * xs.element_size() + n * 4 + m * n * 4
+      b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, PEAK_INT8_PER_S)
+      lib = (f"{lib_ms:.4f} ms" if lib_ms is not None
+             else f"not timed: _int_mm refuses the shape ({lib_why})")
+      log(f"[K3] M={m} K={k} N={n}, {str(xs_dtype).split('.')[-1]} x "
+          f"scales: max_abs_err {err:.3g} (tolerance 0: equal); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}: {n_bytes / 1e6:.2f} MB, {2 * m * n * k / 1e9:.3f} GOP "
+          f"at 1,979 TOP/s int8), library (torch._int_mm, the int32 "
+          f"product without the epilogue) {lib}")
+      if (m, xs_dtype) == (max(CODEC_MS), torch.bfloat16):
+        results["int8_matmul"] = dict(
+            name="int8_matmul (K3)", route="cuda",
+            source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+            replaces="src/repro/kernels/int8_matmul/kernel.py:39",
+            on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_note="torch._int_mm on the same codes: the int32 "
+                         "product without the scaled epilogue")
+
+  for m, k, n in shapes:
+    for k_terms in (1, 2):
+      code_cols = n // 2 if k_terms == 1 else n
+      codes = dev(rng.randint(0, 256 if k_terms == 1 else 128,
+                              (k, code_cols)).astype(np.uint8))
+      scale = dev(rng.uniform(1e-3, 1e-1, n).astype(np.float32))
+      for dtype in (torch.float32, torch.bfloat16):
+        x = _randn(rng, (m, k), dtype)
+        got = p2_kernel.pow2_matmul(x, codes, scale, k_terms)
+        want = p2_ref.pow2_matmul_ref(x, codes, scale, k_terms)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        if not err <= 1e-5 * top:
+          raise AssertionError(f"K4 differs from its plain version at "
+                               f"{(m, k, n)}, k={k_terms}: {err} (max |out| "
+                               f"{top})")
+        ms = cuda_ms(lambda: p2_kernel.pow2_matmul(x, codes, scale,
+                                                   k_terms))
+        plain_ms = cuda_ms(lambda: p2_ref.pow2_matmul_ref(
+            x, codes, scale, k_terms), inner=2)
+        w_dense = _randn(rng, (k, n), torch.bfloat16)
+        x_dense = x.to(torch.bfloat16)
+        dense_ms = cuda_ms(lambda: torch.matmul(x_dense, w_dense))
+        n_bytes = (m * k * x.element_size() + codes.numel() + n * 4
+                   + m * n * 4)
+        peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, peak)
+        log(f"[K4] M={m} K={k} N={n}, k={k_terms}, "
+            f"{str(dtype).split('.')[-1]} x: max_abs_err {err:.3g} (max "
+            f"|out| {top:.3g}, tolerance 1e-5 of it); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+            f"{n_bytes / 1e6:.2f} MB, {2 * m * n * k / 1e9:.3f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s); library: none; yardstick, not the "
+            f"same function: dense bf16 torch.matmul {dense_ms:.4f} ms")
+        if (m, k_terms, dtype) == (max(CODEC_MS), 2, torch.bfloat16):
+          results["pow2_matmul"] = dict(
+              name="pow2_matmul (K4)", route="cuda",
+              source="src/repro_torch/kernels/pow2_matmul/csrc/"
+                     "pow2_matmul.cu",
+              replaces="src/repro/kernels/pow2_matmul/kernel.py:73",
+              on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              bound_ms=b_ms, bound_by=b_by, library_ms=None,
+              library_note="no PyTorch call decodes pow2 codes; dense bf16 "
+                           f"torch.matmul at the same shape: {dense_ms:.4f} "
+                           "ms (a yardstick, not the same function)")
+  log("[K4] library: none (no PyTorch call decodes pow2 codes)")
+  return results
+
+
+def _packed_leaves(tree, path=()):
+  """(path, leaf) of every packed leaf of a pack_params tree."""
+  if isinstance(tree, dict) and "codes" in tree:
+    yield "/".join(path), tree
+  elif isinstance(tree, dict):
+    for k, v in tree.items():
+      yield from _packed_leaves(v, path + (k,))
+
+
+def _codec_weights(leaf, layer: int, pe_type: str):
+  """One layer's rows of a packed stacked leaf, wrapped for K3 or K4."""
+  from repro_torch.kernels.int8_matmul import ops as i8
+  from repro_torch.kernels.pow2_matmul import ops as p2
+  _, d_in, d_out = leaf["shape"]
+  codes = leaf["codes"][layer * d_in:(layer + 1) * d_in]
+  scale = leaf["scale"].reshape(-1)
+  if pe_type == "INT8":
+    return i8.Int8Weights(codes, scale, d_in, d_out)
+  return p2.Pow2Weights(codes, scale, 1 if pe_type == "LightPE-1" else 2,
+                        d_in, d_out)
+
+
+def _codec_ops(pe_type: str):
+  """(kernel op, plain op, relative tolerance) of a PE type's matmul."""
+  from repro_torch.kernels.int8_matmul import ops as i8
+  from repro_torch.kernels.pow2_matmul import ops as p2
+  if pe_type == "INT8":
+    return i8.int8_matmul, i8.int8_matmul_reference, 0.0
+  return p2.pow2_matmul, p2.pow2_matmul_reference, 1e-5
+
+
+def phase_codecs():
+  """The codecs' main path: the full qwen3-0.6b (28 layers, bf16, seed 0)
+  as the reference-shaped tree, packed under each PE type; every layer's
+  six matmul leaves through K3 (INT8) or K4 (LightPE-1, -2) on seeded bf16
+  activations of a decode token and a 512-token prompt, each output held
+  against its plain version.  INT16 and INT4 have no kernel in the
+  reference either: packed and counted, not multiplied."""
+  import numpy as np
+  import torch
+  from repro_torch import convert
+  from repro_torch.configs import get_config
+  from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+  from repro_torch.kernels.pow2_matmul import kernel as p2_kernel
+  from repro_torch.models import build_model
+  from repro_torch.quant import (QuantPolicy, deploy_bytes_per_param,
+                                 pack_params)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = get_config("qwen3-0.6b")
+  t0 = time.perf_counter()
+  tree = convert.params_to_tree(cfg, build_model(cfg).init(0))
+  torch.cuda.synchronize()
+  n_weights = sum(tree["blocks"]["sub0"][g][leaf].numel()
+                  for g, leaf in CODEC_LEAVES)
+  log(f"[codecs] {cfg.name}: {_describe(cfg)}; seed-0 weights as the "
+      f"reference-shaped tree in {time.perf_counter() - t0:.2f} s: "
+      f"{n_weights:,} matmul weights in 6 leaves of "
+      f"{tuple(tree['blocks']['sub0']['ffn']['wi'].shape)} and the like")
+  rng = np.random.RandomState(14)
+  d_ins = sorted({tree["blocks"]["sub0"][g][leaf].shape[1]
+                  for g, leaf in CODEC_LEAVES})
+  acts = {(m, d): _randn(rng, (m, d), torch.bfloat16)
+          for m in CODEC_MS for d in d_ins}
+  counters = {"int8_matmul": i8_kernel, "pow2_matmul": p2_kernel}
+  for mod in counters.values():
+    mod.reset_launch_counts()
+  torch.cuda.synchronize()
+  t_path = time.perf_counter()
+  for pe_type in CODEC_PE_TYPES:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = pack_params(tree, QuantPolicy(pe_type=pe_type))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    leaves = dict(_packed_leaves(packed))
+    if sorted(leaves) != sorted(f"blocks/sub0/{g}/{leaf}"
+                                for g, leaf in CODEC_LEAVES):
+      raise AssertionError(f"{pe_type} packed {sorted(leaves)}")
+    n_bytes = sum(p["codes"].numel() * p["codes"].element_size()
+                  + 4 * p["scale"].numel() for p in leaves.values())
+    log(f"[codecs] {pe_type}: packed in {pack_s:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{n_bytes / n_weights:.6f} bytes per weight with the scales "
+        f"(deploy_bytes_per_param {deploy_bytes_per_param(pe_type)}); "
+        f"fmt {sorted({p['fmt'] for p in leaves.values()})}")
+    if pe_type not in ("INT8", "LightPE-1", "LightPE-2"):
+      continue
+    op, plain, tol = _codec_ops(pe_type)
+    t0 = time.perf_counter()
+    worst, calls = 0.0, 0
+    for layer in range(cfg.n_layers):
+      for group, name in CODEC_LEAVES:
+        weights = _codec_weights(packed["blocks"]["sub0"][group][name],
+                                 layer, pe_type)
+        for m in CODEC_MS:
+          x = acts[(m, weights.k)]
+          got, want = op(x, weights), plain(x, weights)
+          if got.shape != (m, weights.n):
+            raise AssertionError(f"{pe_type} layer {layer} {group}/{name}: "
+                                 f"shape {tuple(got.shape)}")
+          err = float((got - want).abs().max() / want.abs().max())
+          calls += 1
+          if not err <= tol:
+            raise AssertionError(f"{pe_type} layer {layer} {group}/{name} "
+                                 f"M={m}: {err} of max |out| (tolerance "
+                                 f"{tol})")
+          worst = max(worst, err)
+    torch.cuda.synchronize()
+    log(f"[codecs] {pe_type}: {calls} matmuls ({cfg.n_layers} layers x "
+        f"{len(CODEC_LEAVES)} leaves x M in {CODEC_MS}, bf16 activations) "
+        f"through {'K3' if pe_type == 'INT8' else 'K4'}, each held against its "
+        f"plain version: worst max |diff| / max |out| {worst:.3g} "
+        f"(tolerance {tol:g}); {time.perf_counter() - t0:.2f} s with the "
+        "checks")
+    del packed, leaves
+  torch.cuda.synchronize()
+  launches = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
+  want = {"int8_matmul": cfg.n_layers * len(CODEC_LEAVES) * len(CODEC_MS),
+          "pow2_matmul": 2 * cfg.n_layers * len(CODEC_LEAVES)
+                         * len(CODEC_MS)}
+  log(f"[codecs] the path took {time.perf_counter() - t_path:.2f} s; "
+      f"launches {launches}")
+  if launches != want:
+    raise AssertionError(f"expected launches {want}, got {launches}")
+  return launches
+
+
+def phase_codecs_parity():
+  """Full-width qwen3-0.6b in float32, depth cut to two layers: packed on
+  the card and on the CPU under all six PE types.  Codes, scales, fmt and
+  shape must be byte-equal; K3 on the card must equal the plain version
+  on the CPU exactly, K4 within 1e-5 of the largest |out|."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch import convert
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  from repro_torch.quant import QuantPolicy, pack_params
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32",
+                            n_layers=PARITY_LAYERS)
+  gpu_params = build_model(cfg).init(0)
+  cpu_params = build_model(cfg, device="cpu").from_state(
+      {k: v.cpu() for k, v in gpu_params.state_dict().items()})
+  trees = {"cuda": convert.params_to_tree(cfg, gpu_params),
+           "cpu": convert.params_to_tree(cfg, cpu_params)}
+  rng = np.random.RandomState(15)
+  acts = {d: _randn(rng, (CODEC_PARITY_M, d), torch.bfloat16).cpu()
+          for d in sorted({trees["cpu"]["blocks"]["sub0"][g][leaf].shape[1]
+                           for g, leaf in CODEC_LEAVES})}
+  worst = {}
+  for pe_type in ("FP32",) + CODEC_PE_TYPES:
+    t0 = time.perf_counter()
+    packed = {dev: pack_params(tree, QuantPolicy(pe_type=pe_type))
+              for dev, tree in trees.items()}
+    secs = time.perf_counter() - t0
+    g, c = (dict(_packed_leaves(packed[d])) for d in ("cuda", "cpu"))
+    if pe_type == "FP32":
+      same = all(torch.equal(packed["cuda"]["blocks"]["sub0"][grp][name]
+                             .cpu(), packed["cpu"]["blocks"]["sub0"][grp]
+                             [name]) for grp, name in CODEC_LEAVES)
+    else:
+      same = sorted(g) == sorted(c) and len(g) == len(CODEC_LEAVES) and all(
+          g[p]["fmt"] == c[p]["fmt"] and g[p]["shape"] == c[p]["shape"]
+          and torch.equal(g[p]["codes"].cpu(), c[p]["codes"])
+          and torch.equal(g[p]["scale"].cpu().view(torch.int32),
+                          c[p]["scale"].view(torch.int32)) for p in c)
+    if not same:
+      raise AssertionError(f"{pe_type}: the card's packed tree differs from "
+                           "the CPU's")
+    line = (f"[codecs-parity] {pe_type}: packed on the card and on the CPU "
+            f"in {secs:.2f} s, codes and scales byte-equal")
+    if pe_type in ("INT8", "LightPE-1", "LightPE-2"):
+      op, _, tol = _codec_ops(pe_type)
+      errs = []
+      for layer in range(cfg.n_layers):
+        for group, name in CODEC_LEAVES:
+          wc = _codec_weights(c[f"blocks/sub0/{group}/{name}"], layer,
+                              pe_type)
+          wg = _codec_weights(g[f"blocks/sub0/{group}/{name}"], layer,
+                              pe_type)
+          x = acts[wc.k]
+          want = op(x, wc)             # the plain version: a CPU tensor
+          got = op(x.cuda(), wg).cpu()  # the kernel
+          errs.append(float((got - want).abs().max() / want.abs().max()))
+      worst[pe_type] = max(errs)
+      line += (f"; {len(errs)} matmuls at M={CODEC_PARITY_M}, card kernel "
+               f"vs CPU plain version: max |diff| / max |out| "
+               f"{worst[pe_type]:.3g} (tolerance {tol:g})")
+      if not worst[pe_type] <= tol:
+        raise AssertionError(line)
+    log(line)
+  return worst
+
+
 def main() -> int:
   if not (ROOT / "src" / "repro_torch").is_dir():
     sys.exit("chip_smoke.py: src/repro_torch is not beside this script; "
@@ -950,12 +1288,15 @@ def main() -> int:
   kernels.update(phase_wkv_kernel())
   launches.update(phase_serve_rwkv())
   phase_serve_rwkv_parity()
+  kernels.update(phase_codec_kernels())
+  launches.update(phase_codecs())
+  phase_codecs_parity()
   for name, entry in kernels.items():
     entry["launches"] = launches[name]
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
       "its plain version on the card, with its launches during its path's "
       "run (K1, K2: the sweep; K5, K6: the first serve run; K7: the first "
-      "serve-rwkv run):")
+      "serve-rwkv run; K3, K4: the codecs run):")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

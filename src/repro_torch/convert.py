@@ -1,12 +1,15 @@
-"""Carry the reference's state into the port: design points, workloads
-and model parameters.
+"""Carry the reference's state into the port: design points, workloads,
+model parameters and packed deploy codecs; and the port's model back
+into the reference's tree layout.
 
 The sweep's state is the design points (a ConfigTable's columns) and the
 workload's layers; a model's is its parameter tree.  All arrive as plain
 numpy arrays, tuples and dicts, so a caller holding the reference
 package's objects hands over ``{name: getattr(table, name)}``,
 ``dataclasses.astuple(layer)`` or ``jax.tree_util.tree_map(np.asarray,
-params)`` without this module importing it.
+params)`` without this module importing it.  ``params_to_tree`` turns the
+port's model into that same tree (its leaves stacked on ``n_blocks``), the
+layout ``quant.pack_params`` walks.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.table import COLUMNS, ConfigTable
 from repro_torch.models.common import model_dtype
 from repro_torch.models.ssm import FLOAT32_LEAVES
+
+_NORM_LEAVES = ("scale", "bias")
 
 
 def table_from_columns(cols: Mapping[str, np.ndarray],
@@ -103,3 +108,61 @@ def params_from_jax(cfg: ModelConfig,
         if leaf in sub[group]:
           state[f"layers.{layer}.{name}"] = tensor(sub[group][leaf][b], cast)
   return state
+
+
+def params_to_tree(cfg: ModelConfig, params: torch.nn.Module
+                   ) -> Dict[str, Any]:
+  """The reference-shaped parameter tree of the port's ``Transformer``:
+  the inverse of ``params_from_jax``.  Each layer's ``layers.{l}.mix.wq``
+  and the like is stacked back onto ``blocks/sub{i}/mix/wq`` of shape
+  ``(n_blocks, d_in, d_out)``; tensors keep the model's dtypes and device
+  (the stacks are new tensors, the rest are the model's own)."""
+  state = params.state_dict()
+  tree: Dict[str, Any] = {
+      "embed": state["embed"],
+      "final_norm": {leaf: state[f"final_norm.{leaf}"]
+                     for leaf in _NORM_LEAVES
+                     if f"final_norm.{leaf}" in state}}
+  if not cfg.tie_embeddings:
+    tree["lm_head"] = state["lm_head"]
+  pattern = cfg.block_pattern()
+  blocks = {}
+  for i, (kind, _) in enumerate(pattern):
+    layers = [b * len(pattern) + i for b in range(cfg.n_blocks)]
+
+    def stack(name):
+      return torch.stack([state[f"layers.{l}.{name}"] for l in layers])
+    sub: Dict[str, Dict[str, torch.Tensor]] = {}
+    for norm in ("mix_norm", "ffn_norm"):
+      sub[norm] = {leaf: stack(f"{norm}.{leaf}") for leaf in _NORM_LEAVES
+                   if f"layers.{layers[0]}.{norm}.{leaf}" in state}
+    leaves = _RWKV_LEAVES if kind == "rwkv" else _ATTN_LEAVES
+    for name, (group, leaf), _ in leaves:
+      if f"layers.{layers[0]}.{name}" in state:
+        sub.setdefault(group, {})[leaf] = stack(name)
+    blocks[f"sub{i}"] = sub
+  tree["blocks"] = blocks
+  return tree
+
+
+_PACKED_KEYS = {"codes", "scale", "fmt", "shape"}
+
+
+def packed_from_jax(packed: Mapping[str, Any]) -> Dict[str, Any]:
+  """The reference's ``pack_params`` tree (numpy arrays, e.g. through
+  ``jax.tree_util.tree_map(np.asarray, ...)``) as CPU tensors, the layout
+  the port's ``pack_params`` returns: a packed leaf keeps its codes'
+  dtype (uint8, int8 or int16) and its float32 scale, with ``fmt`` a str
+  and ``shape`` a tuple of ints; other leaves become tensors of their own
+  dtype."""
+  if isinstance(packed, Mapping):
+    if set(packed) == _PACKED_KEYS:
+      return {"codes": torch.from_numpy(np.array(packed["codes"],
+                                                 copy=True)),
+              "scale": torch.from_numpy(np.array(packed["scale"],
+                                                 dtype=np.float32,
+                                                 copy=True)),
+              "fmt": str(packed["fmt"]),
+              "shape": tuple(int(d) for d in packed["shape"])}
+    return {k: packed_from_jax(v) for k, v in packed.items()}
+  return torch.from_numpy(np.array(packed, copy=True))

@@ -1,0 +1,74 @@
+"""Launch wrapper for the CUDA W8A8 int8 matmul kernel
+(``csrc/int8_matmul.cu``, built and loaded through ``ctypes``).
+
+The wrapper takes int8 codes x (M, K) and w (K, N), the per-row scales of
+x (M,) float32 or bf16 and the per-column scales of w (N,) float32, all
+contiguous on one CUDA device; it allocates the float32 (M, N) output,
+launches on the current stream and raises if the launch was refused.
+``LAUNCHES`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels._checks import expect
+
+LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
+
+
+def reset_launch_counts() -> None:
+  for name in LAUNCHES:
+    LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+  lib = _build.load("int8_matmul")
+  p, i64 = ctypes.c_void_p, ctypes.c_int64
+  lib.i8mm_forward.argtypes = [p] * 5 + [i64] * 3 + [ctypes.c_int, p]
+  lib.i8mm_forward.restype = ctypes.c_int
+  return lib
+
+
+def check_inputs(x, w, x_scale, w_scale) -> None:
+  """Raise ValueError on what the kernel does not take."""
+  if x.device.type != "cuda":
+    raise ValueError(f"x: expected a CUDA tensor, got one on {x.device}")
+  if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+    raise ValueError(f"expected x (M, K) and w (K, N), got "
+                     f"{tuple(x.shape)} and {tuple(w.shape)}")
+  m, k = x.shape
+  n = w.shape[1]
+  expect(x, "x", (torch.int8,), (m, k), x.device)
+  expect(w, "w", (torch.int8,), (k, n), x.device)
+  expect(x_scale, "x_scale", (torch.float32, torch.bfloat16), (m,),
+         x.device)
+  expect(w_scale, "w_scale", (torch.float32,), (n,), x.device)
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+  """K3: int8 (M, K) @ int8 (K, N) -> (M, N) float32, each int32 sum
+  times x_scale[row], then times w_scale[col]."""
+  check_inputs(x, w, x_scale, w_scale)
+  m, k = x.shape
+  n = w.shape[1]
+  out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+  if out.numel() == 0:
+    return out
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream().cuda_stream
+    status = _lib().i8mm_forward(
+        x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), m, k, n, int(x_scale.dtype == torch.bfloat16),
+        stream)
+  if status != 0:
+    raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error "
+                       f"{status}")
+  LAUNCHES["int8_matmul"] += 1
+  return out

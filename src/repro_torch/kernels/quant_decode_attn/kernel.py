@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._checks import expect
 
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
@@ -40,15 +41,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _expect(t: torch.Tensor, name: str, dtypes, shape, device) -> None:
-  if t.device != device:
-    raise ValueError(f"{name} is on {t.device}, q on {device}")
-  if t.dtype not in dtypes:
-    raise ValueError(f"{name}: expected {dtypes}, got {t.dtype}")
-  if tuple(t.shape) != tuple(shape):
-    raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                     f"{tuple(t.shape)}")
-  if not t.is_contiguous():
-    raise ValueError(f"{name} must be contiguous")
+  expect(t, name, dtypes, shape, device)
   if t.data_ptr() % 16:
     raise ValueError(f"{name} must be 16-byte aligned")
 

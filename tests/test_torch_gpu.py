@@ -1,6 +1,6 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-torch version, and the device sweep and the serving engine (qwen3-0.6b and
-rwkv6-1.6b) against the same code on the CPU.
+torch version, and the device sweep, the serving engine (qwen3-0.6b and
+rwkv6-1.6b) and the deploy codecs against the same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -19,16 +19,23 @@ from repro_torch.explore import (DesignSpace, HistogramAccumulator,
                                  ParetoAccumulator, StatsAccumulator,
                                  TopKAccumulator, TorchOracleBackend,
                                  stream_explore)
+from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+from repro_torch.kernels.int8_matmul import ops as i8
+from repro_torch.kernels.int8_matmul import ref as i8_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.pareto_front import kernel, ops, ref
+from repro_torch.kernels.pow2_matmul import kernel as p2_kernel
+from repro_torch.kernels.pow2_matmul import ops as p2
 from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
 from repro_torch.kernels.quant_decode_attn import ops as qda
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_scan import ops as wkv
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.models import build_model
+from repro_torch.quant import QuantPolicy, pack_params
 from repro_torch.serve import EngineConfig, ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -386,3 +393,111 @@ def test_rwkv_serve_engine_on_the_card_matches_the_cpu(cuda):
     runs[device] = engine.run_until_drained()
   assert runs["cuda"] == runs["cpu"]
   assert wkv_kernel.LAUNCHES["wkv6"] == cfg.n_layers * len(prompts)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 (the deploy codecs).  K3 is exact: an int32 sum and the
+# reference's two float32 multiplies, so atol 0.  K4 sums in float32 and
+# multiplies by the scale after the sum, where its plain version folds the
+# scale into the weights: 1e-5 of the largest |output|.
+# ---------------------------------------------------------------------------
+
+# (m, k, n): qwen3-0.6b's ffn/wi at decode and prefill, ragged M, K and N,
+# N not a multiple of 4 (byte loads), K not a multiple of 4, and M = 1
+CODEC_CASES = [(1, 1024, 3072), (512, 1024, 3072), (5, 1000, 70),
+               (5, 1000, 72), (130, 999, 66), (1, 64, 2), (65, 3072, 1024)]
+
+
+@pytest.mark.parametrize("xs_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CODEC_CASES, ids=str)
+def test_int8_kernel_equals_plain_version(cuda, case, xs_dtype):
+  m, k, n = case
+  rng = np.random.RandomState(m + k + n)
+  xq = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(np.int8))
+  wq = torch.from_numpy(rng.randint(-128, 128, (k, n)).astype(np.int8))
+  xq[0], wq[:, 0] = -128, -128        # the largest |sum|: 128^2 K
+  xs = torch.from_numpy(rng.uniform(1e-3, 1e-1, m).astype(np.float32))
+  ws = torch.from_numpy(rng.uniform(1e-3, 1e-1, n).astype(np.float32))
+  args = [a.to(cuda) for a in (xq, wq, xs.to(xs_dtype), ws)]
+  i8_kernel.reset_launch_counts()
+  got = i8_kernel.int8_matmul(*args)
+  assert i8_kernel.LAUNCHES["int8_matmul"] == 1
+  assert torch.equal(got, i8_ref.int8_matmul_ref(*args))
+  assert torch.equal(got.cpu(), i8_ref.int8_matmul_ref(
+      xq, wq, xs.to(xs_dtype), ws))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CODEC_CASES, ids=str)
+@pytest.mark.parametrize("k_terms", [1, 2])
+def test_pow2_kernel_matches_plain_version(cuda, k_terms, case, dtype):
+  m, k, n = case
+  rng = np.random.RandomState(m + k + n + k_terms)
+  x = _normal(rng, (m, k), cuda, dtype)
+  w = _normal(rng, (k, n), cuda) * 0.05
+  weights = p2.quantize_weights(w, k_terms)
+  p2_kernel.reset_launch_counts()
+  got = p2.pow2_matmul(x, weights)
+  assert p2_kernel.LAUNCHES["pow2_matmul"] == 1
+  assert _rel_err(got, p2.pow2_matmul_reference(x, weights)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_on_the_card_equals_the_cpu(cuda, dtype):
+  """Activation quantization is exact on both devices, so K3 on the card
+  equals the plain version on the CPU bit for bit."""
+  rng = np.random.RandomState(8)
+  x = _normal(rng, (64, 1024), "cpu", dtype) * 3
+  x[7] = 0
+  w = _normal(rng, (1024, 3072), "cpu") * 0.05
+  weights = i8.quantize_weights(w)
+  on_card = i8.Int8Weights(weights.codes.to(cuda), weights.scale.to(cuda),
+                           weights.k, weights.n)
+  assert torch.equal(i8.quantize_weights(w.to(cuda)).codes.cpu(),
+                     weights.codes)
+  assert torch.equal(i8.int8_matmul(x.to(cuda), on_card).cpu(),
+                     i8.int8_matmul(x, weights))
+
+
+@pytest.mark.parametrize("pe_type", ["INT16", "INT8", "INT4", "LightPE-1",
+                                     "LightPE-2"])
+def test_pack_params_on_the_card_equals_the_cpu(cuda, pe_type):
+  cfg = reduce_for_smoke(get_config("qwen3-0.6b"))
+  gpu = build_model(cfg).init(0)
+  cpu = build_model(cfg, device="cpu").from_state(
+      {k: v.cpu() for k, v in gpu.state_dict().items()})
+  policy = QuantPolicy(pe_type=pe_type)
+  got = pack_params(convert.params_to_tree(cfg, gpu), policy)
+  want = pack_params(convert.params_to_tree(cfg, cpu), policy)
+  for name in ("wq", "wkv", "wo"):
+    g, c = got["blocks"]["sub0"]["mix"][name], want["blocks"]["sub0"]["mix"][
+        name]
+    assert g["fmt"] == c["fmt"] and g["shape"] == c["shape"]
+    assert torch.equal(g["codes"].cpu(), c["codes"])
+    assert torch.equal(g["scale"].cpu().view(torch.int32),
+                       c["scale"].view(torch.int32))
+
+
+def test_codec_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+  x = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
+  w = torch.zeros((64, 8), dtype=torch.int8, device=cuda)
+  ones = torch.ones(8, device=cuda)
+  with pytest.raises(ValueError, match="expected x"):
+    i8_kernel.int8_matmul(x, w[:32], torch.ones(4, device=cuda), ones)
+  with pytest.raises(ValueError, match="is on cpu"):
+    i8_kernel.int8_matmul(x, w, torch.ones(4), ones)
+  with pytest.raises(ValueError, match="contiguous"):
+    i8_kernel.int8_matmul(x, w.t().contiguous().t(),
+                          torch.ones(4, device=cuda), ones)
+  with pytest.raises(ValueError, match="w_scale"):
+    i8_kernel.int8_matmul(x, w, torch.ones(4, device=cuda), ones.half())
+  xf = torch.zeros((4, 64), device=cuda)
+  codes = torch.zeros((64, 4), dtype=torch.uint8, device=cuda)
+  with pytest.raises(ValueError, match="odd"):
+    p2_kernel.pow2_matmul(xf, codes, torch.ones(7, device=cuda), 1)
+  with pytest.raises(ValueError, match="codes"):
+    p2_kernel.pow2_matmul(xf, codes, ones, 2)
+  with pytest.raises(ValueError, match="k_terms"):
+    p2_kernel.pow2_matmul(xf, codes, ones, 3)
+  with pytest.raises(ValueError, match="x:"):
+    p2_kernel.pow2_matmul(xf.half(), codes, ones, 1)

@@ -127,7 +127,8 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
 
 def test_build_targets_are_keyed_on_source_content():
   srcs = _build.sources()
-  assert [s.name for s in srcs] == ["flash_attention.cu", "pareto_front.cu",
+  assert [s.name for s in srcs] == ["flash_attention.cu", "int8_matmul.cu",
+                                    "pareto_front.cu", "pow2_matmul.cu",
                                     "quant_decode_attn.cu", "rwkv6_scan.cu"]
   for src in srcs:
     target = _build._target(src)
