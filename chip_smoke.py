@@ -61,7 +61,9 @@ SWEEP_CHUNK = 65536
 K6_SHAPE = (1, 512, 16, 8, 128)       # B, S, H, Hkv, D
 K6_WINDOW = 128
 K5_SHAPE = (1, 16, 8, 2048, 128)      # B, H, Hkv, S, D
-K5_LENGTHS = (1, 300, 2048)
+# lengths 1, 300, 544 (the positions a serving decode step reads: the
+# 512-token prompt bucket plus 32 new tokens) and a full cache
+K5_LENGTHS = (1, 300, 544, 2048)
 K5_COLD_CACHES = 16                    # x 4.3 MB: more than the 50 MB L2
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
@@ -467,41 +469,48 @@ def phase_attention_kernels():
   results = {}
   b, s, h, hkv, d = K6_SHAPE
   rng = np.random.RandomState(6)
-  for dtype, window in ((torch.bfloat16, 0), (torch.float32, 0),
-                        (torch.bfloat16, K6_WINDOW)):
+  # the serving case, f32, a window, and full (non-causal) attention, where
+  # every block walks every key tile
+  for dtype, causal, window in ((torch.bfloat16, True, 0),
+                                (torch.float32, True, 0),
+                                (torch.bfloat16, True, K6_WINDOW),
+                                (torch.bfloat16, False, 0)):
     q = _randn(rng, (b, s, h, d), dtype)
     kv = _randn(rng, (b, s, 2, hkv, d), dtype)
     k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model passes v
-    got = fa.flash_attention(q, k, v, causal=True, window=window)
-    want = fa.flash_attention_reference(q, k, v, causal=True, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_reference(q, k, v, causal=causal,
+                                        window=window)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not err <= 1e-4 * scale:
       raise AssertionError(f"K6 differs from its plain version: {err} "
                            f"(max |out| {scale})")
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                             window=window))
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=True, window=window), inner=2)
+        q, k, v, causal=causal, window=window), inner=2)
     es = q.element_size()
     n_bytes = (b * s * h * d + 2 * b * s * hkv * d) * es + b * s * h * d * 4
-    n_ops = 4 * _live_pairs(s, True, window) * b * h * d
+    n_ops = 4 * _live_pairs(s, causal, window) * b * h * d
     peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
     b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
     lib_ms = None
     if not window:
       qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
       lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-          qt, kt, vt, is_causal=True, enable_gqa=True))
-    tag = f"{str(dtype).split('.')[-1]} {'window ' + str(window) if window else 'causal'}"
+          qt, kt, vt, is_causal=causal, enable_gqa=True))
+    mask = (f"window {window}" if window else
+            "causal" if causal else "full")
+    tag = f"{str(dtype).split('.')[-1]} {mask}"
     log(f"[K6] B={b} S={s} H={h} Hkv={hkv} D={d} {tag}: max_abs_err "
         f"{err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of it); kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
         f"({b_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP), "
         f"library (scaled_dot_product_attention) "
         f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not timed (window)'}")
-    if dtype == torch.bfloat16 and not window:
+    if dtype == torch.bfloat16 and causal and not window:
       model_out = got.to(torch.bfloat16).float()   # as the model casts it
       ref_out = _reference_bf16_rounding(q, k, v).float()
       gap = float((model_out - ref_out).abs().max() / ref_out.abs().max())
@@ -518,7 +527,8 @@ def phase_attention_kernels():
                  "flash_attention.cu",
           replaces="src/repro/kernels/flash_attention/kernel.py:78",
           on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+          redesigned="PR 15")
 
   b, h, hkv, s, d = K5_SHAPE
   q = _randn(rng, (b, h, d), torch.bfloat16)
@@ -562,7 +572,8 @@ def phase_attention_kernels():
           on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
           bound_ms=b_ms, bound_by=b_by, library_ms=None,
           library_note="no single PyTorch call attends over int8 codes "
-                       "with per-position scales")
+                       "with per-position scales",
+          redesigned="PR 15")
   log("[K5] library: none (no single PyTorch call attends over int8 codes "
       "with per-position scales)")
   return results
@@ -788,7 +799,8 @@ def serve_twice(tag, cfg, want):
   return main_launches
 
 
-PROFILE_GROUPS = (("K5", ("quant_decode",)), ("K6", ("flash_fwd",)),
+PROFILE_GROUPS = (("K5", ("qda_kernel",)),
+                  ("K6", ("flash_bf16_kernel", "flash_f32_kernel")),
                   ("K7", ("wkv6",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")))
@@ -950,12 +962,22 @@ def serve_parity(tag, cfg, what, tol):
 # card against the CPU
 # ---------------------------------------------------------------------------
 
-def _int_mm_ms(xq, wq):
+def _int_mm_ms(xq, wq, epilogue=None):
   """Time of ``torch._int_mm`` on the same codes (the int32 product
-  without the epilogue), or why it refuses the shape."""
+  without the epilogue; with ``epilogue`` = (x_scale, w_scale), followed by
+  K3's two f32 multiplies: the library route to K3's whole function), or
+  why it refuses the shape."""
   import torch
+
+  def call():
+    acc = torch._int_mm(xq, wq)
+    if epilogue is None:
+      return acc
+    xs, ws = epilogue
+    return (acc.to(torch.float32) * xs.reshape(-1, 1).to(torch.float32)
+            * ws.reshape(1, -1))
   try:
-    return cuda_ms(lambda: torch._int_mm(xq, wq)), None
+    return cuda_ms(call), None
   except RuntimeError as e:   # the library's own shape rules, not a check
     return None, str(e).splitlines()[0][:120]
 
@@ -1000,7 +1022,10 @@ def phase_codec_kernels():
                          inner=2)
       n_bytes = m * k + k * n + m * xs.element_size() + n * 4 + m * n * 4
       b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, PEAK_INT8_PER_S)
-      lib = (f"{lib_ms:.4f} ms" if lib_ms is not None
+      whole_ms, _ = _int_mm_ms(xq, wq, epilogue=(xs, ws))
+      lib = (f"{lib_ms:.4f} ms; yardstick of K3's whole function "
+             f"(_int_mm then the two f32 multiplies) {whole_ms:.4f} ms"
+             if lib_ms is not None
              else f"not timed: _int_mm refuses the shape ({lib_why})")
       log(f"[K3] M={m} K={k} N={n}, {str(xs_dtype).split('.')[-1]} x "
           f"scales: max_abs_err {err:.3g} (tolerance 0: equal); kernel "

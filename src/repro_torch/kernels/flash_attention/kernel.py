@@ -4,8 +4,12 @@
 The wrapper takes q (B, S, H, D) and k/v (B, S, Hkv, D) on one CUDA
 device, float32 or bf16, in any strides whose last dim is contiguous,
 allocates the f32 output, launches on the current stream and raises if
-the launch was refused.  ``LAUNCHES`` counts its launches, so a run that
-zeroes it before driving the model can show that prefill went through it.
+the launch was refused.  bf16 runs on the tensor cores and its tiles
+arrive by 16-byte asynchronous copies, so bf16 bases must be 16-byte
+aligned and their batch, sequence and head strides multiples of 8
+elements (the model's q, k and the ``kv[:, :, 1]`` view of v are).
+``LAUNCHES`` counts its launches, so a run that zeroes it before driving
+the model can show that prefill went through it.
 """
 from __future__ import annotations
 
@@ -63,6 +67,13 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     raise ValueError(f"H = {h} is not a multiple of Hkv = {hkv}")
   if d not in HEAD_DIMS:
     raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+  if q.dtype == torch.bfloat16:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+      if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+        raise ValueError(f"{name}: bf16 tiles are copied 16 bytes at a "
+                         f"time: the base must be 16-byte aligned and the "
+                         f"strides multiples of 8, got strides "
+                         f"{t.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

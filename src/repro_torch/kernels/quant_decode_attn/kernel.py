@@ -5,8 +5,11 @@ The wrapper takes one decode token's q (B, H, D), an int8 cache
 (B, Hkv, S, D) with its f32 scales (B, Hkv, S) and the per-row fill
 ``length`` (B,) int32, all contiguous on one CUDA device; it allocates the
 f32 output, launches on the current stream and raises if the launch was
-refused.  ``length`` stays on the device: the kernel reads it there.
-``LAUNCHES`` counts its launches.
+refused.  ``length`` stays on the device: the kernel reads it there, so a
+call captures into a CUDA graph whose replays follow it.  The kernel
+splits the cache into chunks of ``kSplit`` positions dealt to at most
+``kMaxSplits`` blocks per (batch, kv head), one thread-block cluster that
+merges its partials in shared memory.  ``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 

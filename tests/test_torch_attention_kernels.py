@@ -11,6 +11,9 @@ Tolerances: 2e-5 of the largest |output| for the kernels (as
 float32 sums taken in another order), 2e-4 for the model paths (the
 reference's own bound between its kernel and its model attention).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -24,9 +27,13 @@ from repro.models import attention as ref_attention
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
 from repro_torch.kernels.quant_decode_attn import ops as qda
+from repro_torch.kernels.quant_decode_attn import ref as qda_ref
 from repro_torch.models import attention
+from test_torch_gpu import DECODE_CASES as CARD_DECODE_CASES
+from test_torch_gpu import FLASH_CASES as CARD_FLASH_CASES
 
 
 def rel_err(got, want) -> float:
@@ -179,3 +186,78 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                  torch.ones(1, dtype=torch.int32), 0.1)
   assert fa_kernel.LAUNCHES["flash_attention"] == 0
   assert qda_kernel.LAUNCHES["quant_decode_attn"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The numeric premises of the CUDA kernels' designs, rebuilt in plain torch
+# (the kernels themselves run only on a card).  The tile, walker and split
+# sizes are read from the kernels' sources, so the premises follow them.
+# ---------------------------------------------------------------------------
+
+def csrc_constant(kernel_module, name: str) -> int:
+  """``constexpr int <name> = <n>;`` of the kernel's CUDA source."""
+  pkg = Path(kernel_module.__file__).parent
+  src = (pkg / "csrc" / f"{pkg.name}.cu").read_text()
+  found = re.findall(rf"constexpr int {name} = (\d+);", src)
+  assert len(found) == 1, (name, found)
+  return int(found[0])
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + CARD_FLASH_CASES, ids=str)
+def test_flash_bf16_kernel_order_stays_within_tolerance(case):
+  """K6's bf16 order (f32 scores of bf16 q and k scaled after, the
+  kernel's walkers of key tiles, P as bf16 hi + lo, f32 sums) is within
+  the card tests' 1e-4 of max |out| of the f32 plain version on the same
+  bf16 inputs, for the shapes of both files."""
+  b, s, h, hkv, d, causal, window = case
+  rng = np.random.RandomState(s + h + d)
+  q = torch.from_numpy(normal(rng, (b, s, h, d))).bfloat16()
+  k = torch.from_numpy(normal(rng, (b, s, hkv, d))).bfloat16()
+  v = torch.from_numpy(normal(rng, (b, s, hkv, d))).bfloat16()
+  want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+  g = h // hkv
+
+  def flat(x):  # (B, S, heads, D) -> (B * H, S, D), kv repeated per group
+    x = torch.repeat_interleave(x, h // x.shape[2], dim=2)
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
+  got = fa_ref.flash_attention_bf16_order(
+      flat(q), flat(k), flat(v), 1.0 / d ** 0.5, causal=causal,
+      window=window, block_k=csrc_constant(fa_kernel, "kBK"),
+      walkers=csrc_constant(fa_kernel, "kWalkers")
+  ).reshape(b, h, s, d).permute(0, 2, 1, 3)
+  assert g >= 1 and got.shape == want.shape
+  assert rel_err(got.numpy(), want.numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + CARD_DECODE_CASES + [
+    (1, 4, 2, 300, 32, (0,)), (1, 4, 2, 8192, 32, (5000,))], ids=str)
+def test_decode_split_and_merge_keeps_the_function(case):
+  """K5's split over the sequence (the kernel's chunks dealt round-robin
+  to its blocks, each with its online softmax; blocks with no chunk
+  below the fill; the merge's rescaling) is within 1e-6 of max |out| of
+  the plain version; length 0 gives exactly 0."""
+  b, h, hkv, s, d, lengths = case
+  g = h // hkv
+  rng = np.random.RandomState(b * s + h + 1)
+  q = torch.from_numpy(normal(rng, (b * hkv, g, d)))
+  kc = torch.from_numpy(rng.randint(-128, 128, (b * hkv, s, d)).astype(
+      np.int8))
+  vc = torch.from_numpy(rng.randint(-128, 128, (b * hkv, s, d)).astype(
+      np.int8))
+  ks = torch.from_numpy(rng.uniform(1e-3, 3e-2, (b * hkv, s)).astype(
+      np.float32))
+  vs = torch.from_numpy(rng.uniform(1e-3, 3e-2, (b * hkv, s)).astype(
+      np.float32))
+  lens = torch.repeat_interleave(torch.tensor(lengths, dtype=torch.int32),
+                                 hkv)
+  want = qda_ref.quant_decode_attn_ref(q, kc, ks, vc, vs, lens,
+                                       1.0 / d ** 0.5)
+  got = qda_ref.quant_decode_attn_split(
+      q, kc, ks, vc, vs, lens, 1.0 / d ** 0.5,
+      csrc_constant(qda_kernel, "kSplit"),
+      csrc_constant(qda_kernel, "kMaxSplits"))
+  assert torch.isfinite(got).all()
+  if not any(lengths):
+    assert torch.equal(got, torch.zeros_like(got))
+  else:
+    assert rel_err(got.numpy(), want.numpy()) < 1e-6

@@ -140,10 +140,13 @@ def _normal(rng, shape, device, dtype=torch.float32):
 
 
 # (b, s, h, hkv, d, causal, window): the serving shape, windowed, ragged S,
-# G = 1, 2, 4 and 8, non-causal, every head dim
+# G = 1, 2, 4 and 8, non-causal, every head dim; S at the 64-row tile
+# edges and one past the serving bucket; D = 64 with G = 2
 FLASH_CASES = [(1, 512, 16, 8, 128, True, 0), (1, 512, 16, 8, 128, True, 128),
                (1, 300, 8, 2, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
-               (1, 70, 8, 1, 16, True, 24)]
+               (1, 70, 8, 1, 16, True, 24), (1, 63, 16, 8, 128, True, 0),
+               (1, 64, 16, 8, 128, True, 0), (1, 65, 16, 8, 128, True, 0),
+               (1, 513, 16, 8, 128, True, 0), (2, 200, 8, 4, 64, True, 0)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
@@ -163,9 +166,18 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
   assert _rel_err(got, want) < 1e-4
 
 
+# (b, h, hkv, s, d, lengths): lengths 1, mid and S of the serving cache and
+# at the 128-position chunk edges; G = 1, 2, 4 and 8; ragged S; a batch
+# whose rows hold 0 and S positions; a cache of 32 chunks (4 a block)
 DECODE_CASES = [(1, 16, 8, 2048, 128, (1,)), (1, 16, 8, 2048, 128, (300,)),
                 (1, 16, 8, 2048, 128, (2048,)), (2, 8, 2, 70, 16, (70, 9)),
-                (1, 4, 4, 96, 32, (37,)), (1, 16, 2, 600, 64, (599,))]
+                (1, 4, 4, 96, 32, (37,)), (1, 16, 2, 600, 64, (599,)),
+                (1, 16, 8, 2048, 128, (127,)), (1, 16, 8, 2048, 128, (128,)),
+                (1, 16, 8, 2048, 128, (129,)),
+                (1, 16, 8, 2048, 128, (2047,)),
+                (2, 16, 8, 2048, 128, (0, 2048)),
+                (1, 64, 8, 300, 128, (300,)),
+                (1, 16, 8, 4096, 128, (3000,))]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES, ids=str)
@@ -196,6 +208,32 @@ def test_decode_kernel_gives_zero_for_an_empty_cache(cuda):
   assert torch.equal(out, torch.zeros_like(out))
 
 
+def test_decode_kernel_replays_in_a_cuda_graph_as_length_changes(cuda):
+  """One K5 call captured as a CUDA graph reads ``length`` on the device:
+  each replay after an in-place change of ``length`` equals the plain
+  version at the new length."""
+  rng = np.random.RandomState(4)
+  b, h, hkv, s, d = 2, 16, 8, 2048, 128
+  q = _normal(rng, (b, h, d), cuda, torch.bfloat16)
+  cache = qda.quantize_kv(_normal(rng, (b, hkv, s, d), cuda),
+                          _normal(rng, (b, hkv, s, d), cuda))
+  lens = torch.tensor([513, 5], dtype=torch.int32, device=cuda)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    qda.quant_decode_attn(q, *cache, lens)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = qda.quant_decode_attn(q, *cache, lens)
+  for new in ([513, 5], [514, 0], [2048, 129], [1, 2047], [127, 128]):
+    lens.copy_(torch.tensor(new, dtype=torch.int32))
+    graph.replay()
+    want = qda.quant_decode_attn_reference(q, *cache, lens)
+    torch.cuda.synchronize()
+    assert _rel_err(out, want) < 1e-4, new
+
+
 def test_quantize_kv_on_the_card_equals_the_cpu(cuda):
   rng = np.random.RandomState(1)
   k = _normal(rng, (1, 8, 512, 128), "cpu") * 3
@@ -216,6 +254,17 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     fa_kernel.flash_attention(q, kv.bfloat16(), kv, 0.1)
   with pytest.raises(ValueError, match="multiple"):
     fa.flash_attention(q[:, :, :3], kv, kv)
+  # bf16 tiles arrive in 16-byte copies: a base off 16 bytes, or a stride
+  # that is not a multiple of 8 elements, is refused
+  qb, kvb = q.bfloat16(), kv.bfloat16()
+  off = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16,
+                    device=cuda)[1:].view(qb.shape)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    fa_kernel.flash_attention(off, kvb, kvb, 0.1)
+  wide = torch.zeros((1, 64, 4, 36), dtype=torch.bfloat16,
+                     device=cuda)[..., :32]
+  with pytest.raises(ValueError, match="multiples of 8"):
+    fa_kernel.flash_attention(wide, kvb, kvb, 0.1)
   codes = torch.zeros((1, 2, 64, 32), dtype=torch.int8, device=cuda)
   scales = torch.zeros((1, 2, 64), device=cuda)
   lens = torch.ones(1, dtype=torch.int32, device=cuda)
