@@ -69,9 +69,11 @@ SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_ENGINE = dict(batch_slots=4, max_len=2048, prompt_bucket=512)
 PARITY_LAYERS = 2
-# K7 at the rwkv6-1.6b prefill shape (one 512-token bucket) and a ragged T
+# K7 at the rwkv6-1.6b prefill shape (one 512-token bucket), a ragged T,
+# and a T of more chunks than K7's cluster has blocks (4 chunks a block)
 K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
 K7_RAGGED_T = 300
+K7_LONG_T = 2048
 # the codecs: K3 and K4 at qwen3-0.6b's ffn/wi (K, N), a decode token and
 # the engine's prompt bucket, and a ragged shape; the matmul leaves of a
 # layer; the PE types packed (FP32 is the no-op)
@@ -593,11 +595,13 @@ def _k7_counts(b, t, h, d, elem_bytes, with_s0):
 
 def phase_wkv_kernel():
   """K7 vs its plain chunked version on the card, at the rwkv6-1.6b
-  prefill shape (bf16 and float32) and at a ragged T with a nonzero
-  initial state.  Both compute in float32 and differ in the order of the
-  sums and in expf: held to 1e-4 of the largest |value|."""
+  prefill shape (bf16 and float32), at a ragged T with a nonzero initial
+  state and at a T whose chunks outnumber the cluster's blocks.  Both
+  compute in float32 and differ in the order of the sums and in how the
+  decays' exps are factored: held to 1e-4 of the largest |value|."""
   import numpy as np
   import torch
+  from repro_torch import _build
   from repro_torch.kernels.rwkv6_scan import ops as wkv
   from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
   results = {}
@@ -605,7 +609,8 @@ def phase_wkv_kernel():
   rng = np.random.RandomState(7)
   for dtype, t, with_s0 in ((torch.bfloat16, t_full, False),
                             (torch.float32, t_full, False),
-                            (torch.bfloat16, K7_RAGGED_T, True)):
+                            (torch.bfloat16, K7_RAGGED_T, True),
+                            (torch.bfloat16, K7_LONG_T, True)):
     def heads(x):  # the model's (B, T, H * D) projections as (B, H, T, D)
       return x.view(b, t, h, d).transpose(1, 2)
     r, k, v = (heads(_randn(rng, (b, t, h * d), dtype) * sc)
@@ -633,7 +638,9 @@ def phase_wkv_kernel():
     n_bytes, n_ops = _k7_counts(b, t, h, d, r.element_size(), with_s0)
     b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
     tag = (f"{str(dtype).split('.')[-1]} r/k/v, f32 w, "
-           f"{'nonzero' if with_s0 else 'zero'} s0")
+           f"{'nonzero' if with_s0 else 'zero'} s0, {-(-t // chunk)} chunks "
+           f"a head over a cluster of up to "
+           f"{_build.csrc_constant('rwkv6_scan', 'kMaxBlocks')} blocks")
     log(f"[K7] B={b} T={t} H={h} D={d} chunk={chunk}, {tag}: max_abs_err "
         f"out {errs[0]:.3g} (max |out| {scales[0]:.3g}), final state "
         f"{errs[1]:.3g} (max |state| {scales[1]:.3g}), tolerance 1e-4 of "
@@ -1072,7 +1079,8 @@ def phase_codec_kernels():
         peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
         b_ms, b_by = bound_ms(n_bytes, 2 * m * n * k, peak)
         log(f"[K4] M={m} K={k} N={n}, k={k_terms}, "
-            f"{str(dtype).split('.')[-1]} x: max_abs_err {err:.3g} (max "
+            f"{str(dtype).split('.')[-1]} x, {p2_kernel.path(m, dtype)} "
+            f"path: max_abs_err {err:.3g} (max "
             f"|out| {top:.3g}, tolerance 1e-5 of it); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
             f"{n_bytes / 1e6:.2f} MB, {2 * m * n * k / 1e9:.3f} GFLOP at "

@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Time design variants of the K4 and K7 CUDA kernels side by side on one
+card, in one process.
+
+Each variant is the kernel's own source with one constant or one rule
+changed (the shipped source is the first variant of each list: K7's
+cluster size chosen from the clusters the card holds, then fixed sizes;
+K4's tensor-core tile shapes), built with the port's nvcc flags into
+``build/variants/`` and called through its C entry.  Every
+variant's output is held to the kernel's plain version before it is
+timed, and the variants are timed in turns (first to last, then last to
+first) as CUDA-graph replays.  K7 also reports how many clusters of its
+blocks the card holds at once (``cudaOccupancyMaxActiveClusters``).
+
+    PYTHONPATH=src python3 scripts/kernel_variants.py
+
+Needs a CUDA card and nvcc; prints the card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels.pow2_matmul import ref as p2_ref
+from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+OUT = _build.BUILD_DIR.parent / "variants"
+KERNELS = _build.PACKAGE / "kernels"
+K7_TS = (300, 512, 2048)              # B = 1, H = 32, D = 64, chunk 64
+K7_BLOCKS = (8, 7, 5, 4)              # fixed cluster sizes
+K4_TILES = ((128, 96, 256), (128, 64, 256), (64, 96, 128), (64, 192, 128))
+OCCUPANCY = '''
+extern "C" int k7_active_clusters(int blocks, int* out) {
+  auto k = wkv6_kernel<__nv_bfloat16, 64>;
+  const size_t smem = Layout<__nv_bfloat16, 64>(64).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1024);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, k, &cfg);
+}
+'''
+
+
+def replace_constant(src: str, name: str, value: int) -> str:
+  out, n = re.subn(rf"constexpr int {name} = \d+;",
+                   f"constexpr int {name} = {value};", src)
+  assert n == 1, name
+  return out
+
+
+def build(name: str, text: str) -> ctypes.CDLL:
+  OUT.mkdir(parents=True, exist_ok=True)
+  src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+  src.write_text(text)
+  proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                         str(src)], capture_output=True, text=True)
+  if proc.returncode:
+    raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
+  return ctypes.CDLL(str(lib))
+
+
+def graph_ms(fn, inner: int = 10, samples: int = 25) -> float:
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(inner):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(samples):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end) / inner)
+  return statistics.median(times)
+
+
+def k7_calls(lib):
+  lib.wkv6_forward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 20
+                               + [ctypes.c_int, ctypes.c_void_p])
+  gen = torch.Generator().manual_seed(0)
+  calls = {}
+  for t in K7_TS:
+    b, h, d = 1, 32, 64
+
+    def heads(x, t=t):
+      return x.view(b, t, h, d).transpose(1, 2)
+    r, k, v = (heads(torch.randn(b, t, h * d, generator=gen).cuda()
+                     .bfloat16()) for _ in range(3))
+    w = heads(torch.exp(-torch.exp(torch.randn(b, t, h * d, generator=gen)
+                                   - 3.0)).cuda())
+    u = torch.randn(h, d, generator=gen).cuda() * 0.3
+    out = torch.empty(b, t, h, d, device="cuda")
+    s_out = torch.empty(b, h, d, d, device="cuda")
+
+    def call(t=t, r=r, k=k, v=v, w=w, u=u, out=out, s_out=s_out):
+      status = lib.wkv6_forward(
+          r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+          u.data_ptr(), None, out.data_ptr(), s_out.data_ptr(), b, h, t, d,
+          64, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+          *w.stride()[:3], out.stride(0), out.stride(2), out.stride(1), 1,
+          torch.cuda.current_stream().cuda_stream)
+      assert status == 0, status
+    call()
+    want_o, want_s = wkv_ref.wkv6_chunked(
+        r, k, v, w, u, torch.zeros(b, h, d, d, device="cuda"), 64)
+    got_o = out.permute(0, 2, 1, 3)
+    for got, want in ((got_o, want_o), (s_out, want_s)):
+      assert float((got - want).abs().max()) <= 1e-4 * float(
+          want.abs().max())
+    calls[f"T={t}"] = call
+  return calls
+
+
+def k4_calls(lib):
+  lib.p2mm_forward.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+                               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+  gen = torch.Generator().manual_seed(1)
+  x = torch.randn(512, 1024, generator=gen).cuda().bfloat16()
+  scale = torch.rand(3072, generator=gen).cuda()
+  out = torch.empty(512, 3072, device="cuda")
+  calls = {}
+  for k_terms in (1, 2):
+    codes = torch.randint(0, 256 if k_terms == 1 else 128,
+                          (1024, 3072 // 2 if k_terms == 1 else 3072),
+                          dtype=torch.uint8, generator=gen).cuda()
+
+    def call(k_terms=k_terms, codes=codes):
+      status = lib.p2mm_forward(
+          x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+          512, 1024, 3072, k_terms, 1, torch.cuda.current_stream()
+          .cuda_stream)
+      assert status == 0, status
+    call()
+    want = p2_ref.pow2_matmul_ref(x, codes, scale, k_terms)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    calls[f"M=512 k={k_terms}"] = call
+  return calls
+
+
+def main() -> int:
+  if not torch.cuda.is_available():
+    sys.exit("kernel_variants.py: no CUDA device is available")
+  k7 = (KERNELS / "rwkv6_scan/csrc/rwkv6_scan.cu").read_text()
+  k4 = (KERNELS / "pow2_matmul/csrc/pow2_matmul.cu").read_text()
+  # a fixed size n: at most n blocks, and the first (largest) n is taken
+  first = k7.replace("if (best_cost < 0 || cost < best_cost) {",
+                     "if (best_cost < 0) {")
+  assert first != k7
+  jobs = {"K7 shipped (cluster size chosen)": k7 + OCCUPANCY}
+  jobs.update({f"K7 {n} blocks a cluster": replace_constant(
+      first, "kMaxBlocks", n) + OCCUPANCY for n in K7_BLOCKS})
+  for bm, bn, threads in K4_TILES:
+    text = replace_constant(k4, "kTcBM", bm)
+    text = replace_constant(text, "kTcBN", bn)
+    jobs[f"K4 tile {bm}x{bn}"] = replace_constant(text, "kTcThreads",
+                                                  threads)
+  names = list(jobs)
+  with ThreadPoolExecutor(len(names)) as pool:
+    libs = dict(zip(names, pool.map(
+        lambda i: build(f"variant{i}", jobs[names[i]]), range(len(names)))))
+  calls = {name: (k7_calls if name.startswith("K7") else k4_calls)(lib)
+           for name, lib in libs.items()}
+  times = {name: {shape: [] for shape in calls[name]} for name in names}
+  for order in (names, names[::-1]):
+    for name in order:
+      for shape, call in calls[name].items():
+        times[name][shape].append(graph_ms(call))
+  for name in names:
+    line = "; ".join(f"{shape} {t[0]:.4f} / {t[1]:.4f} ms"
+                     for shape, t in times[name].items())
+    print(f"[variants] {name}: {line} (held to the plain version)")
+  lib = libs[names[0]]
+  lib.k7_active_clusters.argtypes = [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+  for blocks in sorted(K7_BLOCKS, reverse=True):
+    active = ctypes.c_int(0)
+    assert lib.k7_active_clusters(blocks, ctypes.byref(active)) == 0
+    print(f"[variants] K7 (bf16, D=64, chunk 64): the card holds "
+          f"{active.value} clusters of {blocks} blocks at once")
+  print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip())
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -99,3 +100,13 @@ def load(name: str) -> ctypes.CDLL:
     raise RuntimeError(f"no CUDA source named {name}.cu in repro_torch")
   build_all()
   return ctypes.CDLL(str(_target(matches[0])))
+
+
+def csrc_constant(name: str, constant: str) -> int:
+  """The value of ``constexpr int <constant> = <n>;`` in ``csrc/<name>.cu``,
+  for plain versions that follow a kernel's tile and split sizes."""
+  src = next(s for s in sources() if s.stem == name)
+  found = re.findall(rf"constexpr int {constant} = (\d+);", src.read_text())
+  if len(found) != 1:
+    raise RuntimeError(f"{name}.cu defines {constant} {len(found)} times")
+  return int(found[0])

@@ -5,7 +5,8 @@ The wrapper takes x (M, K) float32 or bf16, the uint8 codes (K, N/2)
 packed nibbles for k=1 or (K, N) bytes for k=2, and the per-column scale
 (N,) float32, all contiguous on one CUDA device; it allocates the float32
 (M, N) output, launches on the current stream and raises if the launch
-was refused.  ``LAUNCHES`` counts its launches.
+was refused.  ``LAUNCHES`` counts its launches: one a call, whichever of
+the source's three kernels ``path`` names runs.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch import _build
 from repro_torch.kernels._checks import expect
 
 DTYPES = (torch.float32, torch.bfloat16)
+# M at or below it runs the decode path (kDecodeMaxM of the CUDA source)
+DECODE_MAX_M = 16
 
 LAUNCHES: Dict[str, int] = {"pow2_matmul": 0}
 
@@ -35,6 +38,13 @@ def _lib() -> ctypes.CDLL:
   lib.p2mm_forward.argtypes = [p] * 4 + [i64] * 3 + [ctypes.c_int] * 2 + [p]
   lib.p2mm_forward.restype = ctypes.c_int
   return lib
+
+
+def path(m: int, dtype: torch.dtype) -> str:
+  """Which kernel of the source an (m, K) x of ``dtype`` runs."""
+  if m <= DECODE_MAX_M:
+    return "decode"
+  return "tensor-core" if dtype == torch.bfloat16 else "cuda-core"
 
 
 def check_inputs(x, codes, scale, k_terms: int) -> None:

@@ -9,31 +9,72 @@
 //
 // evaluated chunk by chunk in the stable log-decay form of the TPU kernel:
 // inside a chunk la = cumsum(log max(w, 1e-30)) per channel, la_prev = la -
-// log w, and
+// log w (la of the row before), and
 //
 //   o_t   = (r_t exp(la_prev_t)) S                                  [state]
 //         + sum_{j<t} (sum_d r_td k_jd exp(la_prev_td - la_jd)) v_j [intra]
 //         + (r_t . (u k_t)) v_t                                     [bonus]
 //   S_out = exp(la_last) S (rows) + (k exp(la_last - la))^T V
 //
-// What it computes is the TPU kernel's; the schedule is not carried over.
-// The TPU carries S across a sequential grid axis in VMEM scratch.  Blocks
-// on the card run in no order, so one CUDA block owns one (batch, head) and
-// loops over the chunks itself, with S (D x D f32, 16 KB at D = 64) in
-// shared memory for the whole sequence and each chunk's r, k, v, log w and
-// la tiles staged there in f32 (117 KB at D = 64 and a chunk of 64: the
-// block opts in to more than the 48 KB default).
+// Every exponent below is a difference of such monotone sums and is <= 0,
+// so no exp is ever of a positive number, even with w clamped at 1e-30.
 //
-//  * la is a per-channel prefix sum, one thread per channel.
-//  * The intra-chunk scores are computed only for j < t: the (t, j) plane is
-//    cut into 4 x 4 tiles and only the tiles on or below the diagonal are
-//    handed out, one per thread (136 of 256 threads at a chunk of 64), so
-//    the masked half costs no exp.  Inside a diagonal tile the exponent is
-//    clamped at 0 and the masked scores are then set to 0 by a select, so no
-//    exp is ever of a positive number (exp of the masked half can overflow
-//    to inf, and inf x 0 is NaN).  Threads without a tile compute the bonus.
-//  * The output (t, e) and the state update (d, e) are 4 x D/16 register
-//    tiles a thread, f32 FMAs on the CUDA cores from shared memory.
+// Bound on an H100 SXM (data-sheet rates): at the serving shape (B = 1,
+// H = 32, T = 512, D = 64, chunk 64; bf16 r/k/v, f32 w) the kernel must
+// move 15.2 MB (4.5 us at 3.35 TB/s), and the recurrence needs 0.34 GFLOP
+// (per head and token 2 D^2 for r S and 3 D^2 for w * S + k^T v: 5.1 us at
+// the 67 TFLOP/s f32 rate), so it is bound by its operations.  The TPU
+// carries S across a sequential grid axis in VMEM scratch, and this kernel's
+// first design did the same in one block per (batch, head): 32 blocks on 132
+// SMs, each walking its 8 chunks in order, f32 FMAs on the CUDA cores and
+// one accurate expf per (t, j < t, d).  This design:
+//
+//  * A head's chunks are split over the n_blocks <= kMaxBlocks blocks of a
+//    thread-block cluster, grid (n_blocks, B * H), n_blocks chosen from the
+//    clusters the card holds at once (cluster_blocks): block i owns a
+//    contiguous range of chunks (more than one when T has more chunks
+//    than the cluster has blocks), so the serving shape runs 32 x 8 = 256
+//    blocks, two to an SM (about 112 KB of shared memory each at D = 64,
+//    r/k/v staged in their own type).  Three passes in one launch:
+//    1. From S = 0, each block sums its range's state contribution dS =
+//       sum_c (k_c exp(la_last_c + L_c - la_c))^T V_c, with L_c the summed
+//       log decay of the range's chunks after c, walking the range from its
+//       end so that its first chunk's tiles stay resident for pass 3; and
+//       its decay A, the range's summed la_last.
+//    2. After a cluster barrier, block i reads blocks 0 .. i - 1's dS and A
+//       through distributed shared memory (all of a float4's remote reads
+//       in flight together) and folds them in rank order from s0: S_in =
+//       exp(A_j) S + dS_j, one D x D step per earlier block, the same
+//       recurrence as the first design's chunk loop.  The last block writes
+//       the final state exp(A) S_in + dS.  A second cluster barrier ends
+//       the remote reads.
+//    3. Each block runs its chunks from S_in: state, intra and bonus parts
+//       of the output, and the state update between its own chunks.
+//  * The intra-chunk scores run on the lower-triangular 4 x 4 tiles of the
+//    (t, j) plane, one a thread below the diagonal, two lanes (each half of
+//    d) a tile on it.  With E_J = la at the last row of sub-chunk J (kSub
+//    rows, a tile's), a tile below the diagonal factors exp(la_prev_t -
+//    la_j) = exp(la_prev_t - E_{I-1}) exp(E_{I-1} - E_J) exp(E_J - la_j):
+//    three factors, each <= 1, so its scores are a dot product of r~ = r
+//    exp(la_prev - E_{I-1}) and k~ = k exp(E_J - la), one exp each per
+//    (row, d), times a per-channel exp.  Only the diagonal tiles keep one
+//    exp per (t, j < t, d).  The state term's r exp(la_prev) and the
+//    update's k exp(la_last - la) are r~ and k~ times one more factor <= 1.
+//    About 30 K exps a chunk of 64 where the first design took about 147
+//    K, all __expf of a number <= 0.  (A reference point at the start of a
+//    key sub-chunk would need exp of a positive number, which overflows at
+//    w = 1e-30.)
+//  * The three (C, D) x (D, D) products (dS and the update k~^T V, r~ S,
+//    scores V) run on the tensor cores: mma.sync.m16n8k16 with each f32
+//    operand split into bf16 hi + lo (hi hi + lo hi + hi lo into one f32
+//    sum, about 2^-16 of each product; a bf16 v enters exactly), fragments
+//    read from shared memory.  A chunk's tiles are padded to 16, 32 or 64
+//    rows of zeros for the 16-row steps.
+//  * What holds it back (PERF.md): 32 clusters of 8 blocks at two blocks
+//    an SM, but an H100 co-schedules only 30, so the serving shape runs in
+//    two waves (with fewer blocks a block would take two chunks, which is
+//    slower); a block's passes are bound by latency (barriers, global and
+//    remote loads, the scores' loops), not by the card's rates.
 //  * Layout: r/k/v/w are (B, H, T, D) views read through their batch, head
 //    and time strides (the last dim contiguous), so the model's (B, T, H, D)
 //    projections need no transpose copy; the output is written through its
@@ -43,30 +84,22 @@
 //    (the reference wrapper's padding tokens, which leave S untouched) and
 //    are not written.
 //
-// Bound on an H100 SXM (data-sheet rates): at the serving shape (B = 1,
-// H = 32, T = 512, D = 64, chunk 64; bf16 r/k/v, f32 w) the kernel must
-// move 15.2 MB (4.5 us at 3.35 TB/s), and the recurrence needs 0.34 GFLOP
-// (per head and token 2 D^2 for r S and 3 D^2 for w * S + k^T v: 5.0 us at
-// the 67 TFLOP/s f32 rate), so it is bound by its operations.  The chunked
-// form does about 0.51 GFLOP: the pairwise decays and their exps are its
-// own extra work.  This first version is far from the bound: its 32
-// blocks (one per head) use 32 of 132 SMs with 8 warps each, every chunk
-// passes six barrier-separated phases, and the intra-chunk term costs about
-// 37 M exps.  Tensor cores for the three (C, D) x (D, D)
-// products and splitting a head's columns or chunks over more SMs are later
-// work.
-//
 // The entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kMaxChunk = 64;
+constexpr int kMaxBlocks = 8;  // blocks (one cluster) per (batch, head)
+constexpr int kSub = 4;        // rows of a sub-chunk: a score tile
 
 struct Params {
   const void* r;
@@ -91,34 +124,162 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <int D>
-constexpr size_t smem_bytes(int c) {
-  // S (D x D); r, k, v, la_prev, la (c x (D + 1)); A (c x (c + 1));
-  // the bonus (c); exp(la_last) (D)
-  return sizeof(float) * (static_cast<size_t>(D) * D + 5 * c * (D + 1) +
-                          c * (c + 1) + c + D);
+__host__ __device__ constexpr size_t round16(size_t n) {
+  return (n + 15) / 16 * 16;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) wkv6_kernel(Params p) {
-  constexpr int LD = D + 1;  // padded row of a (c x D) tile
-  constexpr int R = D / 16;  // state rows and output columns of a thread
-  const int C = p.chunk;
-  extern __shared__ float smem[];
-  float* S = smem;               // D x D
-  float* rs = S + D * D;         // r, then r * exp(la_prev)
-  float* ks = rs + C * LD;       // k, then k * exp(la_last - la)
-  float* vs = ks + C * LD;       // v
-  float* lp = vs + C * LD;       // log w, then la_prev = la - log w
-  float* la = lp + C * LD;       // inclusive cumsum of log w
-  float* A = la + C * LD;        // C x (C + 1) intra-chunk scores
-  float* rd = A + C * (C + 1);   // C: r . (u * k)
-  float* dl = rd + C;            // D: exp(la_last)
+// The rows of a chunk's tiles: the chunk rounded up to 16, 32 or 64, so the
+// tensor-core products see whole 16-row steps (the pad rows are zeros).
+__host__ __device__ constexpr int padded_rows(int c) {
+  return c <= 16 ? 16 : (c <= 32 ? 32 : 64);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t bh = blockIdx.x;
+// Byte offsets of the shared memory of a chunk of c rows.
+template <typename T, int D>
+struct Layout {
+  static constexpr int LD = D + 1;                         // f32 tiles
+  static constexpr int LE = D + (sizeof(T) == 2 ? 2 : 1);  // r, k
+  static constexpr int LV = D + (sizeof(T) == 2 ? 8 : 4);  // v
+  static constexpr int SP = D + 4;                         // S and dS
+  static constexpr int kSegs = kThreads / D;               // cumsum segments
+  size_t S, U, la, rh, kh, raw, tot, rd, dl, atot, dec, bytes;
+  __host__ __device__ explicit Layout(int c) {
+    const int cp = padded_rows(c);
+    const size_t tile = round16(sizeof(float) * cp * LD);
+    const size_t ds = static_cast<size_t>(D) * SP;
+    const size_t sc = static_cast<size_t>(cp) * (cp + 1);
+    S = 0;                                         // D x SP: S
+    U = S + round16(sizeof(float) * ds);           // dS, then the scores
+    la = U + round16(sizeof(float) * (ds > sc ? ds : sc));  // cumsum log w
+    rh = la + tile;                                // r~, then r exp(la_prev)
+    kh = rh + tile;                                // k~, then the update's k
+    raw = kh + tile;                               // r, k (LE), v (LV)
+    tot = raw + 2 * round16(sizeof(T) * cp * LE) + round16(sizeof(T) * cp * LV);
+    rd = tot + sizeof(float) * kSegs * D;          // cp: r . (u k)
+    dl = rd + sizeof(float) * cp;                  // D: exp(la_last)
+    atot = dl + sizeof(float) * D;                 // D: the range's decay
+    dec = atot + sizeof(float) * D;                // earlier blocks' exp(A)
+    bytes = dec + sizeof(float) * (kMaxBlocks - 1) * D;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as hi = bf16(x, y) and lo = bf16 of what hi leaves out, each pair
+// packed with x in the low half: hi + lo keeps about 16 bits of each
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// One warp's share of OUT (M x N) += A (M x K) B (K x N) on the tensor
+// cores, M and N multiples of 16 and 8 with M / 16 dividing 8, over the
+// 16-deep K steps [ks0, ks1) (K steps past ks1 hold zeros).  The warp owns
+// output tiles (mt, nt + j * n_step), j < 4 (those with nt + j * n_step <
+// N / 8); acc[j] holds tile j's fragment.  a(m, k) and b(k, n) are float;
+// A is split into bf16 hi + lo, and so is B unless kExactB (B's values are
+// bf16 already): hi hi + lo hi (+ hi lo) into one f32 sum, about 2^-16 of
+// each product.
+template <bool kExactB, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[4][4], int mt, int nt,
+                                         int n_step, int n_tiles, int ks0,
+                                         int ks1, FA a, FB b) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int m = 16 * mt + g;
+  for (int ks = ks0; ks < ks1; ++ks) {
+    const int k = 16 * ks + t2;
+    uint32_t ah[4], al[4];
+    split2(a(m, k), a(m, k + 1), ah[0], al[0]);
+    split2(a(m + 8, k), a(m + 8, k + 1), ah[1], al[1]);
+    split2(a(m, k + 8), a(m, k + 9), ah[2], al[2]);
+    split2(a(m + 8, k + 8), a(m + 8, k + 9), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n8 = nt + j * n_step;
+      if (n8 >= n_tiles) break;
+      const int n = 8 * n8 + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split2(b(k, n), b(k + 1, n), bh0, bl0);
+      split2(b(k + 8, n), b(k + 9, n), bh1, bl1);
+      mma_bf16(acc[j], ah, bh0, bh1);
+      mma_bf16(acc[j], al, bh0, bh1);
+      if (!kExactB) mma_bf16(acc[j], ah, bl0, bl1);
+    }
+  }
+}
+
+// The output tiles of warp w in an M x N product with 8 warps: m tile
+// w % (M / 16), n tiles w / (M / 16) + j * (8 / (M / 16)); with fewer than
+// 8 tiles the warps past them own none (n_tiles = 0).
+struct WarpTiles {
+  int mt, nt, n_step, n_tiles;
+  __device__ WarpTiles(int M, int N, int warp) {
+    const int mts = M / 16, nts = N / 8;
+    mt = warp % mts;
+    nt = warp / mts;
+    n_step = 8 / mts;
+    n_tiles = mts * nts > warp ? nts : 0;
+  }
+};
+
+// Grid (n_blocks, B * H) in clusters of (n_blocks, 1): see the note at the
+// top.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2) wkv6_kernel(Params p) {
+  using Lay = Layout<T, D>;
+  constexpr int LD = Lay::LD, LE = Lay::LE, LV = Lay::LV, SP = Lay::SP;
+  constexpr int kSegs = Lay::kSegs;
+  constexpr bool kExactV = sizeof(T) == 2;  // bf16 v is exact in bf16
+  const int C = p.chunk;
+  const int CP = padded_rows(C);
+  const Lay lay(C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* S = reinterpret_cast<float*>(smem + lay.S);
+  float* U = reinterpret_cast<float*>(smem + lay.U);
+  float* la = reinterpret_cast<float*>(smem + lay.la);
+  float* rh = reinterpret_cast<float*>(smem + lay.rh);
+  float* kh = reinterpret_cast<float*>(smem + lay.kh);
+  T* rr = reinterpret_cast<T*>(smem + lay.raw);
+  T* kr = reinterpret_cast<T*>(smem + lay.raw + round16(sizeof(T) * CP * LE));
+  T* vr = reinterpret_cast<T*>(smem + lay.raw
+                               + 2 * round16(sizeof(T) * CP * LE));
+  float* tot = reinterpret_cast<float*>(smem + lay.tot);
+  float* rd = reinterpret_cast<float*>(smem + lay.rd);
+  float* dl = reinterpret_cast<float*>(smem + lay.dl);
+  float* atot = reinterpret_cast<float*>(smem + lay.atot);
+  float* decay = reinterpret_cast<float*>(smem + lay.dec);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int rank = blockIdx.x, n_blocks = gridDim.x;
+  const int64_t bh = blockIdx.y;
   const int64_t b = bh / p.h;
   const int64_t head = bh % p.h;
 
@@ -129,184 +290,440 @@ __global__ void __launch_bounds__(kThreads) wkv6_kernel(Params p) {
   const float* ug = p.u + head * D;
   float* og = p.out + b * p.o_sb + head * p.o_sh;
 
-  for (int i = tid; i < D * D; i += kThreads)
-    S[i] = p.s0 ? p.s0[bh * D * D + i] : 0.f;
-  for (int i = tid; i < C * (C + 1); i += kThreads) A[i] = 0.f;
-
-  // this thread's tile (ta, tb), tb <= ta, of the lower-triangular (t, j)
-  // plane of 4 x 4 tiles; threads past n_live have none
-  const int n_tiles = (C + 3) / 4;
-  const int n_live = n_tiles * (n_tiles + 1) / 2;
-  int ta = 0;
-  while ((ta + 1) * (ta + 2) / 2 <= tid) ++ta;
-  const int tb = tid - ta * (ta + 1) / 2;
-
+  // this block's chunks [first, first + mine)
   const int64_t n_chunks = (p.t + C - 1) / C;
-  for (int64_t c = 0; c < n_chunks; ++c) {
+  const int64_t base = n_chunks / n_blocks, extra = n_chunks % n_blocks;
+  const int64_t first = rank * base + (rank < extra ? rank : extra);
+  const int64_t mine = base + (rank < extra ? 1 : 0);
+
+  // chunk c's tiles, the pad rows as zeros.  w goes straight to la by
+  // 4-byte cp.async (rows past T as 1, so their log is 0; the log is taken
+  // in cumsum); every global load of k and v (or of r) of a thread is
+  // issued before its first shared store, so they are in flight together.
+  constexpr int kLoads = kMaxChunk * D / kThreads;
+  auto load_kvw = [&](int64_t c) {
     const int64_t t0 = c * C;
-    __syncthreads();  // S is in place; the previous chunk's tiles are consumed
-    for (int i = tid; i < C * D; i += kThreads) {
-      const int tt = i / D, d = i % D;
+    const T zero = static_cast<T>(0.f);
+    T kv[kLoads], vv[kLoads];
+#pragma unroll
+    for (int n = 0; n < kLoads; ++n) {
+      const int i = tid + n * kThreads, tt = i / D, d = i % D;
       const int64_t pos = t0 + tt;
-      const bool in = pos < p.t;
-      rs[tt * LD + d] = in ? to_f32(rg[pos * p.r_st + d]) : 0.f;
-      ks[tt * LD + d] = in ? to_f32(kg[pos * p.k_st + d]) : 0.f;
-      vs[tt * LD + d] = in ? to_f32(vg[pos * p.v_st + d]) : 0.f;
-      lp[tt * LD + d] = in ? logf(fmaxf(wg[pos * p.w_st + d], 1e-30f)) : 0.f;
-    }
-    __syncthreads();
-
-    if (tid < D) {  // la = cumsum(log w); la_prev = la - log w
-      float run = 0.f;
-      for (int tt = 0; tt < C; ++tt) {
-        const float lw = lp[tt * LD + tid];
-        run += lw;
-        la[tt * LD + tid] = run;
-        lp[tt * LD + tid] = run - lw;
+      const bool in = tt < C && pos < p.t;
+      kv[n] = in ? kg[pos * p.k_st + d] : zero;
+      vv[n] = in ? vg[pos * p.v_st + d] : zero;
+      if (in) {
+        cp_async4(la + tt * LD + d, wg + pos * p.w_st + d);
+      } else if (tt < CP) {
+        la[tt * LD + d] = tt < C ? 1.f : 0.f;
       }
     }
+    cp_async_commit();
+#pragma unroll
+    for (int n = 0; n < kLoads; ++n) {
+      const int i = tid + n * kThreads, tt = i / D, d = i % D;
+      if (tt >= CP) continue;
+      kr[tt * LE + d] = kv[n];
+      vr[tt * LV + d] = vv[n];
+    }
+    cp_async_wait_all();
+  };
+  auto load_r = [&](int64_t c) {
+    const int64_t t0 = c * C;
+    const T zero = static_cast<T>(0.f);
+    T rv[kLoads];
+#pragma unroll
+    for (int n = 0; n < kLoads; ++n) {
+      const int i = tid + n * kThreads, tt = i / D, d = i % D;
+      const int64_t pos = t0 + tt;
+      rv[n] = tt < C && pos < p.t ? rg[pos * p.r_st + d] : zero;
+    }
+#pragma unroll
+    for (int n = 0; n < kLoads; ++n) {
+      const int i = tid + n * kThreads, tt = i / D, d = i % D;
+      if (tt < CP) rr[tt * LE + d] = rv[n];
+    }
+  };
+  // la = inclusive cumsum of log max(w, 1e-30) down each channel: kSegs
+  // segments of rows a channel, then each segment adds the totals of those
+  // before it
+  auto cumsum = [&]() {
+    const int d = tid % D, seg = tid / D;
+    const int rows = (C + kSegs - 1) / kSegs;
+    const int lo = seg * rows, hi = min(C, lo + rows);
+    float run = 0.f;
+    for (int tt = lo; tt < hi; ++tt) {
+      run += logf(fmaxf(la[tt * LD + d], 1e-30f));
+      la[tt * LD + d] = run;
+    }
+    tot[seg * D + d] = run;
+    __syncthreads();
+    float off = 0.f;
+    for (int s = 0; s < seg; ++s) off += tot[s * D + d];
+    for (int tt = lo; tt < hi; ++tt) la[tt * LD + d] += off;
+    __syncthreads();
+  };
+  const float* la_last = la + (C - 1) * LD;
+
+  // OUT[d][e] = init(d, e) + sum_t kd[t][d] v[t][e] on the tensor cores,
+  // kd from kh; OUT has pitch SP
+  auto state_product = [&](float* out, bool add_u, const float* scale_rows) {
+    const WarpTiles wt(D, D, warp);
+    float acc[4][4];
+    const int lane = tid % 32, g = lane / 4, t2 = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n8 = wt.nt + j * wt.n_step;
+        const int row = 16 * wt.mt + g + 8 * (e / 2);
+        const int col = 8 * n8 + t2 + e % 2;
+        float v0 = 0.f;
+        if (n8 < wt.n_tiles) {
+          v0 = out[row * SP + col];
+          if (scale_rows) v0 *= scale_rows[row];
+          else if (!add_u) v0 = 0.f;
+        }
+        acc[j][e] = v0;
+      }
+    warp_mma<kExactV>(acc, wt.mt, wt.nt, wt.n_step, wt.n_tiles, 0, CP / 16,
+                      [&](int m, int k) { return kh[k * LD + m]; },
+                      [&](int k, int n) { return to_f32(vr[k * LV + n]); });
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n8 = wt.nt + j * wt.n_step;
+      if (n8 >= wt.n_tiles) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[(16 * wt.mt + g + 8 * (e / 2)) * SP + 8 * n8 + t2 + e % 2] =
+            acc[j][e];
+    }
+  };
+
+  // ---- pass 1: the range's dS (in U) and decay A (atot), from its end
+  for (int i = tid; i < D * SP; i += kThreads) U[i] = 0.f;
+  if (tid < D) atot[tid] = 0.f;
+  for (int64_t c = first + mine - 1; c >= first; --c) {
+    __syncthreads();  // the previous chunk's tiles and atot are consumed
+    load_kvw(c);
+    __syncthreads();
+    cumsum();
+    for (int i = tid; i < CP * D; i += kThreads) {
+      const int tt = i / D, d = i % D;
+      kh[tt * LD + d] = tt < C ? to_f32(kr[tt * LE + d]) * __expf(
+          la_last[d] + atot[d] - la[tt * LD + d]) : 0.f;
+    }
+    __syncthreads();
+    state_product(U, true, nullptr);
+    __syncthreads();  // every thread has read atot
+    if (tid < D) atot[tid] += la_last[tid];
+  }
+
+  // ---- pass 2: S_in from s0 and the earlier blocks' (A, dS), in rank order
+  cluster.sync();
+  {
+    // the earlier blocks' decays exp(A_j) first; then, a float4 of S at a
+    // time, every earlier block's float4 of dS is read (all remote reads in
+    // flight together) and folded in rank order.  A warp's reads of one
+    // block are 512 contiguous bytes of a row pair.
+    for (int i = tid; i < rank * D; i += kThreads)
+      decay[i] = __expf(cluster.map_shared_rank(atot, i / D)[i % D]);
+    __syncthreads();
+    constexpr int kN4 = D * D / 4;  // float4s of S
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* s0 = p.s0 ? reinterpret_cast<const float4*>(
+                                  p.s0 + bh * D * D) : nullptr;
+    float4* s_out = reinterpret_cast<float4*>(p.s_out + bh * D * D);
+    for (int i4 = tid; i4 < kN4; i4 += kThreads) {
+      const int d = 4 * i4 / D, at = d * SP + 4 * i4 % D;  // shared offset
+      float4 ds[kMaxBlocks - 1];
+#pragma unroll
+      for (int j = 0; j < kMaxBlocks - 1; ++j)
+        ds[j] = j < rank ? *reinterpret_cast<const float4*>(
+                               cluster.map_shared_rank(U, j) + at) : zero;
+      float4 s = s0 ? s0[i4] : zero;
+#pragma unroll
+      for (int j = 0; j < kMaxBlocks - 1; ++j) {
+        if (j >= rank) break;
+        const float a = decay[j * D + d];
+        s = make_float4(fmaf(a, s.x, ds[j].x), fmaf(a, s.y, ds[j].y),
+                        fmaf(a, s.z, ds[j].z), fmaf(a, s.w, ds[j].w));
+      }
+      *reinterpret_cast<float4*>(S + at) = s;
+      if (rank == n_blocks - 1) {
+        const float a = __expf(atot[d]);
+        const float4 u = *reinterpret_cast<const float4*>(U + at);
+        s_out[i4] = make_float4(fmaf(a, s.x, u.x), fmaf(a, s.y, u.y),
+                                fmaf(a, s.z, u.z), fmaf(a, s.w, u.w));
+      }
+    }
+  }
+  cluster.sync();  // every remote read of U is done before U is reused
+
+  // ---- pass 3: the outputs of this block's chunks from S_in
+  float* A = U;  // CP x (CP + 1) scores
+  const int LA = CP + 1;
+  // the 4 x 4 tiles (ta, tb) of the (t, j) plane: threads below n_below own
+  // the tiles below the diagonal (tb < ta); warp kDiagWarp owns the
+  // diagonal ones, two lanes a tile (l and l + 16), each half of d
+  constexpr int kDiagWarp = 4;
+  const int n_tiles = (C + kSub - 1) / kSub;
+  const int n_below = n_tiles * (n_tiles - 1) / 2;  // <= 32 * kDiagWarp
+  int ta = 1, tb = 0;
+  if (tid < n_below) {
+    while (ta * (ta + 1) / 2 <= tid) ++ta;
+    tb = tid - ta * (ta - 1) / 2;
+  } else {
+    ta = tb = tid % 16;
+  }
+
+  for (int64_t c = first; c < first + mine; ++c) {
+    const int64_t t0 = c * C;
+    const bool update = c + 1 < first + mine;  // S feeds another chunk here
+    __syncthreads();  // S is in place; the previous chunk's tiles consumed
+    // pass 1 ended on chunk `first`: its k, v and la are still in place
+    load_r(c);
+    if (c != first) load_kvw(c);
+    __syncthreads();
+    if (c != first) cumsum();
+
+    // r~ = r exp(la_prev - E_{I-1}), k~ = k exp(E_J - la), with E_J = la at
+    // the last row of sub-chunk J and E_{-1} = 0; the pad rows are zeros
+    for (int i = tid; i < CP * D; i += kThreads) {
+      const int tt = i / D, d = i % D;
+      float rv = 0.f, kv = 0.f;
+      if (tt < C) {
+        const int sub = tt / kSub;
+        const float e_prev = sub ? la[(sub * kSub - 1) * LD + d] : 0.f;
+        const float e_end = la[min(sub * kSub + kSub - 1, C - 1) * LD + d];
+        const float lp = tt ? la[(tt - 1) * LD + d] : 0.f;
+        rv = to_f32(rr[tt * LE + d]) * __expf(lp - e_prev);
+        kv = to_f32(kr[tt * LE + d]) * __expf(e_end - la[tt * LD + d]);
+      }
+      rh[tt * LD + d] = rv;
+      kh[tt * LD + d] = kv;
+    }
+    for (int i = tid; i < CP * LA; i += kThreads) A[i] = 0.f;
     __syncthreads();
 
-    if (tid < n_live) {  // intra-chunk scores of one tile, j < t only
-      float acc[4][4];
+    if (tid < n_below) {
+      // a tile below the diagonal: r~ . (k~ g), g = exp(E_{ta-1} - E_tb)
+      // <= 1.  Rows and columns past C are clamped to C - 1 (not stored).
+      float acc[kSub][kSub];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kSub; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+      int row[kSub], col[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        row[i] = min(kSub * ta + i, C - 1);
+        col[i] = min(kSub * tb + i, C - 1);
+      }
+      const float* e_prev = la + (kSub * ta - 1) * LD;
+      const float* e_key = la + (kSub * tb + kSub - 1) * LD;
       for (int d = 0; d < D; ++d) {
-        float rv[4], pv[4], kv[4], lv[4];
+        const float g = __expf(e_prev[d] - e_key[d]);
+        float rv[kSub], kv[kSub];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = min(4 * ta + i, C - 1);
-          rv[i] = rs[row * LD + d];
-          pv[i] = lp[row * LD + d];
+        for (int i = 0; i < kSub; ++i) {
+          rv[i] = rh[row[i] * LD + d];
+          kv[i] = kh[col[i] * LD + d] * g;
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = min(4 * tb + j, C - 1);
-          kv[j] = ks[col * LD + d];
-          lv[j] = la[col * LD + d];
-        }
+        for (int i = 0; i < kSub; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(rv[i] * kv[j], expf(fminf(pv[i] - lv[j], 0.f)),
-                             acc[i][j]);
+          for (int j = 0; j < kSub; ++j)
+            acc[i][j] = fmaf(rv[i], kv[j], acc[i][j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kSub; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = 4 * ta + i, col = 4 * tb + j;
-          if (row < C && col < C) A[row * (C + 1) + col] = col < row ? acc[i][j]
-                                                                     : 0.f;
+        for (int j = 0; j < kSub; ++j) {
+          const int rw = kSub * ta + i, cl = kSub * tb + j;
+          if (rw < C) A[rw * LA + cl] = acc[i][j];
         }
+    } else if (warp == kDiagWarp) {
+      // a diagonal tile: one exp per (t, j < t, d), the exponent clamped
+      // at 0 (a row clamped at C - 1 can meet a later column); lanes l and
+      // l + 16 take the two halves of d and add
+      const int lane = tid % 32, d0 = (lane / 16) * (D / 2);
+      const bool has = ta < n_tiles;
+      float acc[kSub][kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) acc[i][j] = 0.f;
+      int row[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) row[i] = min(kSub * ta + i, C - 1);
+      for (int d = d0; has && d < d0 + D / 2; ++d) {
+        float rv[kSub], pv[kSub], kv[kSub], lv[kSub];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          rv[i] = to_f32(rr[row[i] * LE + d]);
+          pv[i] = row[i] ? la[(row[i] - 1) * LD + d] : 0.f;
+          kv[i] = to_f32(kr[row[i] * LE + d]);
+          lv[i] = la[row[i] * LD + d];
+        }
+#pragma unroll
+        for (int i = 1; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < i; ++j)
+            acc[i][j] = fmaf(rv[i] * kv[j],
+                             __expf(fminf(pv[i] - lv[j], 0.f)), acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 1; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < i; ++j)
+          acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], 16);
+      if (has && lane < 16) {
+#pragma unroll
+        for (int i = 1; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < i; ++j) {
+            const int rw = kSub * ta + i;
+            if (rw < C) A[rw * LA + kSub * ta + j] = acc[i][j];
+          }
+      }
     } else if (tid >= kThreads - C) {  // the current-token bonus
       const int tt = tid - (kThreads - C);
       float s = 0.f;
       for (int d = 0; d < D; ++d)
-        s = fmaf(rs[tt * LD + d] * ug[d], ks[tt * LD + d], s);
+        s = fmaf(to_f32(rr[tt * LE + d]) * ug[d], to_f32(kr[tt * LE + d]), s);
       rd[tt] = s;
     }
     __syncthreads();
 
+    // r exp(la_prev) = r~ exp(E_{I-1}); k exp(la_last - la) = k~
+    // exp(la_last - E_J): both factors <= 1
     for (int i = tid; i < C * D; i += kThreads) {
       const int tt = i / D, d = i % D;
-      rs[tt * LD + d] *= expf(lp[tt * LD + d]);
-      ks[tt * LD + d] *= expf(la[(C - 1) * LD + d] - la[tt * LD + d]);
+      const int sub = tt / kSub;
+      if (sub) rh[tt * LD + d] *= __expf(la[(sub * kSub - 1) * LD + d]);
+      if (update)
+        kh[tt * LD + d] *= __expf(
+            la_last[d] - la[min(sub * kSub + kSub - 1, C - 1) * LD + d]);
     }
-    if (tid < D) dl[tid] = expf(la[(C - 1) * LD + tid]);
+    if (tid < D) dl[tid] = __expf(la_last[tid]);
     __syncthreads();
 
-    {  // out rows 4 ty + i, columns tx + 16 jj
-      float acc[4][R];
+    {  // out = r exp(la_prev) S + A V (causal: key steps up to the row's)
+      const WarpTiles wt(CP, D, warp);
+      float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int jj = 0; jj < R; ++jj) acc[i][jj] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float qv[4], sv[R];
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      warp_mma<false>(acc, wt.mt, wt.nt, wt.n_step, wt.n_tiles, 0, D / 16,
+                      [&](int m, int k) { return rh[m * LD + k]; },
+                      [&](int k, int n) { return S[k * SP + n]; });
+      warp_mma<kExactV>(acc, wt.mt, wt.nt, wt.n_step, wt.n_tiles, 0,
+                        wt.mt + 1,
+                        [&](int m, int k) { return A[m * LA + k]; },
+                        [&](int k, int n) { return to_f32(vr[k * LV + n]); });
+      const int lane = tid % 32, g = lane / 4, t2 = 2 * (lane % 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = rs[min(4 * ty + i, C - 1) * LD + d];
+      for (int j = 0; j < 4; ++j) {
+        const int n8 = wt.nt + j * wt.n_step;
+        if (n8 >= wt.n_tiles) break;
 #pragma unroll
-        for (int jj = 0; jj < R; ++jj) sv[jj] = S[d * D + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < R; ++jj)
-            acc[i][jj] = fmaf(qv[i], sv[jj], acc[i][jj]);
-      }
-      const int j_end = min(4 * ty + 4, C);
-      for (int j = 0; j < j_end; ++j) {
-        float av[4], vv[R];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          av[i] = A[min(4 * ty + i, C - 1) * (C + 1) + j];
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) vv[jj] = vs[j * LD + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < R; ++jj)
-            acc[i][jj] = fmaf(av[i], vv[jj], acc[i][jj]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int tt = 4 * ty + i;
-        if (tt >= C || t0 + tt >= p.t) continue;
-        float* row = og + (t0 + tt) * p.o_st;
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) {
-          const int e = tx + 16 * jj;
-          row[e] = fmaf(rd[tt], vs[tt * LD + e], acc[i][jj]);
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int tt = 16 * wt.mt + g + 8 * h2;
+          if (tt >= C || t0 + tt >= p.t) continue;
+          const int e = 8 * n8 + t2;
+          float* orow = og + (t0 + tt) * p.o_st;
+          orow[e] = fmaf(rd[tt], to_f32(vr[tt * LV + e]), acc[j][2 * h2]);
+          orow[e + 1] = fmaf(rd[tt], to_f32(vr[tt * LV + e + 1]),
+                             acc[j][2 * h2 + 1]);
         }
       }
     }
+    if (!update) continue;
     __syncthreads();  // every thread has read S
+    state_product(S, false, dl);  // S = exp(la_last) S + kd^T V
+  }
+}
 
-    {  // S rows R ty + ii, columns tx + 16 jj
-      float sacc[R][R];
-#pragma unroll
-      for (int ii = 0; ii < R; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) {
-          const int d = R * ty + ii;
-          sacc[ii][jj] = dl[d] * S[d * D + tx + 16 * jj];
-        }
-      for (int tt = 0; tt < C; ++tt) {
-        float kv[R], vv[R];
-#pragma unroll
-        for (int ii = 0; ii < R; ++ii) kv[ii] = ks[tt * LD + R * ty + ii];
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj) vv[jj] = vs[tt * LD + tx + 16 * jj];
-#pragma unroll
-        for (int ii = 0; ii < R; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < R; ++jj)
-            sacc[ii][jj] = fmaf(kv[ii], vv[jj], sacc[ii][jj]);
-      }
-#pragma unroll
-      for (int ii = 0; ii < R; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < R; ++jj)
-          S[(R * ty + ii) * D + tx + 16 * jj] = sacc[ii][jj];
+// A launch of grid (n, bh) in clusters of (n, 1).
+template <typename T, int D>
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, unsigned n,
+                                  int64_t bh, size_t smem,
+                                  cudaStream_t stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n, static_cast<unsigned>(bh));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The blocks of a cluster: the n <= min(kMaxBlocks, chunks) that minimises
+// the chunks of the busiest block times the waves of clusters, with the
+// clusters the card holds at once from cudaOccupancyMaxActiveClusters
+// (asked once per device, padded chunk rows and n); ties go to the larger
+// n.  On an H100 that is 8 at the serving shape (8 chunks: 30 clusters of
+// 8 fit, so two waves, but fewer blocks would take two chunks each) and 7
+// at 32 chunks (32 clusters of 7 fit: one wave); PERF.md has the times.
+template <typename T, int D>
+cudaError_t cluster_blocks(int64_t chunks, int64_t bh, int chunk,
+                           size_t smem, unsigned* n_out) {
+  static int active[16][3][kMaxBlocks + 1];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int rows = padded_rows(chunk) / 32;  // 0, 1, 2
+  const int64_t most = chunks < kMaxBlocks ? chunks : kMaxBlocks;
+  unsigned best = 1;
+  int64_t best_cost = -1;
+  for (int64_t n = most; n >= 1; --n) {
+    int& a = active[dev % 16][rows][n];
+    if (a == 0) {
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg = cluster_config<T, D>(
+          attr, static_cast<unsigned>(n), 1024, smem, nullptr);
+      int got = 0;
+      err = cudaOccupancyMaxActiveClusters(&got, wkv6_kernel<T, D>, &cfg);
+      if (err != cudaSuccess) return err;
+      a = got > 0 ? got : 1;
+    }
+    const int64_t cost = ((chunks + n - 1) / n) * ((bh + a - 1) / a);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = static_cast<unsigned>(n);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < D * D; i += kThreads) p.s_out[bh * D * D + i] = S[i];
+  *n_out = best;
+  return cudaSuccess;
 }
 
 template <typename T, int D>
 int launch(const Params& p, int64_t bh, cudaStream_t stream) {
   // The attribute belongs to the current device, so it is set on every
   // launch (a cheap call) rather than once per process.
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       wkv6_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<D>(kMaxChunk)));
+      static_cast<int>(Layout<T, D>(kMaxChunk).bytes));
   if (err != cudaSuccess) return err;
-  wkv6_kernel<T, D><<<static_cast<unsigned>(bh), kThreads,
-                      smem_bytes<D>(p.chunk), stream>>>(p);
+  const size_t smem = Layout<T, D>(p.chunk).bytes;
+  const int64_t chunks = (p.t + p.chunk - 1) / p.chunk;
+  unsigned n_blocks = 1;
+  if (chunks > 1) {
+    err = cluster_blocks<T, D>(chunks, bh, p.chunk, smem, &n_blocks);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config<T, D>(attr, n_blocks, bh, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, wkv6_kernel<T, D>, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

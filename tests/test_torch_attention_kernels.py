@@ -11,7 +11,6 @@ Tolerances: 2e-5 of the largest |output| for the kernels (as
 float32 sums taken in another order), 2e-4 for the model paths (the
 reference's own bound between its kernel and its model attention).
 """
-import re
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +24,7 @@ from repro.kernels.flash_attention import ops as ref_fa
 from repro.kernels.quant_decode_attn import ops as ref_qda
 from repro.models import attention as ref_attention
 
+from repro_torch import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -196,11 +196,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def csrc_constant(kernel_module, name: str) -> int:
   """``constexpr int <name> = <n>;`` of the kernel's CUDA source."""
-  pkg = Path(kernel_module.__file__).parent
-  src = (pkg / "csrc" / f"{pkg.name}.cu").read_text()
-  found = re.findall(rf"constexpr int {name} = (\d+);", src)
-  assert len(found) == 1, (name, found)
-  return int(found[0])
+  return _build.csrc_constant(Path(kernel_module.__file__).parent.name, name)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES + CARD_FLASH_CASES, ids=str)

@@ -25,7 +25,8 @@ from repro.kernels.pow2_matmul import ops as ref_p2
 from repro.kernels.pow2_matmul import ref as ref_p2_plain
 from repro.quant import policy as ref_policy
 
-from repro_torch import convert
+from repro_torch import _build, convert
+from repro_torch.core.quant import pow2_decode_codes
 from repro_torch.kernels.int8_matmul import kernel as i8_kernel
 from repro_torch.kernels.int8_matmul import ops as i8
 from repro_torch.kernels.int8_matmul import ref as i8_ref
@@ -33,6 +34,7 @@ from repro_torch.kernels.pow2_matmul import kernel as p2_kernel
 from repro_torch.kernels.pow2_matmul import ops as p2
 from repro_torch.kernels.pow2_matmul import ref as p2_ref
 from repro_torch.quant import QuantPolicy, pack_params
+from test_torch_gpu import CODEC_CASES as CARD_CODEC_CASES
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -202,6 +204,71 @@ def test_pow2_hbm_bytes_and_batched_leading_dims():
   out = i8.int8_matmul(t(rng.standard_normal((2, 3, 64)).astype(np.float32)),
                        i8.quantize_weights(t(w)))
   assert out.shape == (2, 3, 96)
+
+
+# ---------------------------------------------------------------------------
+# K4's CUDA design, rebuilt in plain torch (the kernel runs only on a card):
+# its tile and split sizes are read from its source
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k_terms", [1, 2])
+def test_every_pow2_code_is_exact_in_bf16(k_terms):
+  """All 16 k=1 and 128 k=2 codes decode to values that a bf16 round trip
+  keeps bit for bit (so the tensor-core path's bf16 weights are exact),
+  the reference's own decoded values."""
+  codes = torch.arange(16 if k_terms == 1 else 128, dtype=torch.uint8)
+  vals = pow2_decode_codes(codes, k_terms)
+  assert vals.dtype == torch.float32
+  assert torch.equal(vals.bfloat16().float().view(torch.int32),
+                     vals.view(torch.int32))
+  packed = codes.reshape(1, -1)
+  if k_terms == 1:
+    packed = packed.reshape(1, -1, 2)
+    packed = (packed[..., 0] | (packed[..., 1] << 4)).to(torch.uint8)
+  want = ref_p2_plain.decode_weights(jnp.asarray(packed.numpy()),
+                                     jnp.ones(codes.numel()), k_terms)
+  np.testing.assert_array_equal(vals.numpy(), np.asarray(want)[0])
+
+
+def _kernel_order(x, weights):
+  return p2_ref.pow2_matmul_kernel_order(
+      x, weights.codes, weights.scale, weights.k_terms,
+      decode_max_m=_build.csrc_constant("pow2_matmul", "kDecodeMaxM"),
+      dec_tile_k=_build.csrc_constant("pow2_matmul", "kDecTK"),
+      dec_lanes=(_build.csrc_constant("pow2_matmul", "kDecThreads")
+                 // _build.csrc_constant("pow2_matmul", "kDecBN")),
+      max_splits=_build.csrc_constant("pow2_matmul", "kMaxSplits"),
+      tc_tile_k=_build.csrc_constant("pow2_matmul", "kTcBK"))
+
+
+def test_k4_decode_threshold_matches_its_source():
+  assert p2_kernel.DECODE_MAX_M == _build.csrc_constant("pow2_matmul",
+                                                        "kDecodeMaxM")
+  assert [p2_kernel.path(m, dt) for m, dt in (
+      (1, torch.bfloat16), (16, torch.float32), (17, torch.bfloat16),
+      (512, torch.float32))] == ["decode", "decode", "tensor-core",
+                                 "cuda-core"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", P2_SHAPES + CARD_CODEC_CASES, ids=str)
+@pytest.mark.parametrize("k_terms", [1, 2])
+def test_pow2_kernel_order_within_1e5_of_pallas(k_terms, shape, dtype):
+  """K4's order (the decode path's K split over a cluster and its fixed
+  reduction order; bf16 tensor-core tiles; the scale after the K sum) is
+  within 1e-5 of max |out| of the Pallas kernel, for the shapes of both
+  files."""
+  m, k, n = shape
+  rng = np.random.RandomState(m + k + n + k_terms)
+  x = rng.standard_normal((m, k)).astype(np.float32)
+  w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+  xj, xt = same_input(x, dtype)
+  want = np.asarray(ref_p2.pow2_matmul(
+      xj, ref_p2.quantize_weights(jnp.asarray(w), k_terms=k_terms),
+      interpret=True))
+  got = _kernel_order(xt, p2.quantize_weights(t(w), k_terms=k_terms))
+  assert got.dtype == torch.float32 and got.shape == (m, n)
+  assert rel_err(got, want) < 1e-5
 
 
 # ---------------------------------------------------------------------------

@@ -332,31 +332,47 @@ def test_serve_engine_on_the_card_matches_the_cpu(cuda, kv_quant):
 # sums and in expf, hence 1e-4 of the largest |value|.
 # ---------------------------------------------------------------------------
 
-def _wkv_inputs(rng, b, t, h, d, device, dtype, s0):
+def _wkv_inputs(rng, b, t, h, d, device, dtype, s0, tiny_w=False):
   """r/k/v/w as the model passes them: (B, H, T, D) views of (B, T, H, D)
-  projections; w float32 in (0, 1) from the model's exp(-exp(.))."""
+  projections; w float32 in (0, 1) from the model's exp(-exp(.)), or with
+  ``tiny_w`` drawn from 1e-30 (the kernel's clamp) to 0.9999 with a tenth
+  of the entries at either end."""
   def heads(x):
     return x.view(b, t, h, d).transpose(1, 2)
   r, k, v = (heads(_normal(rng, (b, t, h * d), device, dtype) * s)
              for s in (0.5, 0.5, 1.0))
   w = heads(torch.exp(-torch.exp(_normal(rng, (b, t, h * d), device) - 1.0)))
+  if tiny_w:
+    ws = rng.uniform(1e-30, 0.9999, (b, t, h * d)).astype(np.float32)
+    pick = rng.uniform(size=ws.shape)
+    ws[pick < 0.05] = 1e-30
+    ws[pick > 0.95] = 0.9999
+    w = heads(torch.from_numpy(ws).to(device))
   u = _normal(rng, (h, d), device) * 0.3
   state = _normal(rng, (b, h, d, d), device) * 0.1 if s0 else None
   return r, k, v, w, u, state
 
 
-# (b, t, h, d, chunk, s0): the serving shape, ragged T, every head dim
-WKV_CASES = [(1, 512, 32, 64, 64, False), (1, 512, 32, 64, 64, True),
-             (2, 300, 4, 64, 64, True), (1, 40, 4, 16, 16, True),
-             (2, 100, 3, 32, 32, False), (1, 1, 2, 64, 64, True)]
+# (b, t, h, d, chunk, s0, tiny_w): the serving shape, ragged T, every head
+# dim; more chunks than K7's 8-block cluster (a block owns 2 and 8), T
+# below one chunk, and w down to 1e-30
+WKV_CASES = [(1, 512, 32, 64, 64, False, False),
+             (1, 512, 32, 64, 64, True, False),
+             (2, 300, 4, 64, 64, True, False), (1, 40, 4, 16, 16, True, False),
+             (2, 100, 3, 32, 32, False, False), (1, 1, 2, 64, 64, True, False),
+             (1, 1100, 4, 64, 64, True, False),
+             (1, 4096, 2, 64, 64, False, False),
+             (2, 40, 4, 64, 64, True, False),
+             (1, 512, 32, 64, 64, True, True), (1, 1100, 4, 32, 32, True, True)]
 
 
 @pytest.mark.parametrize("case", WKV_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_kernel_matches_plain_version(cuda, case, dtype):
-  b, t, h, d, chunk, s0 = case
+  b, t, h, d, chunk, s0, tiny_w = case
   rng = np.random.RandomState(t + h + d)
-  r, k, v, w, u, state = _wkv_inputs(rng, b, t, h, d, cuda, dtype, s0)
+  r, k, v, w, u, state = _wkv_inputs(rng, b, t, h, d, cuda, dtype, s0,
+                                     tiny_w)
   wkv_kernel.reset_launch_counts()
   got_o, got_s = wkv.wkv6(r, k, v, w, u, state, chunk=chunk)
   assert wkv_kernel.LAUNCHES["wkv6"] == 1
@@ -370,6 +386,36 @@ def test_wkv6_kernel_matches_plain_version(cuda, case, dtype):
   assert _rel_err(got_o, want_o) < 1e-4
   assert _rel_err(got_s, want_s) < 1e-4
   assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
+
+
+def _replays_bit_equal(call):
+  """Two eager calls give the same bits (no atomics), and the call
+  captured as a CUDA graph replays to the same bits."""
+  first = [x.clone() for x in call()]
+  assert all(torch.equal(a, b) for a, b in zip(first, call()))
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    call()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = call()
+  for x in out:
+    x.zero_()
+  graph.replay()
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(first, out))
+
+
+@pytest.mark.parametrize("t", [512, 2048])
+def test_wkv6_kernel_is_deterministic_and_replays_in_a_cuda_graph(cuda, t):
+  """K7's cluster launch: bit-equal run to run and under graph replay."""
+  rng = np.random.RandomState(t)
+  args = _wkv_inputs(rng, 1, t, 8, 64, cuda, torch.bfloat16, True)
+  wkv_kernel.reset_launch_counts()
+  _replays_bit_equal(lambda: wkv_kernel.wkv6(*args))
+  assert wkv_kernel.LAUNCHES["wkv6"] >= 3
 
 
 def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
@@ -452,9 +498,13 @@ def test_rwkv_serve_engine_on_the_card_matches_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 # (m, k, n): qwen3-0.6b's ffn/wi at decode and prefill, ragged M, K and N,
-# N not a multiple of 4 (byte loads), K not a multiple of 4, and M = 1
+# N not a multiple of 4 (byte loads), K not a multiple of 4, and M = 1;
+# M at and just past K4's decode-path threshold (16), and K not a multiple
+# of its 64-row K tile on both of its paths
 CODEC_CASES = [(1, 1024, 3072), (512, 1024, 3072), (5, 1000, 70),
-               (5, 1000, 72), (130, 999, 66), (1, 64, 2), (65, 3072, 1024)]
+               (5, 1000, 72), (130, 999, 66), (1, 64, 2), (65, 3072, 1024),
+               (16, 1024, 3072), (17, 1024, 3072), (40, 1056, 256),
+               (3, 1056, 3072)]
 
 
 @pytest.mark.parametrize("xs_dtype", [torch.float32, torch.bfloat16])
@@ -489,6 +539,19 @@ def test_pow2_kernel_matches_plain_version(cuda, k_terms, case, dtype):
   got = p2.pow2_matmul(x, weights)
   assert p2_kernel.LAUNCHES["pow2_matmul"] == 1
   assert _rel_err(got, p2.pow2_matmul_reference(x, weights)) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [1, 512])
+@pytest.mark.parametrize("k_terms", [1, 2])
+def test_pow2_kernel_is_deterministic_and_replays_in_a_cuda_graph(
+    cuda, k_terms, m):
+  """K4's decode path (a cluster launch) and tensor-core path: bit-equal
+  run to run and under graph replay."""
+  rng = np.random.RandomState(m + k_terms)
+  x = _normal(rng, (m, 1024), cuda, torch.bfloat16)
+  weights = p2.quantize_weights(_normal(rng, (1024, 3072), cuda) * 0.05,
+                                k_terms)
+  _replays_bit_equal(lambda: (p2.pow2_matmul(x, weights),))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

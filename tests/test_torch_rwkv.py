@@ -36,7 +36,7 @@ from repro.models.model import build_model as ref_build_model
 from repro.serve.engine import EngineConfig as RefEngineConfig
 from repro.serve.engine import ServeEngine as RefServeEngine
 
-from repro_torch import convert
+from repro_torch import _build, convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_scan import ops as wkv
@@ -190,6 +190,79 @@ def test_wkv6_decode_steps_equal_the_chunked_form():
   np.testing.assert_allclose(s.numpy(), chunk_s.numpy(), rtol=1e-4,
                              atol=1e-4)
   assert rel_err(s.numpy(), want_s) < 1e-6
+
+
+# K7's CUDA schedule rebuilt in plain torch (the kernel runs only on a
+# card): its cluster size and sub-chunk rows are read from its source
+
+
+def _split(r, k, v, w, u, s0, chunk, blocks=None):
+  return wkv_ref.wkv6_split(
+      *torch_args(r, k, v, w, u, s0), chunk,
+      max_blocks=blocks or _build.csrc_constant("rwkv6_scan", "kMaxBlocks"),
+      sub=_build.csrc_constant("rwkv6_scan", "kSub"))
+
+
+def _hold_split_to_every_form(case, r, k, v, w, u, s0, blocks=None):
+  """wkv6_split against the chunked form, the Pallas kernel in interpret
+  mode and the sequential scan: within 2e-5 of the largest |value|, or,
+  where the port's chunked form itself is further than that from a form,
+  no further from it than the chunked form (1% slack).  At w = 1e-30 the
+  log-decay form's la sums reach |la| in the thousands, where float32
+  keeps them to about 1e-4 absolute and exp(la_last - la) inherits that:
+  the two chunked forms then differ by 3e-5 in the state themselves."""
+  b, h, t, d, chunk = case
+  got = _split(r, k, v, w, u, s0, chunk, blocks)
+  assert got[0].shape == (b, h, t, d) and got[1].shape == (b, h, d, d)
+  assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+  chunked = wkv_ref.wkv6_chunked(*torch_args(r, k, v, w, u, s0), chunk)
+  for form in (chunked,
+               ref_wkv.wkv6(r, k, v, w, u, s0, interpret=True, chunk=chunk),
+               wkv.wkv6_reference(*torch_args(r, k, v, w, u, s0))):
+    for mine, ours, want in zip(got, chunked, form):
+      want = np.asarray(want)
+      bound = max(2e-5, 1.01 * rel_err(ours.numpy(), want))
+      assert rel_err(mine.numpy(), want) < bound
+
+
+# T longer than the cluster's 8 chunks: a block owns two or three
+SPLIT_CASES = WKV_CASES + [(1, 2, 1100, 64, 64), (1, 3, 600, 32, 32)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_wkv6_split_keeps_the_function(case):
+  """K7's split over a cluster (contiguous chunk ranges, each range's
+  state contribution, the state folded along the blocks in rank order)
+  and its factorised sub-chunk scores keep the function."""
+  b, h, t, d, _ = case
+  _hold_split_to_every_form(case, *wkv_inputs(b, h, t, d, seed=sum(case)))
+
+
+@pytest.mark.parametrize("blocks", [7, 5, 3])
+def test_wkv6_split_keeps_the_function_at_every_cluster_size(blocks):
+  """The kernel takes fewer blocks a cluster than its most where the card
+  holds more clusters of them at once (18 chunks over 7 blocks: 3, 3, 3,
+  3, 2, 2, 2); any count keeps the function."""
+  case = (1, 2, 1100, 64, 64)
+  b, h, t, d, _ = case
+  _hold_split_to_every_form(case, *wkv_inputs(b, h, t, d, seed=blocks),
+                            blocks=blocks)
+
+
+@pytest.mark.parametrize("case", [(2, 4, 128, 64, 64), (1, 2, 1100, 64, 64),
+                                  (1, 2, 300, 32, 32)], ids=str)
+def test_wkv6_split_stays_finite_at_extreme_decays(case):
+  """w drawn from 1e-30 (the clamp) up to 0.9999, with a tenth of the
+  entries at either end: every exponent stays <= 0, so nothing
+  overflows, and the split holds to every form within 2e-5."""
+  b, h, t, d, _ = case
+  r, k, v, w, u, s0 = wkv_inputs(b, h, t, d, seed=sum(case) + 1)
+  rng = np.random.RandomState(sum(case))
+  w = rng.uniform(1e-30, 0.9999, w.shape).astype(np.float32)
+  pick = rng.uniform(size=w.shape)
+  w[pick < 0.05] = 1e-30
+  w[pick > 0.95] = 0.9999
+  _hold_split_to_every_form(case, r, k, v, w, u, s0)
 
 
 def test_wkv6_kernel_wrapper_refuses_cpu_tensors():
