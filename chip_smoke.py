@@ -75,9 +75,11 @@ K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
 K7_RAGGED_T = 300
 K7_LONG_T = 2048
 # the codecs: K3 and K4 at qwen3-0.6b's ffn/wi (K, N), a decode token and
-# the engine's prompt bucket, and a ragged shape; the matmul leaves of a
-# layer; the PE types packed (FP32 is the no-op)
+# the engine's prompt bucket, and a ragged shape (K3 also at the other
+# three (K, N) of a layer: mix/wq and mix/wkv, mix/wo, ffn/wo); the matmul
+# leaves of a layer; the PE types packed (FP32 is the no-op)
 CODEC_KN = (1024, 3072)
+CODEC_LAYER_KN = ((1024, 2048), (2048, 1024), (1024, 3072), (3072, 1024))
 CODEC_MS = (1, 512)
 CODEC_RAGGED = (5, 1000, 70)
 CODEC_LEAVES = (("mix", "wq"), ("mix", "wkv"), ("mix", "wo"),
@@ -991,10 +993,11 @@ def _int_mm_ms(xq, wq, epilogue=None):
 
 def phase_codec_kernels():
   """K3 and K4 vs their plain versions on the card, on seeded codes, at
-  qwen3-0.6b's ffn/wi shape for a decode token and a 512-token prompt
-  and at a ragged shape.  K3 must equal its plain version exactly; K4 is
-  held to 1e-5 of the largest |out| (it multiplies by the scale after the
-  K sum, the plain version folds it into the weights)."""
+  qwen3-0.6b's ffn/wi shape (K3: each (K, N) of a layer) for a decode
+  token and a 512-token prompt and at a ragged shape.  K3 must equal its
+  plain version exactly; K4 is held to 1e-5 of the largest |out| (it
+  multiplies by the scale after the K sum, the plain version folds it into
+  the weights)."""
   import numpy as np
   import torch
   from repro_torch.kernels.int8_matmul import kernel as i8_kernel
@@ -1010,7 +1013,8 @@ def phase_codec_kernels():
   def dev(a):
     return torch.from_numpy(a).cuda()
 
-  for m, k, n in shapes:
+  for m, k, n in [(m, k, n) for k, n in CODEC_LAYER_KN for m in CODEC_MS] + [
+      CODEC_RAGGED]:
     xq = dev(rng.randint(-128, 128, (m, k)).astype(np.int8))
     wq = dev(rng.randint(-128, 128, (k, n)).astype(np.int8))
     ws = dev(rng.uniform(1e-4, 1e-2, n).astype(np.float32))
@@ -1035,12 +1039,14 @@ def phase_codec_kernels():
              if lib_ms is not None
              else f"not timed: _int_mm refuses the shape ({lib_why})")
       log(f"[K3] M={m} K={k} N={n}, {str(xs_dtype).split('.')[-1]} x "
-          f"scales: max_abs_err {err:.3g} (tolerance 0: equal); kernel "
+          f"scales, {i8_kernel.describe(m, k, n)}: max_abs_err {err:.3g} "
+          f"(tolerance 0: equal); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
           f"({b_by}: {n_bytes / 1e6:.2f} MB, {2 * m * n * k / 1e9:.3f} GOP "
           f"at 1,979 TOP/s int8), library (torch._int_mm, the int32 "
           f"product without the epilogue) {lib}")
-      if (m, xs_dtype) == (max(CODEC_MS), torch.bfloat16):
+      if (m, k, n, xs_dtype) == (max(CODEC_MS), k_dim, n_dim,
+                                 torch.bfloat16):
         results["int8_matmul"] = dict(
             name="int8_matmul (K3)", route="cuda",
             source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",

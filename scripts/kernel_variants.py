@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Time design variants of the K4 and K7 CUDA kernels side by side on one
-card, in one process.
+"""Time design variants of the K1, K3, K4 and K7 CUDA kernels side by side
+on one card, in one process.
 
 Each variant is the kernel's own source with one constant or one rule
 changed (the shipped source is the first variant of each list: K7's
 cluster size chosen from the clusters the card holds, then fixed sizes;
-K4's tensor-core tile shapes), built with the port's nvcc flags into
-``build/variants/`` and called through its C entry.  Every
-variant's output is held to the kernel's plain version before it is
-timed, and the variants are timed in turns (first to last, then last to
-first) as CUDA-graph replays.  K7 also reports how many clusters of its
-blocks the card holds at once (``cudaOccupancyMaxActiveClusters``).
+K4's tensor-core tile shapes; K3's tile and split of K chosen by shape,
+then one rule of that choice, its K tile or ring, or a rule of its decode
+path changed, each also at K = 0, the launch and epilogue alone; K1's
+kernel, the same kernel without its pair loop (its floor), and the
+designs of ``k1_designs.cu`` beside this script: the same pair tests with
+several points and lanes a thread, and ranks with bit masks or packed rank
+lanes), built with the port's nvcc flags into ``build/variants/`` and
+called through its C entry.  Every variant's output is held to the
+kernel's plain version before it is timed, and the variants are timed in
+turns (first to last, then last to first) as CUDA-graph replays.  K7 also
+reports how many clusters of its blocks the card holds at once
+(``cudaOccupancyMaxActiveClusters``).
 
-    PYTHONPATH=src python3 scripts/kernel_variants.py
+    PYTHONPATH=src python3 scripts/kernel_variants.py [K1 K3 K4 K7]
 
-Needs a CUDA card and nvcc; prints the card's name and power limit.
+With kernel names, only their variants are built and timed.  Needs a
+CUDA card and nvcc; prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -24,10 +31,13 @@ import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels.int8_matmul import ref as i8_ref
+from repro_torch.kernels.pareto_front import ref as pf_ref
 from repro_torch.kernels.pow2_matmul import ref as p2_ref
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
@@ -36,6 +46,33 @@ KERNELS = _build.PACKAGE / "kernels"
 K7_TS = (300, 512, 2048)              # B = 1, H = 32, D = 64, chunk 64
 K7_BLOCKS = (8, 7, 5, 4)              # fixed cluster sizes
 K4_TILES = ((128, 96, 256), (128, 64, 256), (64, 96, 128), (64, 192, 128))
+# K3: qwen3-0.6b's four (K, N) of a layer, a decode token and a prompt;
+# K = 0 times the launch and the epilogue alone
+K3_KN = ((1024, 2048), (2048, 1024), (1024, 3072), (3072, 1024), (0, 3072))
+K3_MS = (512, 1)
+K3_VARIANTS = (  # (name, {constant: value}) changed in the shipped source
+    ("128-row tiles always", {"kTcMinTiles": 0}),
+    ("64-row tiles always", {"kTcMinTiles": 1 << 20}),
+    ("128 x 128 tiles, no split", {"kTcMinTiles": 0, "kTcMaxSplits": 1}),
+    ("no split", {"kTcMaxSplits": 1}),
+    ("split to 132 blocks", {"kTcMinBlocks": 132}),
+    ("64-byte K tiles", {"kTcBK": 64}),
+    ("a ring of 3 tiles", {"kTcStages": 3}),
+    ("decode split over 4 blocks", {"kMaxSplits": 4}),
+    ("decode ring of 2 stages", {"kDecStages": 2}))
+K1_SHAPE = (3, 65536, 128)            # D, N (one sweep chunk), block
+# K1's shipped kernel (one thread a point) against the designs of
+# k1_designs.cu beside this script: (name, C entry, {constant: value})
+K1_DESIGNS = (
+    ("4 points a thread, 4 lanes", "k1_points", {}),
+    ("4 points a thread, 2 lanes", "k1_points", {"kLanesPerPoint": 2}),
+    ("4 points a thread, 1 lane", "k1_points", {"kLanesPerPoint": 1}),
+    ("2 points a thread, 2 lanes", "k1_points", {"kPointsPerThread": 2,
+                                                 "kLanesPerPoint": 2}),
+    ("2 points a thread, 1 lane", "k1_points", {"kPointsPerThread": 2,
+                                                "kLanesPerPoint": 1}),
+    ("ranks, bit masks", "k1_ranks", {}),
+    ("ranks, packed lanes", "k1_ranks", {"kMaskMaxBlock": 0}))
 OCCUPANCY = '''
 extern "C" int k7_active_clusters(int blocks, int* out) {
   auto k = wkv6_kernel<__nv_bfloat16, 64>;
@@ -59,11 +96,12 @@ extern "C" int k7_active_clusters(int blocks, int* out) {
 '''
 
 
-def replace_constant(src: str, name: str, value: int) -> str:
-  out, n = re.subn(rf"constexpr int {name} = \d+;",
-                   f"constexpr int {name} = {value};", src)
-  assert n == 1, name
-  return out
+def replace_constants(src: str, values) -> str:
+  for name, value in values.items():
+    src, n = re.subn(rf"constexpr int {name} = \d+;",
+                     f"constexpr int {name} = {value};", src)
+    assert n == 1, name
+  return src
 
 
 def build(name: str, text: str) -> ctypes.CDLL:
@@ -165,29 +203,119 @@ def k4_calls(lib):
   return calls
 
 
+def k3_calls(lib):
+  """K3 at each (K, N) of K3_KN and M of K3_MS on seeded codes, bf16 x
+  scales, each output equal to the plain version."""
+  lib.i8mm_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
+                               + [ctypes.c_int, ctypes.c_void_p])
+  gen = torch.Generator().manual_seed(3)
+  calls = {}
+  for m in K3_MS:
+    for k, n in K3_KN:
+      x = torch.randint(-128, 128, (m, k), dtype=torch.int8,
+                        generator=gen).cuda()
+      w = torch.randint(-128, 128, (k, n), dtype=torch.int8,
+                        generator=gen).cuda()
+      xs = (torch.rand(m, generator=gen) * 0.1).cuda().bfloat16()
+      ws = (torch.rand(n, generator=gen) * 0.01).cuda()
+      out = torch.empty(m, n, device="cuda")
+
+      def call(m=m, k=k, n=n, x=x, w=w, xs=xs, ws=ws, out=out):
+        status = lib.i8mm_forward(
+            x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), m, k, n, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert status == 0, status
+      call()
+      assert torch.equal(out, i8_ref.int8_matmul_ref(x, w, xs, ws))
+      calls[f"M={m} K={k} N={n}"] = call
+  return calls
+
+
+def k1_calls(lib, entry="pf_block_dominance_counts", check=True):
+  """K1 at K1_SHAPE on seeded objectives with ties and duplicates, counts
+  equal to the plain version (unless not ``check``)."""
+  fn = getattr(lib, entry)
+  fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
+  d, n, block = K1_SHAPE
+  gen = torch.Generator().manual_seed(1)
+  obj = torch.rand(d, n, generator=gen, dtype=torch.float64)
+  obj[0, torch.randint(0, n, (n // 8,), generator=gen)] = 0.5
+  obj[:, torch.randint(0, n, (n // 32,), generator=gen)] = torch.round(
+      obj[:, torch.randint(0, n, (n // 32,), generator=gen)] * 100) / 100
+  obj = obj.cuda().contiguous()
+  counts = torch.empty(n, dtype=torch.int32, device="cuda")
+
+  def call():
+    status = fn(obj.data_ptr(), d, n, block, counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    assert status == 0, status
+  call()
+  assert not check or torch.equal(
+      counts, pf_ref.block_dominance_counts_ref(obj.T, block))
+  return {f"D={d} N={n} block={block}": call}
+
+
+def _named(values) -> str:
+  return ", ".join(f"{name} = {value}" for name, value in values.items())
+
+
+def jobs_of(kernel: str):
+  """{variant name: (source text, calls function)} of one kernel."""
+  if kernel == "K7":
+    k7 = (KERNELS / "rwkv6_scan/csrc/rwkv6_scan.cu").read_text()
+    # a fixed size n: at most n blocks, and the first (largest) n is taken
+    first = k7.replace("if (best_cost < 0 || cost < best_cost) {",
+                       "if (best_cost < 0) {")
+    assert first != k7
+    jobs = {"K7 shipped (cluster size chosen)": (k7 + OCCUPANCY, k7_calls)}
+    jobs.update({f"K7 {n} blocks a cluster": (replace_constants(
+        first, {"kMaxBlocks": n}) + OCCUPANCY, k7_calls) for n in K7_BLOCKS})
+    return jobs
+  if kernel == "K4":
+    k4 = (KERNELS / "pow2_matmul/csrc/pow2_matmul.cu").read_text()
+    jobs = {}
+    for bm, bn, threads in K4_TILES:
+      jobs[f"K4 tile {bm}x{bn}"] = (replace_constants(
+          k4, {"kTcBM": bm, "kTcBN": bn, "kTcThreads": threads}), k4_calls)
+    return jobs
+  if kernel == "K3":
+    k3 = (KERNELS / "int8_matmul/csrc/int8_matmul.cu").read_text()
+    jobs = {"K3 shipped (tile and split by shape)": (k3, k3_calls)}
+    jobs.update({f"K3 {label} ({_named(values)})": (
+        replace_constants(k3, values), k3_calls)
+                 for label, values in K3_VARIANTS})
+    return jobs
+  k1 = (KERNELS / "pareto_front/csrc/pareto_front.cu").read_text()
+  jobs = {"K1 shipped (float64 compares, one thread a point)": (k1,
+                                                                k1_calls)}
+  # the kernel with no pair test: its loads, stores and launch alone
+  floor = k1.replace("for (int j = 0; j < b; ++j) c +=",
+                     "for (int j = 0; j < 0; ++j) c +=")
+  assert floor != k1
+  jobs["K1 floor: no pair test (not held to the plain version)"] = (
+      floor, lambda lib: k1_calls(lib, check=False))
+  designs = (Path(__file__).resolve().parent / "k1_designs.cu").read_text()
+  for label, entry, values in K1_DESIGNS:
+    jobs[f"K1 {entry}: {label}"] = (
+        replace_constants(designs, values),
+        lambda lib, entry=entry: k1_calls(lib, entry))
+  return jobs
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     sys.exit("kernel_variants.py: no CUDA device is available")
-  k7 = (KERNELS / "rwkv6_scan/csrc/rwkv6_scan.cu").read_text()
-  k4 = (KERNELS / "pow2_matmul/csrc/pow2_matmul.cu").read_text()
-  # a fixed size n: at most n blocks, and the first (largest) n is taken
-  first = k7.replace("if (best_cost < 0 || cost < best_cost) {",
-                     "if (best_cost < 0) {")
-  assert first != k7
-  jobs = {"K7 shipped (cluster size chosen)": k7 + OCCUPANCY}
-  jobs.update({f"K7 {n} blocks a cluster": replace_constant(
-      first, "kMaxBlocks", n) + OCCUPANCY for n in K7_BLOCKS})
-  for bm, bn, threads in K4_TILES:
-    text = replace_constant(k4, "kTcBM", bm)
-    text = replace_constant(text, "kTcBN", bn)
-    jobs[f"K4 tile {bm}x{bn}"] = replace_constant(text, "kTcThreads",
-                                                  threads)
+  kernels = sys.argv[1:] or ["K1", "K3", "K4", "K7"]
+  jobs = {}
+  for kernel in kernels:
+    jobs.update(jobs_of(kernel))
   names = list(jobs)
   with ThreadPoolExecutor(len(names)) as pool:
     libs = dict(zip(names, pool.map(
-        lambda i: build(f"variant{i}", jobs[names[i]]), range(len(names)))))
-  calls = {name: (k7_calls if name.startswith("K7") else k4_calls)(lib)
-           for name, lib in libs.items()}
+        lambda i: build(f"variant{i}", jobs[names[i]][0]),
+        range(len(names)))))
+  calls = {name: jobs[name][1](lib) for name, lib in libs.items()}
   times = {name: {shape: [] for shape in calls[name]} for name in names}
   for order in (names, names[::-1]):
     for name in order:
@@ -196,15 +324,17 @@ def main() -> int:
   for name in names:
     line = "; ".join(f"{shape} {t[0]:.4f} / {t[1]:.4f} ms"
                      for shape, t in times[name].items())
-    print(f"[variants] {name}: {line} (held to the plain version)")
-  lib = libs[names[0]]
-  lib.k7_active_clusters.argtypes = [ctypes.c_int,
-                                     ctypes.POINTER(ctypes.c_int)]
-  for blocks in sorted(K7_BLOCKS, reverse=True):
-    active = ctypes.c_int(0)
-    assert lib.k7_active_clusters(blocks, ctypes.byref(active)) == 0
-    print(f"[variants] K7 (bf16, D=64, chunk 64): the card holds "
-          f"{active.value} clusters of {blocks} blocks at once")
+    held = "" if "not held" in name else " (held to the plain version)"
+    print(f"[variants] {name}: {line}{held}")
+  shipped_k7 = libs.get("K7 shipped (cluster size chosen)")
+  if shipped_k7 is not None:
+    shipped_k7.k7_active_clusters.argtypes = [ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+    for blocks in sorted(K7_BLOCKS, reverse=True):
+      active = ctypes.c_int(0)
+      assert shipped_k7.k7_active_clusters(blocks, ctypes.byref(active)) == 0
+      print(f"[variants] K7 (bf16, D=64, chunk 64): the card holds "
+            f"{active.value} clusters of {blocks} blocks at once")
   print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())

@@ -5,7 +5,8 @@ The wrapper takes int8 codes x (M, K) and w (K, N), the per-row scales of
 x (M,) float32 or bf16 and the per-column scales of w (N,) float32, all
 contiguous on one CUDA device; it allocates the float32 (M, N) output,
 launches on the current stream and raises if the launch was refused.
-``LAUNCHES`` counts its launches.
+``LAUNCHES`` counts its launches: one a call, whichever of the source's
+two kernels ``path`` names runs.
 """
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels._checks import expect
+
+# M at or below it runs the decode path (kDecodeMaxM of the CUDA source)
+DECODE_MAX_M = 16
 
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
 
@@ -32,7 +36,27 @@ def _lib() -> ctypes.CDLL:
   p, i64 = ctypes.c_void_p, ctypes.c_int64
   lib.i8mm_forward.argtypes = [p] * 5 + [i64] * 3 + [ctypes.c_int, p]
   lib.i8mm_forward.restype = ctypes.c_int
+  lib.i8mm_plan.argtypes = [i64] * 3 + [ctypes.POINTER(ctypes.c_int)]
+  lib.i8mm_plan.restype = None
   return lib
+
+
+def path(m: int) -> str:
+  """Which kernel of the source an (m, K) x runs."""
+  return "decode" if m <= DECODE_MAX_M else "tensor-core"
+
+
+def describe(m: int, k: int, n: int) -> str:
+  """The kernel, tile and split of K that the source picks for a shape
+  (asks the built library, so only where the kernels build)."""
+  plan = (ctypes.c_int * 3)()
+  _lib().i8mm_plan(m, k, n, plan)
+  kind, rows, splits = plan
+  if kind == 0:
+    return (f"decode path, x rows staged {rows}, K split over {splits} "
+            f"blocks")
+  return (f"tensor-core path, {rows} x 128 tiles, K split over {splits} "
+          f"block{'s' if splits > 1 else ''}")
 
 
 def check_inputs(x, w, x_scale, w_scale) -> None:

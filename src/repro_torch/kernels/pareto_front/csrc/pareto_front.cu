@@ -20,7 +20,14 @@
 //     point pairs of 2 * D compares each, 50M float64 compares; the
 //     compares bound it.  The design keeps every operand but the thread's
 //     own point in shared memory, so device memory is read once per input
-//     and written once per output.
+//     and written once per output.  On this card the launch and the loads
+//     and stores alone take a large share of its time, and the pair loop
+//     costs the same whether a thread owns 1, 2 or 4 points (fewer shared
+//     reads) or the values are first replaced by their ranks in the block
+//     (half the float64 compares, then tests of packed ranks or bit masks,
+//     which cost as many issue slots as they save and add phases): those
+//     designs, in scripts/k1_designs.cu, were no faster (PERF.md;
+//     scripts/kernel_variants.py times them), so this one stays.
 //
 // K2  pf_dominance_counts replaces
 //     repro/kernels/pareto_front/kernel.py::dominance_counts_pallas

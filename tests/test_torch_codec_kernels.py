@@ -250,6 +250,13 @@ def test_k4_decode_threshold_matches_its_source():
                                  "cuda-core"]
 
 
+def test_k3_decode_threshold_matches_its_source():
+  assert i8_kernel.DECODE_MAX_M == _build.csrc_constant("int8_matmul",
+                                                        "kDecodeMaxM")
+  assert [i8_kernel.path(m) for m in (1, 16, 17, 512)] == [
+      "decode", "decode", "tensor-core", "tensor-core"]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", P2_SHAPES + CARD_CODEC_CASES, ids=str)
 @pytest.mark.parametrize("k_terms", [1, 2])

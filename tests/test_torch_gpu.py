@@ -81,6 +81,35 @@ def test_pairwise_kernel_matches_plain_version(cuda, n, d):
   assert kernel.LAUNCHES["dominance_counts"] == 1
 
 
+def _objectives_with_nan(n, d, seed):
+  """_objectives plus -inf entries, NaN entries, a point of NaN only, and
+  duplicated NaN and -inf points."""
+  obj = _objectives(n, d, seed)
+  rng = np.random.RandomState(seed + 1)
+  obj[rng.randint(0, n, max(1, n // 50)), rng.randint(0, d)] = -np.inf
+  obj[rng.randint(0, n, max(1, n // 40)), rng.randint(0, d)] = np.nan
+  obj[n // 2] = np.nan
+  obj[n // 4] = obj[n // 5] = obj[rng.randint(0, n)]
+  obj[n - 1] = -np.inf
+  return obj
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("block", [64, 128, 256, 1024])
+def test_block_kernel_counts_nan_and_inf_as_the_plain_version(cuda, block,
+                                                               d):
+  """K1's ranks: 8-bit lanes up to 128, 16-bit lanes above; a point with a
+  NaN dominates nothing and nothing dominates it."""
+  n = 3 * block + 5
+  obj = torch.from_numpy(_objectives_with_nan(n, d, seed=block + d)).to(cuda)
+  obj_t = ops._pad_feature_major(obj, block)
+  kernel.reset_launch_counts()
+  got = kernel.block_dominance_counts(obj_t, block)
+  assert kernel.LAUNCHES["block_dominance_counts"] == 1
+  assert torch.equal(got, ref.block_dominance_counts_ref(obj_t.T, block))
+  assert (got[:n][torch.isnan(obj).any(dim=1)] == 0).all()
+
+
 def test_kernels_reject_unsupported_objective_counts(cuda):
   obj_t = torch.zeros((5, 256), dtype=torch.float64, device=cuda)
   with pytest.raises(ValueError, match="2 to 4 objectives"):
@@ -499,12 +528,19 @@ def test_rwkv_serve_engine_on_the_card_matches_the_cpu(cuda):
 
 # (m, k, n): qwen3-0.6b's ffn/wi at decode and prefill, ragged M, K and N,
 # N not a multiple of 4 (byte loads), K not a multiple of 4, and M = 1;
-# M at and just past K4's decode-path threshold (16), and K not a multiple
-# of its 64-row K tile on both of its paths
+# M at and just past the decode-path threshold of K3 and K4 (16), and K
+# not a multiple of their 64-row K tile on both of their paths; the other
+# three (K, N) of a qwen3-0.6b layer at a decode token and a 512-token
+# prompt; K not a multiple of 32 (one s8 mma step) on K3's tensor-core
+# path; and K3's split of K over a cluster with 17 K tiles, the last one
+# partial, over 4 blocks on the tensor-core path and over 8 on the decode
+# path
 CODEC_CASES = [(1, 1024, 3072), (512, 1024, 3072), (5, 1000, 70),
                (5, 1000, 72), (130, 999, 66), (1, 64, 2), (65, 3072, 1024),
                (16, 1024, 3072), (17, 1024, 3072), (40, 1056, 256),
-               (3, 1056, 3072)]
+               (3, 1056, 3072), (1, 1024, 2048), (512, 1024, 2048),
+               (1, 2048, 1024), (512, 2048, 1024), (1, 3072, 1024),
+               (512, 3072, 1024), (40, 1000, 72), (512, 1040, 1024)]
 
 
 @pytest.mark.parametrize("xs_dtype", [torch.float32, torch.bfloat16])
@@ -552,6 +588,20 @@ def test_pow2_kernel_is_deterministic_and_replays_in_a_cuda_graph(
   weights = p2.quantize_weights(_normal(rng, (1024, 3072), cuda) * 0.05,
                                 k_terms)
   _replays_bit_equal(lambda: (p2.pow2_matmul(x, weights),))
+
+
+@pytest.mark.parametrize("m,n", [(1, 3072), (512, 3072), (512, 1024)])
+def test_int8_kernel_is_deterministic_and_replays_in_a_cuda_graph(cuda, m,
+                                                                  n):
+  """K3's decode path, its tensor-core path, and its tensor-core path with
+  K split over a cluster: bit-equal run to run and under graph replay."""
+  rng = np.random.RandomState(m + n)
+  xq = torch.from_numpy(rng.randint(-128, 128, (m, 3072)).astype(np.int8))
+  wq = torch.from_numpy(rng.randint(-128, 128, (3072, n)).astype(np.int8))
+  xs = torch.from_numpy(rng.uniform(1e-3, 1e-1, m).astype(np.float32))
+  ws = torch.from_numpy(rng.uniform(1e-3, 1e-1, n).astype(np.float32))
+  args = [a.to(cuda) for a in (xq, wq, xs.to(torch.bfloat16), ws)]
+  _replays_bit_equal(lambda: (i8_kernel.int8_matmul(*args),))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.explore.frame import pareto_mask
+from repro.kernels.pareto_front import kernel as ref_kernel
 from repro.kernels.pareto_front import ops as ref_ops
 from repro.kernels.pareto_front import ref as ref_ref
 
@@ -86,6 +87,36 @@ def test_block_counts_match_reference_counts(n, d):
   with jax.enable_x64(True):
     want = np.asarray(ref_ref.block_dominance_counts_ref(padded, 128))
   np.testing.assert_array_equal(got, want)
+
+
+def objectives_with_nan(n: int, d: int, seed: int) -> np.ndarray:
+  """objectives() plus -inf entries, NaN entries, a point of NaN only and
+  duplicated NaN and -inf points."""
+  obj = objectives(n, d, seed)
+  rng = np.random.RandomState(seed + 1)
+  obj[rng.randint(0, n, max(1, n // 50)), rng.randint(0, d)] = -np.inf
+  obj[rng.randint(0, n, max(1, n // 40)), rng.randint(0, d)] = np.nan
+  obj[n // 2] = np.nan
+  obj[n // 4] = obj[n // 5] = obj[rng.randint(0, n)]
+  obj[n - 1] = -np.inf
+  return obj
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_block_counts_treat_nan_as_the_pallas_kernel(block, d):
+  """A NaN compares false both ways: in the Pallas kernel and the plain
+  version alike, a point with a NaN dominates nothing and nothing
+  dominates it."""
+  n = 3 * block + 5
+  obj = objectives_with_nan(n, d, seed=block + d)
+  obj_t = ops._pad_feature_major(torch.from_numpy(obj), block)
+  got = ref.block_dominance_counts_ref(obj_t.T, block).numpy()
+  with jax.enable_x64(True):
+    want = np.asarray(ref_kernel.block_dominance_counts_pallas(
+        obj_t.numpy(), interpret=True, block=block))
+  np.testing.assert_array_equal(got, want)
+  assert (got[:n][np.isnan(obj).any(axis=1)] == 0).all()
 
 
 def test_empty_input():
