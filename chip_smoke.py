@@ -13,7 +13,12 @@ checks exact float64 arithmetic on the card, holds each kernel against
 its plain torch version at its path's shapes and times both, runs the
 paper's full design space at 1,000,000 designs through
 ``ExplorationSession(TorchOracleBackend()).explore(..., stream=True)``
-and checks that sweep against the same code on the CPU.  Then it serves
+and checks that sweep against the same code on the CPU.  The paper's own
+method follows: polynomial PPA models fitted on the host (or loaded from
+``build/ppa_models.npz``) and evaluated on the card through
+``PolynomialBackend`` for fig 4, Table 2, speedup_dse (against the scalar
+oracle) and a 1,000,000-design table sweep, held bit for bit against the
+same code on the CPU.  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
@@ -55,6 +60,17 @@ K1_SHAPE = (3, 65536, 128)  # D, N (one sweep chunk), block
 K2_SHAPE = (3, 4096)        # D, N (the survivor cap)
 SWEEP_PER_TYPE = 250_000    # x 4 paper PE types = 1,000,000 designs
 SWEEP_CHUNK = 65536
+
+# the paper's method: the fit (benchmarks' settings, cached under build/),
+# fig 4 and Table 2 at 250 designs a type, speedup_dse's 500 a type with
+# seeds 31 + i and 20 scalar-oracle designs, and a 1,000,000-design table
+# sweep; its first 65,536 rows go through the CPU in [poly-parity]
+POLY_CACHE = ROOT / "build" / "ppa_models.npz"
+POLY_FIT = dict(degree=5, n_train=240, seed=0)
+POLY_FIG_PER_TYPE = 250
+POLY_SPEEDUP_PER_TYPE = 500
+POLY_ORACLE_DESIGNS = 20
+POLY_PARITY_ROWS = 65536
 
 # serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
 # K5 decode shape (one slot's cache of 2,048 positions) and the traffic
@@ -141,6 +157,24 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP64_PER_S):
   t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
   t_ops = n_ops / peak_ops * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed_stage(rows, name, fn):
+  """``fn()`` between two syncs; appends (name, host ms, ms between CUDA
+  events around it on the stream, which include the gaps where the card
+  waits for the host) to ``rows`` and returns ``fn``'s result."""
+  import torch
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  t0 = time.perf_counter()
+  start.record()
+  out = fn()
+  end.record()
+  torch.cuda.synchronize()
+  rows.append((name, (time.perf_counter() - t0) * 1e3,
+               start.elapsed_time(end)))
+  return out
 
 
 def planted_objectives(d: int, n: int, seed: int):
@@ -319,19 +353,7 @@ def phase_breakdown(layers):
                                          chunk_size=SWEEP_CHUNK))
   plan = build_plan(sweep_reducers())
   rows = []
-
-  def stage(name, fn):
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    rows.append((name, (time.perf_counter() - t0) * 1e3,
-                 start.elapsed_time(end)))
-    return out
+  stage = lambda name, fn: timed_stage(rows, name, fn)
 
   for _ in range(2):  # the first pass warms caches; report the second
     rows.clear()
@@ -422,6 +444,178 @@ def phase_parity(layers, sweep):
   log(f"[parity] K2: all {len(front)} points of the streamed 3-D front have "
       "dominance count 0")
   return rel
+
+
+# ---------------------------------------------------------------------------
+# the paper's method: polynomial PPA models evaluated on the card
+# ---------------------------------------------------------------------------
+
+def _check_frame(tag, frame, n):
+  import numpy as np
+  if len(frame) != n:
+    raise AssertionError(f"{tag}: {len(frame)} rows, expected {n}")
+  for c in ("latency_s", "power_mw", "area_mm2"):
+    v = frame.column(c)
+    if not (np.isfinite(v).all() and (v > 0).all()):
+      raise AssertionError(f"{tag}: {c} not finite and positive")
+
+
+def phase_poly(layers, sweep, smi):
+  """The paper's own method on the card: fit (host numpy) or load the
+  models, then fig 4, Table 2, speedup_dse and a 1,000,000-design table
+  sweep, every prediction's features and sums on the card."""
+  import torch
+  from repro_torch.core.pe import PAPER_PE_TYPES
+  from repro_torch.core.workloads import get_network
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   OracleBackend, PolynomialBackend)
+  t0 = time.perf_counter()
+  backend = PolynomialBackend.fit_or_load(
+      str(POLY_CACHE), layers=get_network("resnet20") + get_network("vgg16"),
+      **POLY_FIT)
+  cache = "hit" if backend.loaded_from else "miss"
+  log(f"[poly] fit_ppa_models[all] degree={POLY_FIT['degree']} "
+      f"n_train={POLY_FIT['n_train']} over resnet20 + vgg16, "
+      f"{len(backend.pe_types)} PE types: {time.perf_counter() - t0:.3f} s "
+      f"on the host, cache={cache}")
+  sess = ExplorationSession(backend, DesignSpace())
+
+  t0 = time.perf_counter()
+  frame = sess.explore(layers, "resnet20", n_per_type=POLY_FIG_PER_TYPE)
+  secs = time.perf_counter() - t0
+  _check_frame("[poly] fig4", frame, 4 * POLY_FIG_PER_TYPE)
+  ppa_n, en_n = frame.normalize(ref="best-int16")
+  log(f"[poly] fig4 resnet20, {len(frame)} designs in {secs:.3f} s: "
+      f"perf/area spread {ppa_n.max() / ppa_n.min():.1f}x, energy spread "
+      f"{en_n.max() / en_n.min():.1f}x (paper: 5x and 35x+)")
+
+  t0 = time.perf_counter()
+  rows = []
+  for net in ("vgg16", "resnet20", "resnet56"):
+    f = sess.explore(get_network(net), net, n_per_type=POLY_FIG_PER_TYPE)
+    _check_frame(f"[poly] table2 {net}", f, 4 * POLY_FIG_PER_TYPE)
+    p_n, e_n = f.normalize(ref="best-int16")
+    rows.append(f"{net}: " + ", ".join(
+        f"{t} {p_n[f.by_type(t)].max():.2f}x/{e_n[f.by_type(t)].min():.3f}x"
+        for t in PAPER_PE_TYPES))
+  log(f"[poly] table2, best normalised perf/area / energy per PE type "
+      f"({time.perf_counter() - t0:.3f} s): " + "; ".join(rows)
+      + " (paper, vgg16: 5.7x/0.18x LightPE-1, 4.9x/0.20x LightPE-2)")
+
+  cfgs = []
+  for i, t in enumerate(PAPER_PE_TYPES):
+    cfgs += sess.space.sample_type(t, POLY_SPEEDUP_PER_TYPE, seed=31 + i)
+  t0 = time.perf_counter()
+  speedup = sess.evaluate(cfgs, layers, "resnet20")
+  t_model = (time.perf_counter() - t0) / len(cfgs)
+  _check_frame("[poly] speedup_dse", speedup, len(cfgs))
+  t0 = time.perf_counter()
+  OracleBackend().evaluate(cfgs[:POLY_ORACLE_DESIGNS], layers, "resnet20")
+  t_oracle = (time.perf_counter() - t0) / POLY_ORACLE_DESIGNS
+  log(f"[poly] speedup_dse resnet20: model {t_model * 1e6:.2f} us/design "
+      f"over {len(cfgs)} designs on the card, scalar oracle "
+      f"{t_oracle * 1e6:.2f} us/design over {POLY_ORACLE_DESIGNS} on the "
+      f"host: model/oracle speedup {t_oracle / t_model:.2f}x")
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  big = sess.explore(layers, "resnet20", n_per_type=SWEEP_PER_TYPE, seed=17,
+                     vectorized=True)
+  secs = time.perf_counter() - t0
+  _check_frame("[poly] sweep", big, 4 * SWEEP_PER_TYPE)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  log(f"[poly] table sweep resnet20, {len(big)} designs (one-shot "
+      f"evaluate_table, 32,768-design chunks): {secs:.3f} s with sampling, "
+      f"{len(big) / secs:.1f} designs/s ({big.meta['eval_seconds']:.3f} s "
+      f"evaluating: {len(big) / big.meta['eval_seconds']:.1f} designs/s); "
+      f"[sweep] exact oracle in this run: {sweep.meta['rows_per_sec']:.1f} "
+      f"designs/s; peak device memory {peak:.2f} GiB; card: {smi}")
+  phase_poly_breakdown(layers, backend, big.table)
+  return {"backend": backend, "cfgs": cfgs, "speedup": speedup, "big": big}
+
+
+def phase_poly_breakdown(layers, backend, table):
+  """Where one 32,768-design chunk of the table sweep goes (INT16 rows),
+  stage by stage as ``evaluate_table`` runs them; the fixed-order latency
+  sum is also captured as one CUDA graph, whose replay is its device time
+  without the host's launches."""
+  import numpy as np
+  import torch
+  from repro_torch.core import ppa
+  from repro_torch.explore.backend import gbuf_overheads_table
+  m = backend.models["INT16"]
+  dev = backend.device
+  idx = np.flatnonzero(table.pe_type_strings() == "INT16")[:32768]
+  lf = np.asarray([l.features() for l in layers], np.float64)
+  rows = []
+  stage = lambda name, fn: timed_stage(rows, name, fn)
+  for _ in range(2):  # the first pass warms caches; report the second
+    rows.clear()
+    sub = stage("host: select the chunk", lambda: table.select(idx))
+    x = stage("latency rows to the card", lambda: torch.cat([
+        torch.as_tensor(sub.latency_hw_features(), device=dev)
+        .repeat_interleave(len(lf), dim=0),
+        torch.as_tensor(lf, device=dev).repeat(len(sub), 1)], dim=1))
+    phi = stage("latency features (603 monomials)", lambda: (
+        ppa.poly_features_t(x, m.latency.exponents, torch.as_tensor(
+            m.latency.col_scale, device=dev))))
+    coef = torch.as_tensor(m.latency.coef, device=dev)
+    raw = stage("latency fixed-order sum", lambda: ppa.poly_sum(phi, coef))
+    stage("latency: raw to host, exp, network sum", lambda: np.maximum(
+        m.latency.finish(raw.cpu().numpy()), 1e-12).reshape(
+            len(sub), len(lf)).sum(axis=1))
+    stage("gbuf overheads (host batch_inputs + card)",
+          lambda: gbuf_overheads_table(sub, dev))
+    stage("power + area models", lambda: (m.predict_power_mw(sub, dev),
+                                          m.predict_area_mm2(sub, dev)))
+  total = sum(e for _, _, e in rows)
+  for name, host_ms, event_ms in rows:
+    log(f"[poly-breakdown] {name}: host {host_ms:.3f} ms, events "
+        f"{event_ms:.3f} ms ({event_ms / total:.1%})")
+  graph, captured = capture(lambda: ppa.poly_sum(phi, coef))
+  graph_ms = replay_ms(graph, samples=10)
+  if not torch.equal(captured, raw):
+    raise AssertionError("graph replay changed the latency sums")
+  eager_ms = next(e for n, _, e in rows if n == "latency fixed-order sum")
+  log(f"[poly-breakdown] {len(idx)} designs x {len(lf)} layers = "
+      f"{phi.shape[1]:,} latency rows, {phi.shape[0]} monomials: "
+      f"{total:.3f} ms for the chunk; the fixed-order sum as one CUDA graph "
+      f"replay {graph_ms:.3f} ms (eager {eager_ms:.3f} ms: the card busy "
+      f"{graph_ms / eager_ms:.1%} of it)")
+
+
+def phase_poly_parity(layers, poly):
+  """The card's polynomial predictions against the same code on the CPU:
+  speedup_dse's designs (list path) and the first rows of the 1M table
+  sweep (table path) must be bit-equal, with equal 2-D fronts and the
+  same best-INT16 design."""
+  import numpy as np
+  from repro_torch.explore import PolynomialBackend
+  cpu = PolynomialBackend(poly["backend"].models, device="cpu")
+  t0 = time.perf_counter()
+  table = poly["big"].table.select(slice(0, POLY_PARITY_ROWS))
+  pairs = {"speedup_dse list": (poly["speedup"],
+                                cpu.evaluate(poly["cfgs"], layers,
+                                             "resnet20")),
+           f"first {POLY_PARITY_ROWS:,} sweep rows, table": (
+               poly["big"].select(np.arange(POLY_PARITY_ROWS)),
+               cpu.evaluate_table(table, layers, "resnet20"))}
+  for name, (gpu, host) in pairs.items():
+    if not _frames_equal(gpu, host):
+      raise AssertionError(f"[poly-parity] {name}: card and CPU differ")
+    fronts = [np.flatnonzero(f.pareto()) for f in (gpu, host)]
+    if not np.array_equal(*fronts):
+      raise AssertionError(f"[poly-parity] {name}: 2-D fronts differ")
+    has_int16 = bool(gpu.by_type("INT16").any())
+    if has_int16 and gpu.reference_index() != host.reference_index():
+      raise AssertionError(f"[poly-parity] {name}: best-INT16 differs")
+    log(f"[poly-parity] {name} ({len(gpu)} designs, "
+        f"{', '.join(sorted(set(gpu.pe_type.tolist())))}): lat/pwr/area "
+        f"bit-equal card vs CPU, 2-D front equal ({fronts[0].size} rows)"
+        + (f", best-INT16 row {gpu.reference_index()} equal"
+           if has_int16 else ""))
+  log(f"[poly-parity] {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1321,6 +1515,9 @@ def main() -> int:
   sweep, launches = phase_sweep(layers)
   phase_breakdown(layers)
   phase_parity(layers, sweep)
+  poly = phase_poly(layers, sweep, smi)
+  phase_poly_parity(layers, poly)
+  del poly
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()

@@ -1,18 +1,25 @@
-"""Row-stationary (RS) dataflow model, batched over design points in torch.
+"""Row-stationary (RS) dataflow model: the scalar model per design point
+on the host, and its batch twin over design points in torch.
 
-The port of ``repro.core.dataflow``'s batch path: a ``rows x cols`` PE
-grid running row-stationary dataflow (Chen et al., ISCA'16), per-PE
-scratchpads, a global buffer and DRAM behind a finite-bandwidth link.
-Hardware columns arrive as float64 tensors on one device, layer
-features as Python floats; the formulas below repeat the reference's
-elementwise operations one for one, in the same order, so every output
-is bit-identical to the numpy path.  Divisions go through
-:mod:`repro_torch.core.exact` (see there for why).
+The port of ``repro.core.dataflow``: a ``rows x cols`` PE grid running
+row-stationary dataflow (Chen et al., ISCA'16), per-PE scratchpads, a
+global buffer and DRAM behind a finite-bandwidth link.
+
+:func:`simulate_layer`, :func:`layer_energy_pj` and
+:func:`simulate_network` are host Python, op for op the reference's
+scalar model: the polynomial models' training sets come from them.  In
+the batch path (``*_batch``) hardware columns arrive as float64 tensors
+on one device, layer features as Python floats; its formulas repeat the
+reference's elementwise operations one for one, in the same order, so
+every output is bit-identical to the reference's numpy batch path.
+Divisions there go through :mod:`repro_torch.core.exact` (see there for
+why).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -61,6 +68,11 @@ class ConvLayer:
     e = self.out_dim
     return e * e * self.F
 
+  def features(self) -> Tuple[float, ...]:
+    """The layer-side features of the paper's 12-dim latency vector."""
+    return (float(self.A), float(self.C), float(self.F), float(self.K),
+            float(self.S), float(self.P), float(self.rs), float(self.ds))
+
 
 @dataclasses.dataclass(frozen=True)
 class AcceleratorConfig:
@@ -81,6 +93,157 @@ class AcceleratorConfig:
   @property
   def pe(self) -> pe_lib.PEType:
     return pe_lib.pe_type(self.pe_type)
+
+  def hw_features(self) -> Tuple[float, ...]:
+    return (float(self.sp_if), float(self.sp_ps), float(self.sp_fw),
+            float(self.n_pe))
+
+  def latency_hw_features(self) -> Tuple[float, ...]:
+    return (float(self.sp_if), float(self.sp_ps), float(self.sp_fw),
+            float(self.pe_rows), float(self.pe_cols), float(self.gbuf_kb))
+
+
+@dataclasses.dataclass
+class LayerStats:
+  """Per-layer dataflow simulation output."""
+  cycles: float
+  compute_cycles: float
+  dram_stall_cycles: float
+  utilization: float
+  macs: int
+  # access counts (words) per memory level
+  spad_reads: float
+  spad_writes: float
+  gbuf_reads: float
+  gbuf_writes: float
+  dram_reads: float
+  dram_writes: float
+
+
+def simulate_layer(cfg: AcceleratorConfig, layer: ConvLayer,
+                   clock_mhz: float) -> LayerStats:
+  """Cycle-approximate RS dataflow simulation of one layer."""
+  pe = cfg.pe
+  E = max(layer.out_dim, 1)
+  K, C, F = layer.K, layer.C, layer.F
+
+  # ---- spatial mapping -------------------------------------------------
+  # columns host output rows (E), rows host filter rows (K)
+  col_folds = math.ceil(E / cfg.pe_cols)
+  cols_used = min(E, cfg.pe_cols)
+  k_rows = min(K, cfg.pe_rows)
+  row_folds = math.ceil(K / cfg.pe_rows)
+  # leftover row capacity replicates additional (channel, filter) tiles
+  sets_per_col = max(cfg.pe_rows // k_rows, 1) if row_folds == 1 else 1
+  spatial_util = (k_rows * sets_per_col * cols_used) / cfg.n_pe
+  if row_folds > 1:
+    spatial_util = (cfg.pe_rows * cols_used) / cfg.n_pe
+
+  # ---- scratchpad-bounded tiling ----------------------------------------
+  f_tile = max(1, min(F, cfg.sp_ps))
+  # filter spad holds K * C_tile * F_tile weights (one filter row per pass)
+  c_tile = max(1, min(C, cfg.sp_fw // max(K * f_tile, 1)))
+  # ifmap spad needs a K-deep sliding window per channel in flight
+  c_tile = max(1, min(c_tile, max(cfg.sp_if // max(K, 1), 1) * sets_per_col))
+  n_c_passes = math.ceil(C / c_tile)
+  n_f_passes = math.ceil(F / f_tile)
+  # replication across spare row capacity processes extra channel tiles
+  n_c_passes_eff = math.ceil(n_c_passes / sets_per_col)
+  passes = n_c_passes_eff * n_f_passes * col_folds * row_folds
+
+  # ---- compute cycles ----------------------------------------------------
+  # per pass, each active PE performs E * K * c_tile * f_tile MACs, 1
+  # MAC/cycle; pipeline fill ~ K + cols_used
+  per_pass = E * K * c_tile * f_tile + (K + cols_used)
+  compute_cycles = passes * per_pass
+  ideal_cycles = layer.macs / cfg.n_pe
+  compute_cycles = max(compute_cycles, ideal_cycles)
+  utilization = min(1.0, ideal_cycles / max(compute_cycles, 1.0)) \
+      * min(1.0, spatial_util + 1e-9)
+
+  # ---- access counts -----------------------------------------------------
+  macs = layer.macs
+  # every MAC reads act + weight from its spads; the running psum lives in
+  # an accumulator register and spills to the psum spad once per K MACs
+  spad_reads = (2.0 + 1.0 / max(K, 1)) * macs
+  spad_writes = macs / max(K, 1)
+  # ifmap: DRAM -> gbuf once if it fits, else per filter-pass; gbuf ->
+  # array once per filter pass (row-stationary reuses within a pass)
+  ifmap_words = layer.ifmap_count
+  gbuf_bits = cfg.gbuf_kb * 1024 * 8
+  ifmap_fits = ifmap_words * pe.act_bits <= 0.5 * gbuf_bits
+  dram_if = ifmap_words * (1 if ifmap_fits else n_f_passes)
+  gbuf_if_reads = ifmap_words * n_f_passes * row_folds
+  # weights: streamed from DRAM once per E-fold when they do not fit
+  weight_words = layer.weight_count
+  weights_fit = weight_words * pe.weight_bits <= 0.25 * gbuf_bits
+  dram_w = weight_words * (1 if weights_fit else col_folds)
+  gbuf_w_reads = weight_words * col_folds
+  # psums: spill/refill between channel tiles
+  of_words = layer.ofmap_count
+  psum_spills = max(n_c_passes_eff - 1, 0)
+  dram_of = of_words  # final writeback
+  gbuf_reads = gbuf_if_reads + gbuf_w_reads + of_words * psum_spills
+  gbuf_writes = of_words * (psum_spills + 1.0)
+  dram_reads = dram_if + dram_w
+  dram_writes = float(dram_of)
+
+  # ---- bandwidth bound ---------------------------------------------------
+  cycle_s = 1e-6 / clock_mhz
+  dram_bits = (dram_if * pe.act_bits + dram_w * pe.weight_bits
+               + dram_of * pe.psum_bits)
+  dram_time_s = dram_bits / 8.0 / (cfg.bandwidth_gbps * 1e9)
+  dram_cycles = dram_time_s / cycle_s
+  # compute/communication overlap: stalls only for the non-overlapped excess
+  dram_stall = max(0.0, dram_cycles - 0.85 * compute_cycles)
+  cycles = compute_cycles + dram_stall
+
+  return LayerStats(
+      cycles=cycles, compute_cycles=compute_cycles,
+      dram_stall_cycles=dram_stall, utilization=utilization, macs=macs,
+      spad_reads=spad_reads, spad_writes=spad_writes,
+      gbuf_reads=gbuf_reads, gbuf_writes=gbuf_writes,
+      dram_reads=float(dram_reads), dram_writes=dram_writes)
+
+
+def layer_energy_pj(cfg: AcceleratorConfig, layer: ConvLayer,
+                    stats: LayerStats, clock_mhz: float,
+                    leakage_mw: float) -> float:
+  """Eyeriss-style hierarchical energy model (pJ) for one layer."""
+  pe = cfg.pe
+  e = pe_lib.ENERGY_PJ
+  mac_e = stats.macs * pe.mac_energy_pj
+  # two operand reads + one psum read per K MACs; psum-wide writes
+  k = max(layer.K, 1)
+  spad_read_bits = stats.macs * (pe.act_bits + pe.weight_bits
+                                 + pe.psum_bits / k)
+  spad_write_bits = stats.spad_writes * pe.psum_bits
+  spad_e = (spad_read_bits + spad_write_bits) * e["spad_access_per_bit"]
+  gbuf_bits = (stats.gbuf_reads + stats.gbuf_writes) * (
+      (pe.act_bits + pe.weight_bits + pe.psum_bits) / 3.0)
+  gbuf_e = gbuf_bits * e["gbuf_access_per_bit"]
+  dram_bits = (stats.dram_reads * (pe.act_bits + pe.weight_bits) / 2.0
+               + stats.dram_writes * pe.psum_bits)
+  dram_e = dram_bits * e["dram_access_per_bit"]
+  time_s = stats.cycles / (clock_mhz * 1e6)
+  leak_e = leakage_mw * 1e-3 * time_s * 1e12  # mW * s -> pJ
+  return mac_e + spad_e + gbuf_e + dram_e + leak_e
+
+
+def simulate_network(cfg: AcceleratorConfig, layers: Sequence[ConvLayer],
+                     clock_mhz: float, leakage_mw: float
+                     ) -> Tuple[float, float, List[LayerStats]]:
+  """Returns (total_latency_s, total_energy_mj, per-layer stats)."""
+  total_cycles = 0.0
+  total_energy_pj = 0.0
+  all_stats: List[LayerStats] = []
+  for layer in layers:
+    st = simulate_layer(cfg, layer, clock_mhz)
+    total_cycles += st.cycles
+    total_energy_pj += layer_energy_pj(cfg, layer, st, clock_mhz, leakage_mw)
+    all_stats.append(st)
+  latency_s = total_cycles / (clock_mhz * 1e6)
+  return latency_s, total_energy_pj * 1e-9, all_stats  # pJ -> mJ
 
 
 @dataclasses.dataclass

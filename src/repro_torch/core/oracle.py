@@ -1,6 +1,14 @@
-"""Synthesis oracle, batched: exact float64 PPA for a whole ConfigTable.
+"""Synthesis oracle: exact float64 PPA per design point and per table.
 
-The port of ``repro.core.oracle``'s batch path.  The work splits in two:
+The port of ``repro.core.oracle``, in two forms.
+
+The scalar oracle (:func:`characterize` and the per-target functions
+:func:`clock_mhz` ... :func:`power_mw`) is host Python, op for op the
+reference's, so its outputs are bit-equal to it.  It is the slow,
+exact path the paper's polynomial models are fitted on and replace
+(:mod:`repro_torch.core.ppa`), and the baseline of the speedup claim.
+
+The batch oracle evaluates a whole ConfigTable.  Its work splits in two:
 
   host   :func:`batch_inputs` builds every column the formulas read, in
          numpy: the knobs, the per-row PE constants, the uint64 layout
@@ -14,28 +22,40 @@ The port of ``repro.core.oracle``'s batch path.  The work splits in two:
          columns live, op for op as the reference writes them, with
          every division through :mod:`repro_torch.core.exact`.
 
-The result is bit-identical to ``repro.core.oracle.characterize_batch``
-on the numpy path.
+The batch result is bit-identical to ``repro.core.oracle.
+characterize_batch`` on the numpy path; like the reference's, it agrees
+with the scalar oracle within about 1e-9, not bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
-from typing import Dict, Sequence, Tuple
+import math
+import struct
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import pe as pe_lib
-from repro_torch.core.dataflow import ConvLayer, simulate_network_batch
+from repro_torch.core.dataflow import (AcceleratorConfig, ConvLayer,
+                                       layer_energy_pj, simulate_layer,
+                                       simulate_network,
+                                       simulate_network_batch)
 from repro_torch.core.exact import div
 
+# Characterization-model version (the reference's): part of a fitted
+# polynomial model's cache key, so a cache fitted against other oracle
+# outputs refits.  v2: the column-hashed variation below.
+ORACLE_VERSION = 2
+
+# FIFO depth per the Eyeriss-style template (4 FIFOs per PE, Fig. 3).
 FIFO_DEPTH = 4
-FLOP_BIT_UM2 = 2.0
-NOC_GATES_PER_PE = 300
-PSUM_AMORTIZE = 3.0
-ARRAY_CTRL_GATES = 12_000
+FLOP_BIT_UM2 = 2.0          # latch-based FIFO storage cell
+NOC_GATES_PER_PE = 300      # X-bus router slice + links at 21-bit mean width
+PSUM_AMORTIZE = 3.0         # psum spad is touched once per K MACs
+ARRAY_CTRL_GATES = 12_000   # top-level controller, address generators
 
 # the scratchpads and the global buffer, each with the column holding its
 # depth in words: ("sp_if", ...) for the PE scratchpads
@@ -43,14 +63,208 @@ SPADS = (("sp_if", "act_bits"), ("sp_fw", "weight_bits"),
          ("sp_ps", "psum_bits"))
 
 
-# ---------------------------------------------------------------------------
-# host half: variation hashes + transcendental columns (numpy)
-# ---------------------------------------------------------------------------
+_MASK64 = (1 << 64) - 1
+
 
 @functools.lru_cache(maxsize=None)
 def _name_const(name: str) -> int:
   """Stable 64-bit constant for a salt / PE-type name (one-time hash)."""
   return int.from_bytes(hashlib.sha256(name.encode()).digest()[:8], "little")
+
+
+# ---------------------------------------------------------------------------
+# scalar oracle (host Python, one design point per call)
+# ---------------------------------------------------------------------------
+# Layout variation hashes the design point's key columns: salt and PE-type
+# names enter as one-time SHA-256 constants, then each knob is chained
+# through a splitmix64 finalizer.  The same mixer runs on Python ints here
+# and on uint64 columns in :func:`_variation_batch`.
+
+def _mix64(z: int) -> int:
+  """splitmix64 finalizer on a Python int (mod 2^64)."""
+  z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+  z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+  return z ^ (z >> 31)
+
+
+def _variation_key_ints(cfg: AcceleratorConfig) -> Tuple[int, ...]:
+  return (_name_const(cfg.pe_type), cfg.pe_rows, cfg.pe_cols, cfg.sp_if,
+          cfg.sp_fw, cfg.sp_ps, cfg.gbuf_kb,
+          int.from_bytes(struct.pack("<d", float(cfg.bandwidth_gbps)),
+                         "little"))
+
+
+def _variation(cfg: AcceleratorConfig, salt: str, pct: float) -> float:
+  """Deterministic pseudo-random multiplier in [1-pct, 1+pct]."""
+  h = _name_const(salt)
+  for v in _variation_key_ints(cfg):
+    h = _mix64(h ^ v)
+  u = (h / 2**64) * 2.0 - 1.0
+  return 1.0 + pct * u
+
+
+def _sram_area_um2(bits: float, words: float = 64.0) -> float:
+  """CACTI-flavoured small-SRAM area: cells + sqrt-periphery + decoder
+  steps (ceil(log2 words) levels) + fixed."""
+  if bits <= 0:
+    return 0.0
+  decoder = 6.0 * pe_lib.decoder_levels(words) * math.sqrt(max(bits, 1.0)) \
+      / 8.0
+  return bits * pe_lib.SRAM_BIT_UM2 + 3.0 * math.sqrt(bits) + decoder + 15.0
+
+
+def clock_mhz(cfg: AcceleratorConfig) -> float:
+  """Post-synthesis clock estimate: arithmetic critical path + a control
+  and wire term that grows with the array size and scratchpad depth."""
+  pe = cfg.pe
+  ctrl_ns = 0.028 * math.log2(max(cfg.n_pe, 2)) \
+      + 0.006 * math.log2(max(cfg.sp_fw + cfg.sp_if + cfg.sp_ps, 2))
+  period_ns = pe.critical_path_ns + ctrl_ns
+  period_ns *= _variation(cfg, "clk", 0.004)
+  return 1000.0 / period_ns
+
+
+def pe_area_um2(cfg: AcceleratorConfig) -> float:
+  """One PE: arithmetic + 3 scratchpads + 4 FIFOs + local control."""
+  pe = cfg.pe
+  arith = pe.arith_gates * pe_lib.GATE_AREA_UM2
+  spad = (_sram_area_um2(cfg.sp_if * pe.act_bits, cfg.sp_if)
+          + _sram_area_um2(cfg.sp_fw * pe.weight_bits, cfg.sp_fw)
+          + _sram_area_um2(cfg.sp_ps * pe.psum_bits, cfg.sp_ps))
+  fifo_bits = FIFO_DEPTH * (2 * pe.act_bits + pe.weight_bits + pe.psum_bits)
+  fifo = fifo_bits * FLOP_BIT_UM2
+  ctrl = 0.04 * (arith + spad) + 220 * pe_lib.GATE_AREA_UM2
+  return arith + spad + fifo + ctrl
+
+
+def array_area_mm2(cfg: AcceleratorConfig) -> float:
+  """PE-array subsystem (array + NoC + control, excluding the global
+  buffer): the polynomial area model's target."""
+  pe = cfg.pe
+  pe_area = pe_area_um2(cfg) * cfg.n_pe
+  word = (pe.act_bits + pe.weight_bits + pe.psum_bits) / 3.0
+  noc = NOC_GATES_PER_PE * (word / 21.0) * cfg.n_pe * pe_lib.GATE_AREA_UM2
+  top = ARRAY_CTRL_GATES * pe_lib.GATE_AREA_UM2
+  # routing congestion: the placer needs slack area ~ 1/(1 - congestion)
+  congestion = 0.30 * (cfg.n_pe / 1024.0) ** 0.7
+  route = 1.0 / (1.0 - min(congestion, 0.45))
+  um2 = (pe_area + noc + top) * route * _variation(cfg, "area", 0.005)
+  return um2 * 1e-6
+
+
+def gbuf_area_mm2(cfg: AcceleratorConfig) -> float:
+  """Global-buffer SRAM macro area (closed form, banking overhead incl.)."""
+  return _sram_area_um2(cfg.gbuf_kb * 1024 * 8, cfg.gbuf_kb * 512) \
+      * 1.15 * 1e-6
+
+
+def area_mm2(cfg: AcceleratorConfig) -> float:
+  """Full accelerator: PE array subsystem + global buffer macro."""
+  return array_area_mm2(cfg) + gbuf_area_mm2(cfg)
+
+
+def leakage_mw(cfg: AcceleratorConfig) -> float:
+  """Array static power ~ gate-area equivalent (gbuf leakage lives in
+  :func:`gbuf_power_mw`)."""
+  pe = cfg.pe
+  word = (pe.act_bits + pe.weight_bits + pe.psum_bits) / 3.0
+  logic_um2 = (pe.arith_gates + NOC_GATES_PER_PE * word / 21.0) \
+      * pe_lib.GATE_AREA_UM2 * cfg.n_pe \
+      + ARRAY_CTRL_GATES * pe_lib.GATE_AREA_UM2
+  sram_bits = cfg.n_pe * (cfg.sp_if * pe.act_bits + cfg.sp_fw * pe.weight_bits
+                          + cfg.sp_ps * pe.psum_bits)
+  leak = (logic_um2 / pe_lib.GATE_AREA_UM2) * pe_lib.GATE_LEAKAGE_UW \
+      + sram_bits * 0.00035
+  return leak * 1e-3  # uW -> mW
+
+
+def array_power_mw(cfg: AcceleratorConfig) -> float:
+  """PE-array characterization power (DC default activity), excluding the
+  global buffer: the polynomial power model's target."""
+  pe = cfg.pe
+  f_hz = clock_mhz(cfg) * 1e6
+  e = pe_lib.ENERGY_PJ
+  spad_pj = e["spad_access_per_bit"] * (
+      pe.act_bits * pe_lib.sram_access_scale(cfg.sp_if)
+      + pe.weight_bits * pe_lib.sram_access_scale(cfg.sp_fw)
+      + (2.0 / PSUM_AMORTIZE) * pe.psum_bits
+      * pe_lib.sram_access_scale(cfg.sp_ps))
+  per_pe_pj = (pe.mac_energy_pj + spad_pj
+               + FIFO_DEPTH * 0.25 * e["fifo_access_per_bit"])
+  activity = 0.62  # DC default toggling assumption
+  dyn_pe_mw = cfg.n_pe * per_pe_pj * activity * f_hz * 1e-9
+  gbuf_word_bits = (pe.act_bits + pe.weight_bits + pe.psum_bits) / 3.0
+  noc_mw = cfg.n_pe * 0.004 * (f_hz * 1e-9) * gbuf_word_bits
+  dyn = dyn_pe_mw + noc_mw
+  # self-heating feedback: leakage rises with power density
+  density = dyn / max(array_area_mm2(cfg), 1e-6)  # mW / mm^2
+  leak = leakage_mw(cfg) * (1.0 + 0.9 * density / (density + 40.0))
+  return dyn * _variation(cfg, "pwr", 0.005) + leak
+
+
+def gbuf_power_mw(cfg: AcceleratorConfig) -> float:
+  """Global-buffer macro power: ports scale with the array edge
+  (~sqrt(#PE)); per-bit energy scales with capacity; plus SRAM leakage."""
+  pe = cfg.pe
+  f_hz = clock_mhz(cfg) * 1e6
+  e = pe_lib.ENERGY_PJ
+  gbuf_word_bits = (pe.act_bits + pe.weight_bits + pe.psum_bits) / 3.0
+  gbuf_pj_bit = e["gbuf_access_per_bit"] * pe_lib.sram_access_scale(
+      cfg.gbuf_kb * 16.0)
+  dyn = math.sqrt(cfg.n_pe) * gbuf_word_bits * gbuf_pj_bit * 0.62 \
+      * f_hz * 1e-9
+  leak = cfg.gbuf_kb * 8192 * 0.00035 * 1e-3
+  return dyn + leak
+
+
+def power_mw(cfg: AcceleratorConfig) -> float:
+  """Full accelerator characterization power."""
+  return array_power_mw(cfg) + gbuf_power_mw(cfg)
+
+
+@dataclasses.dataclass
+class Characterization:
+  """Everything the paper extracts from DC + VCS for one design point."""
+  clock_mhz: float
+  area_mm2: float
+  power_mw: float
+  latency_s: float
+  energy_mj: float
+  per_layer_cycles: List[float]
+  per_layer_energy_mj: List[float]
+  utilization: float
+
+
+def characterize(cfg: AcceleratorConfig,
+                 layers: Sequence[ConvLayer]) -> Characterization:
+  """Synthesize + simulate one (hardware, network) pair: the slow path
+  the polynomial models are trained on and replace."""
+  clk = clock_mhz(cfg)
+  leak = leakage_mw(cfg)
+  latency_s, energy_mj, stats = simulate_network(cfg, layers, clk, leak)
+  per_cyc = [s.cycles for s in stats]
+  per_e = [layer_energy_pj(cfg, l, s, clk, leak) * 1e-9
+           for l, s in zip(layers, stats)]
+  util = (sum(s.utilization * s.cycles for s in stats)
+          / max(sum(per_cyc), 1e-12))
+  return Characterization(
+      clock_mhz=clk, area_mm2=area_mm2(cfg), power_mw=power_mw(cfg),
+      latency_s=latency_s, energy_mj=energy_mj,
+      per_layer_cycles=per_cyc, per_layer_energy_mj=per_e,
+      utilization=util)
+
+
+def characterize_layer_latency(cfg: AcceleratorConfig, layer: ConvLayer
+                               ) -> float:
+  """Ground-truth single-layer latency in seconds (latency-model target)."""
+  clk = clock_mhz(cfg)
+  st = simulate_layer(cfg, layer, clk)
+  return st.cycles / (clk * 1e6)
+
+
+# ---------------------------------------------------------------------------
+# host half: variation hashes + transcendental columns (numpy)
+# ---------------------------------------------------------------------------
 
 
 def _mix64_batch(z: np.ndarray) -> np.ndarray:
@@ -127,8 +341,8 @@ def _sram_access_scale(c, name: str) -> torch.Tensor:
   return 0.47 + 0.45 * c[f"acc_sqrt_{name}"] + 0.022 * c[f"dec_{name}"]
 
 
-def _sram_area_um2(bits: torch.Tensor, dec: torch.Tensor,
-                   bits_sqrt: torch.Tensor) -> torch.Tensor:
+def _sram_area_cols(bits: torch.Tensor, dec: torch.Tensor,
+                    bits_sqrt: torch.Tensor) -> torch.Tensor:
   decoder = div(6.0 * dec * bits_sqrt, 8.0)
   area = bits * pe_lib.SRAM_BIT_UM2 + 3.0 * bits_sqrt + decoder + 15.0
   return torch.where(bits <= 0, 0.0, area)
@@ -148,8 +362,8 @@ def _pe_area_cols(c) -> torch.Tensor:
   arith = c["arith_gates"] * pe_lib.GATE_AREA_UM2
   spad = None
   for sp, bits_col in SPADS:
-    a = _sram_area_um2(c[sp] * c[bits_col], c[f"dec_{sp}"],
-                       c[f"bits_sqrt_{sp}"])
+    a = _sram_area_cols(c[sp] * c[bits_col], c[f"dec_{sp}"],
+                        c[f"bits_sqrt_{sp}"])
     spad = a if spad is None else spad + a
   fifo_bits = FIFO_DEPTH * (2 * c["act_bits"] + c["weight_bits"]
                             + c["psum_bits"])
@@ -169,8 +383,8 @@ def _array_area_cols(c) -> torch.Tensor:
 
 
 def _gbuf_area_cols(c) -> torch.Tensor:
-  return _sram_area_um2(c["gbuf_kb"] * 1024 * 8, c["dec_gbuf_area"],
-                        c["bits_sqrt_gbuf"]) * 1.15 * 1e-6
+  return _sram_area_cols(c["gbuf_kb"] * 1024 * 8, c["dec_gbuf_area"],
+                         c["bits_sqrt_gbuf"]) * 1.15 * 1e-6
 
 
 def _leakage_cols(c) -> torch.Tensor:

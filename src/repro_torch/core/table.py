@@ -86,6 +86,21 @@ class ConfigTable:
       cols[field] = self.pe_const(field)
     return cols
 
+  def hw_features(self) -> np.ndarray:
+    """(N, 4) power/area feature matrix: SP_if, SP_ps, SP_fw, #PE."""
+    return np.stack([
+        self.sp_if.astype(np.float64), self.sp_ps.astype(np.float64),
+        self.sp_fw.astype(np.float64), self.n_pe.astype(np.float64)], axis=1)
+
+  def latency_hw_features(self) -> np.ndarray:
+    """(N, 6) latency hardware features: SP_if, SP_ps, SP_fw, rows, cols,
+    GBS."""
+    return np.stack([
+        self.sp_if.astype(np.float64), self.sp_ps.astype(np.float64),
+        self.sp_fw.astype(np.float64), self.pe_rows.astype(np.float64),
+        self.pe_cols.astype(np.float64), self.gbuf_kb.astype(np.float64)],
+        axis=1)
+
   @classmethod
   def from_columns(cls, pe_type: Sequence[str],
                    columns: Mapping[str, np.ndarray]) -> "ConfigTable":
@@ -151,6 +166,13 @@ class ConfigTable:
     return cls(pe_code=codes, pe_type_names=tuple(vocab),
                **{name: np.concatenate([getattr(t, name) for t in tables])
                   for name in COLUMNS})
+
+  def groups_by_type(self) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield (pe_type_name, row-index array) for each type present."""
+    for code, name in enumerate(self.pe_type_names):
+      idx = np.flatnonzero(self.pe_code == code)
+      if idx.size:
+        yield name, idx
 
   def __repr__(self) -> str:
     return (f"ConfigTable({len(self)} rows, "

@@ -1,9 +1,11 @@
 """DNN workload definitions for QUIDAM's DSE (copy of
 ``repro.core.workloads``): the paper's evaluation networks — VGG-16,
 ResNet-20/34/50/56 on CIFAR (32x32) and ImageNet (224x224) — as
-row-stationary workload layer lists."""
+row-stationary workload layer lists, and transformer GEMMs as 1x1-conv
+workload layers."""
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 from repro_torch.core.dataflow import ConvLayer
@@ -109,6 +111,36 @@ def resnet20(input_dim: int = 32) -> List[ConvLayer]:
 
 def resnet56(input_dim: int = 32) -> List[ConvLayer]:
   return resnet_cifar(56, input_dim)
+
+
+# ---------------------------------------------------------------------------
+# transformer bridge: matmul -> 1x1 conv workload
+# ---------------------------------------------------------------------------
+
+def matmul_layer(name: str, tokens: int, d_in: int, d_out: int) -> ConvLayer:
+  """A (tokens, d_in) @ (d_in, d_out) GEMM as a 1x1 conv over sqrt(tokens)^2
+  positions (RS dataflow treats output positions uniformly)."""
+  a = max(int(math.ceil(math.sqrt(tokens))), 1)
+  return ConvLayer(name, A=a, C=d_in, F=d_out, K=1, S=1, P=0)
+
+
+def lm_block_workload(name: str, tokens: int, d_model: int, n_heads: int,
+                      n_kv: int, head_dim: int, d_ff: int,
+                      gated: bool = True, n_experts_active: int = 1
+                      ) -> List[ConvLayer]:
+  """One transformer block's GEMMs as workload layers (per token batch)."""
+  layers = [
+      matmul_layer(f"{name}.q", tokens, d_model, n_heads * head_dim),
+      matmul_layer(f"{name}.kv", tokens, d_model, 2 * n_kv * head_dim),
+      matmul_layer(f"{name}.o", tokens, n_heads * head_dim, d_model),
+  ]
+  ff_mats = 3 if gated else 2
+  for i in range(ff_mats):
+    d_in = d_model if i < ff_mats - 1 else d_ff
+    d_out = d_ff if i < ff_mats - 1 else d_model
+    layers.append(matmul_layer(f"{name}.ffn{i}",
+                               tokens * n_experts_active, d_in, d_out))
+  return layers
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,31 @@
-"""The exploration API of the port: design space, torch backend, fused
-device sweep, streaming reducers and the session facade."""
-from repro_torch.explore.backend import TorchOracleBackend
-from repro_torch.explore.frame import ResultFrame, pareto_mask
+"""The exploration API of the port: design space, backends (the scalar
+oracle, the exact oracle on a torch device, the polynomial PPA models),
+fused device sweep, streaming reducers, the columnar result frame with
+its best-INT16 normalization, and the session facade."""
+from repro_torch.core.table import ConfigTable
+from repro_torch.explore.backend import (OracleBackend, PolynomialBackend,
+                                         TorchOracleBackend, gbuf_overheads,
+                                         gbuf_overheads_table)
+from repro_torch.explore.frame import (DesignPoint, Normalized, ResultFrame,
+                                       pareto_mask, stable_topk_indices,
+                                       summary_stats)
 from repro_torch.explore.session import ExplorationSession
-from repro_torch.explore.space import DesignSpace
-from repro_torch.explore.streaming import (HistogramAccumulator,
-                                           ParetoAccumulator,
+from repro_torch.explore.space import (AXIS_ORDER, Axis, DesignSpace,
+                                       VectorConstraint, vector_constraint)
+from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
+                                           CollectAccumulator,
+                                           HistogramAccumulator,
+                                           ParetoAccumulator, Reducer,
                                            StatsAccumulator, StreamResult,
                                            TopKAccumulator, run_stream,
                                            stream_explore)
 
-__all__ = ["DesignSpace", "ExplorationSession", "HistogramAccumulator",
-           "ParetoAccumulator", "ResultFrame", "StatsAccumulator",
+__all__ = ["AXIS_ORDER", "Axis", "CollectAccumulator", "ConfigTable",
+           "DesignPoint", "DesignSpace", "ExplorationSession",
+           "HistogramAccumulator", "Normalized", "OracleBackend",
+           "ParetoAccumulator", "PolynomialBackend", "Reducer",
+           "ResultFrame", "STREAM_AUTO_MIN_ROWS", "StatsAccumulator",
            "StreamResult", "TopKAccumulator", "TorchOracleBackend",
-           "pareto_mask", "run_stream", "stream_explore"]
+           "VectorConstraint", "gbuf_overheads", "gbuf_overheads_table",
+           "pareto_mask", "run_stream", "stable_topk_indices",
+           "stream_explore", "summary_stats", "vector_constraint"]

@@ -3,12 +3,14 @@
 
 A :class:`ResultFrame` holds latency / power / area / pe_type as parallel
 numpy arrays; ``pareto_mask`` and ``stable_topk_indices`` are the exact
-host selections the streaming reducers merge chunks with.
+host selections the streaming reducers merge chunks with, and
+``normalize(ref="best-int16")`` the paper's normalization of every
+figure to the best INT16 design.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -23,6 +25,40 @@ DERIVED_COLUMNS = ("perf", "perf_per_area", "energy_mj")
 
 # derived columns where "bigger is better" (auto-negated inside pareto())
 _MAXIMIZE_COLUMNS = frozenset({"perf", "perf_per_area"})
+
+# normalization-anchor aliases: metric name -> (column, maximize)
+_REF_ALIASES = {
+    "perf_per_area": ("perf_per_area", True),
+    "perf": ("perf", True),
+    "energy": ("energy_mj", False),
+    "energy_mj": ("energy_mj", False),
+    "area": ("area_mm2", False),
+    "area_mm2": ("area_mm2", False),
+    "latency": ("latency_s", False),
+    "latency_s": ("latency_s", False),
+}
+
+
+@dataclasses.dataclass
+class DesignPoint:
+  """One evaluated (hardware config, network) pair (row view of a frame)."""
+  cfg: AcceleratorConfig
+  network: str
+  latency_s: float
+  power_mw: float
+  area_mm2: float
+
+  @property
+  def perf(self) -> float:
+    return 1.0 / max(self.latency_s, 1e-12)
+
+  @property
+  def perf_per_area(self) -> float:
+    return self.perf / max(self.area_mm2, 1e-12)
+
+  @property
+  def energy_mj(self) -> float:
+    return self.power_mw * self.latency_s  # mW * s = mJ
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +168,31 @@ def pareto_mask(objectives: np.ndarray) -> np.ndarray:
   return _pareto_mask_nd(obj)
 
 
+def summary_stats(values: np.ndarray) -> Dict[str, float]:
+  """Fig. 9 violin summary: min / q1 / median / q3 / max / mean (NaN for
+  every statistic of an empty input)."""
+  v = np.asarray(values, np.float64)
+  if v.size == 0:
+    return {k: float("nan")
+            for k in ("min", "q1", "median", "q3", "max", "mean")}
+  return {
+      "min": float(v.min()), "q1": float(np.percentile(v, 25)),
+      "median": float(np.median(v)), "q3": float(np.percentile(v, 75)),
+      "max": float(v.max()), "mean": float(v.mean()),
+  }
+
+
+@dataclasses.dataclass
+class Normalized:
+  """Metrics normalized against a reference design (paper's best-INT16)."""
+  perf_per_area: np.ndarray
+  energy: np.ndarray
+  ref_index: Optional[int] = None
+
+  def __iter__(self) -> Iterator[np.ndarray]:  # (ppa, energy) unpacking
+    return iter((self.perf_per_area, self.energy))
+
+
 # ---------------------------------------------------------------------------
 # the frame
 # ---------------------------------------------------------------------------
@@ -189,6 +250,31 @@ class ResultFrame:
     raise KeyError(f"unknown column {name!r}; have base={BASE_COLUMNS}, "
                    f"derived={DERIVED_COLUMNS}")
 
+  def by_type(self, pe_type: str) -> np.ndarray:
+    return self.pe_type == pe_type
+
+  @classmethod
+  def from_points(cls, points: Sequence[DesignPoint],
+                  network: Optional[str] = None) -> "ResultFrame":
+    pts = list(points)
+    return cls(
+        latency_s=np.asarray([p.latency_s for p in pts], np.float64),
+        power_mw=np.asarray([p.power_mw for p in pts], np.float64),
+        area_mm2=np.asarray([p.area_mm2 for p in pts], np.float64),
+        pe_type=np.asarray([p.cfg.pe_type for p in pts]),
+        cfgs=tuple(p.cfg for p in pts),
+        network=network if network is not None
+        else (pts[0].network if pts else "net"))
+
+  def to_points(self) -> List[DesignPoint]:
+    if not self.cfgs and self.table is not None:
+      cfgs = self.table.to_configs()
+    else:
+      cfgs = self.cfgs
+    return [DesignPoint(cfg, self.network, float(l), float(p), float(a))
+            for cfg, l, p, a in zip(cfgs, self.latency_s,
+                                    self.power_mw, self.area_mm2)]
+
   def config_at(self, i: int) -> AcceleratorConfig:
     """The i-th design point, from ``cfgs`` or the columnar ``table``."""
     if self.cfgs:
@@ -233,6 +319,54 @@ class ResultFrame:
     obj = np.stack([-self.column(c) if c in mx else self.column(c)
                     for c in cols], axis=1)
     return pareto_mask(obj)
+
+  def reference_index(self, metric: str = "perf_per_area",
+                      pe_type: Optional[str] = "INT16") -> int:
+    """Row index of the paper's normalization anchor: the best design under
+    `metric` among `pe_type` rows (None = whole frame)."""
+    if metric not in _REF_ALIASES:
+      raise ValueError(f"unknown reference metric {metric!r}; "
+                       f"one of {sorted(_REF_ALIASES)}")
+    col, maximize = _REF_ALIASES[metric]
+    if pe_type is None:
+      rows = np.arange(len(self))
+    else:
+      rows = np.flatnonzero(self.pe_type == pe_type)
+      if rows.size == 0:
+        raise ValueError(
+            f"design space contains no {pe_type} points to normalize by")
+    vals = self.column(col)[rows]
+    local = int(np.argmax(vals)) if maximize else int(np.argmin(vals))
+    return int(rows[local])
+
+  def normalize(self, ref: Union[str, int, Tuple[float, float]]
+                = "best-int16") -> Normalized:
+    """(normalized perf/area, normalized energy).
+
+    ref: "best-int16" (paper default: best-perf/area INT16 design), a row
+    index, or an explicit (perf_per_area_ref, energy_mj_ref) pair.
+    """
+    ref_index: Optional[int] = None
+    if isinstance(ref, str):
+      if ref != "best-int16":
+        raise ValueError(f"unknown normalization reference {ref!r}")
+      ref_index = self.reference_index("perf_per_area", "INT16")
+    elif isinstance(ref, (int, np.integer)):
+      ref_index = int(ref)
+    if ref_index is not None:
+      ppa_ref = float(self.perf_per_area[ref_index])
+      en_ref = float(self.energy_mj[ref_index])
+    else:
+      ppa_ref, en_ref = float(ref[0]), float(ref[1])
+    return Normalized(self.perf_per_area / ppa_ref,
+                      self.energy_mj / en_ref, ref_index)
+
+  def stats(self, col: str, mask: Optional[np.ndarray] = None
+            ) -> Dict[str, float]:
+    vals = self.column(col)
+    if mask is not None:
+      vals = vals[mask]
+    return summary_stats(vals)
 
   def top_k(self, k: int, by: str = "perf_per_area",
             maximize: Optional[bool] = None) -> "ResultFrame":

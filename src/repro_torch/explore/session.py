@@ -1,54 +1,119 @@
 """ExplorationSession: the facade over the plain design-space sweep (the
-port of ``repro.explore.session``'s ``explore``).
+port of ``repro.explore.session``'s ``evaluate`` and ``explore``).
 
-``explore(..., stream=False)`` samples a ConfigTable and evaluates it in
-one shot into a full ResultFrame; ``stream=True`` runs the
-constant-memory streaming engine and returns a StreamResult of reducer
-outputs, with the evaluate+reduce pipeline fused on the device whenever
-every reducer allows it.
+A session binds a backend (how points are scored) to a
+:class:`DesignSpace` (which points exist).  ``explore`` picks between two
+sampling materializations: the per-point config list, and the columnar
+:class:`ConfigTable` for backends that prefer it (``prefers_table``).
+``stream=True`` runs the constant-memory streaming engine and returns a
+StreamResult of reducer outputs; with ``vectorized="auto"``, a one-shot
+sweep of ``STREAM_AUTO_MIN_ROWS`` rows or more on a table backend also
+goes through the engine, with a CollectAccumulator: the identical full
+frame comes out.
 """
 from __future__ import annotations
 
 import time
 from typing import Dict, Optional, Sequence, Union
 
-from repro_torch.core.dataflow import ConvLayer
+from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer
+from repro_torch.explore.backend import OracleBackend
 from repro_torch.explore.frame import ResultFrame
 from repro_torch.explore.space import DesignSpace
-from repro_torch.explore.streaming import (Reducer, StreamResult,
-                                           stream_explore)
+from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
+                                           CollectAccumulator, Reducer,
+                                           StreamResult, stream_explore)
 
 
 class ExplorationSession:
-  """Binds a backend (how points are scored) to a design space."""
+  """Binds a backend (how points are scored) to a design space (default:
+  the paper's space over the backend's PE types, where it names any)."""
 
   def __init__(self, backend, space: Optional[DesignSpace] = None):
     self.backend = backend
-    self.space = DesignSpace() if space is None else space
+    if space is None:
+      pe_types = getattr(backend, "pe_types", None)
+      space = DesignSpace(pe_types=pe_types) if pe_types else DesignSpace()
+    self.space = space
+
+  def evaluate(self, cfgs: Sequence[AcceleratorConfig],
+               layers: Sequence[ConvLayer],
+               network: str = "net") -> ResultFrame:
+    """Score explicit configs through the session's backend."""
+    return self.backend.evaluate(cfgs, layers, network)
 
   def explore(self, layers: Sequence[ConvLayer], network: str,
               n_per_type: int = 200, seed: int = 17,
-              method: str = "random", stream: bool = False,
+              method: str = "random", measure_oracle: int = 0,
+              vectorized: Union[bool, str] = "auto", stream: bool = False,
               reducers: Optional[Dict[str, Reducer]] = None,
               chunk_size: int = 65536) -> Union[ResultFrame, StreamResult]:
-    """Sample the space and evaluate ``network``.
+    """Sample the space and evaluate ``network``; optionally time the
+    scalar oracle on the first ``measure_oracle`` configs for the paper's
+    speedup claim.
 
-    stream=False: one-shot full frame (``frame.meta`` carries
-    eval_seconds and eval_us_per_design).  stream=True: the streaming
-    engine over ``reducers`` (default: the paper's perf/area vs energy
-    front) in chunks of ``chunk_size`` rows.
+    vectorized: "auto" samples a ConfigTable when the backend advertises
+    ``prefers_table``; True forces the table path for any backend with
+    ``evaluate_table``; False keeps the per-point config list.
+
+    stream=True runs the streaming engine over ``reducers`` (default: the
+    paper's perf/area vs energy front) in chunks of ``chunk_size`` rows.
+
+    frame.meta carries eval_seconds, eval_us_per_design and, when
+    measured, oracle_seconds_per_design and speedup.
     """
     if reducers is not None and not stream:
       raise ValueError("reducers only apply to the streaming engine; "
                        "pass stream=True")
     if stream:
+      if measure_oracle:
+        raise ValueError("measure_oracle is a one-shot feature; "
+                         "pass stream=False")
       return stream_explore(self.backend, self.space, layers, network,
                             n_per_type=n_per_type, seed=seed, method=method,
                             reducers=reducers, chunk_size=chunk_size)
-    table = self.space.sample_table(n_per_type, seed=seed, method=method)
+    if vectorized == "auto":
+      use_table = bool(getattr(self.backend, "prefers_table", False))
+    else:
+      use_table = bool(vectorized)
+    if use_table and not hasattr(self.backend, "evaluate_table"):
+      raise ValueError(f"backend {self.backend.name!r} has no "
+                       "evaluate_table; pass vectorized=False")
+    if (use_table and vectorized == "auto" and not measure_oracle
+        and n_per_type * len(self.space.pe_types) >= STREAM_AUTO_MIN_ROWS):
+      return self._explore_streamed_frame(layers, network, n_per_type, seed,
+                                          method, chunk_size)
+    if use_table:
+      cfgs = self.space.sample_table(n_per_type, seed=seed, method=method)
+    else:
+      cfgs = self.space.sample(n_per_type, seed=seed, method=method)
     t0 = time.perf_counter()
-    frame = self.backend.evaluate(table, layers, network)
+    frame = self.backend.evaluate(cfgs, layers, network)
     t_eval = time.perf_counter() - t0
+    n = max(len(frame), 1)
     frame.meta["eval_seconds"] = t_eval
-    frame.meta["eval_us_per_design"] = t_eval / max(len(frame), 1) * 1e6
+    frame.meta["eval_us_per_design"] = t_eval / n * 1e6
+    if measure_oracle:
+      k = min(measure_oracle, len(cfgs))
+      sample = cfgs.select(slice(0, k)).to_configs() \
+          if use_table else cfgs[:k]
+      t1 = time.perf_counter()
+      OracleBackend().evaluate(sample, layers, network)
+      per_design = (time.perf_counter() - t1) / max(k, 1)
+      frame.meta["oracle_seconds_per_design"] = per_design
+      frame.meta["speedup"] = per_design / max(t_eval / n, 1e-12)
+    return frame
+
+  def _explore_streamed_frame(self, layers, network, n_per_type, seed,
+                              method, chunk_size) -> ResultFrame:
+    """The auto above-threshold path: chunked evaluation through the
+    engine, identical full frame out (CollectAccumulator)."""
+    res = stream_explore(self.backend, self.space, layers, network,
+                         n_per_type=n_per_type, seed=seed, method=method,
+                         reducers={"frame": CollectAccumulator()},
+                         chunk_size=chunk_size)
+    frame = res["frame"]
+    frame.meta["streamed"] = 1.0
+    frame.meta["eval_seconds"] = res.seconds
+    frame.meta["eval_us_per_design"] = res.seconds / max(len(frame), 1) * 1e6
     return frame

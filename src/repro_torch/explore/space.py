@@ -1,9 +1,10 @@
-"""Declarative design-space specification + deterministic columnar sampling
-(host numpy copy of ``repro.explore.space``'s table samplers).
+"""Declarative design-space specification + deterministic sampling (host
+numpy copy of ``repro.explore.space``).
 
 A :class:`DesignSpace` is one :class:`Axis` per hardware knob (defaults
 from ``HW_RANGES``, Sec. 3.3), a set of PE types and optional constraint
-predicates.  ``sample_table`` and its lazy twin ``iter_tables`` draw the
+predicates.  The list samplers (``sample`` / ``sample_type``: per-point
+configs), ``sample_table`` and its lazy twin ``iter_tables`` draw the
 same design points, bit for bit, as the reference for the same seed and
 method (``random`` / ``grid`` / ``stratified``): the seeded numpy
 ``RandomState`` streams are the determinism contract.
@@ -44,6 +45,17 @@ class VectorConstraint:
     return bool(self._scalar(cfg))
 
 
+def vector_constraint(scalar: Constraint,
+                      mask: Callable[[ConfigTable], np.ndarray]
+                      ) -> VectorConstraint:
+  """Pair a scalar predicate with its vectorized table mask, e.g.::
+
+      vector_constraint(lambda c: c.n_pe <= 256,
+                        lambda t: t.n_pe <= 256)
+  """
+  return VectorConstraint(scalar, mask)
+
+
 @dataclasses.dataclass(frozen=True)
 class Axis:
   """One discrete hardware knob: a name and its allowed values."""
@@ -76,19 +88,106 @@ class DesignSpace:
         for name in AXIS_ORDER)
     self.constraints = tuple(constraints)
 
+  def axis(self, name: str) -> Axis:
+    for a in self.axes:
+      if a.name == name:
+        return a
+    raise KeyError(name)
+
   def size(self) -> int:
     """Cardinality of the unconstrained space (all PE types)."""
-    return math.prod(len(a.values) for a in self.axes) * len(self.pe_types)
+    return self.per_type_grid_size() * len(self.pe_types)
+
+  def per_type_grid_size(self) -> int:
+    """Cardinality of one PE type's unconstrained axis grid."""
+    return math.prod(len(a.values) for a in self.axes)
 
   def __repr__(self) -> str:
     dims = "x".join(str(len(a.values)) for a in self.axes)
     return (f"DesignSpace({len(self.pe_types)} PE types x {dims} grid, "
             f"{len(self.constraints)} constraints, size={self.size():,})")
 
+  # -- subgrid diffing -------------------------------------------------------
+
+  def with_axes(self, **overrides) -> "DesignSpace":
+    """A copy of this space with the given axes' value tuples replaced
+    (PE types and constraints carried over)."""
+    axes = {a.name: a.values for a in self.axes}
+    axes.update({name: tuple(vals) for name, vals in overrides.items()})
+    return DesignSpace(self.pe_types, axes, self.constraints)
+
+  def axis_delta(self, base) -> Optional[Tuple[str, Tuple[float, ...]]]:
+    """The single-axis edit turning ``base`` into this space, if any.
+
+    Returns ``(axis_name, added_values)`` when exactly one axis differs
+    and the base axis' values appear in this axis' values in the same
+    relative order (an in-order supersequence), which keeps the
+    :meth:`grid_rank` remap of base points strictly monotone.  ``base``
+    may be another DesignSpace or a ``{axis: values}`` mapping.  None when
+    the spaces are identical, differ on more than one axis, drop values,
+    or break the order condition.
+    """
+    if isinstance(base, DesignSpace):
+      if (self.pe_types != base.pe_types
+          or len(self.constraints) != len(base.constraints)):
+        return None
+      base_axes = {a.name: a.values for a in base.axes}
+    else:
+      base_axes = {name: tuple(vals) for name, vals in dict(base).items()}
+      if set(base_axes) != {a.name for a in self.axes}:
+        return None
+    diff: Optional[Tuple[str, Tuple[float, ...]]] = None
+    for a in self.axes:
+      bv = base_axes[a.name]
+      if tuple(a.values) == bv:
+        continue
+      if diff is not None:
+        return None  # more than one axis edited
+      it = iter(a.values)
+      if not all(any(v == w for w in it) for v in bv):
+        return None  # a base value was dropped or reordered
+      base_set = set(bv)
+      added = tuple(v for v in a.values if v not in base_set)
+      if len(added) + len(bv) != len(a.values):
+        return None  # duplicated values
+      diff = (a.name, added)
+    return diff
+
+  def grid_rank(self, table: ConfigTable) -> np.ndarray:
+    """Canonical global row ids: each row's mixed-radix rank in this
+    space's full-grid enumeration (PE-type-major, axes in AXIS_ORDER with
+    the last axis fastest — the ``method="grid"`` visit order), a pure
+    function of the row's values."""
+    try:
+      code_to_type = np.asarray(
+          [self.pe_types.index(nm) for nm in table.pe_type_names], np.int64)
+    except ValueError:
+      raise ValueError("table contains PE types outside this space")
+    rank = code_to_type[np.asarray(table.pe_code, np.int64)]
+    for a in self.axes:
+      vals = np.asarray(a.values)
+      col = np.asarray(getattr(table, a.name))
+      order = np.argsort(vals, kind="stable")
+      pos = np.clip(np.searchsorted(vals[order], col), 0, len(vals) - 1)
+      ai = order[pos]
+      if not np.array_equal(vals[ai], col.astype(vals.dtype)):
+        raise ValueError(f"axis {a.name!r}: table values outside this space")
+      rank = rank * len(vals) + ai
+    return rank.astype(np.int64)
+
   # -- construction helpers ------------------------------------------------
 
-  def _table_mask(self, table: ConfigTable) -> np.ndarray:
-    """Constraint mask over a candidate table."""
+  def _make(self, pe_type: str, values: Dict[str, float]) -> AcceleratorConfig:
+    kw = {name: (float(v) if name == "bandwidth_gbps" else int(v))
+          for name, v in values.items()}
+    return AcceleratorConfig(pe_type=pe_type, **kw)
+
+  def _passes(self, cfg: AcceleratorConfig) -> bool:
+    return all(c(cfg) for c in self.constraints)
+
+  def table_mask(self, table: ConfigTable) -> np.ndarray:
+    """Constraint mask over a candidate table.  VectorConstraints filter
+    whole columns; plain predicates fall back to row-by-row configs."""
     mask = np.ones(len(table), np.bool_)
     for c in self.constraints:
       if hasattr(c, "mask"):
@@ -111,7 +210,84 @@ class DesignSpace:
     return self._make_table(
         pe_type, {a.name: np.asarray(a.values)[:0] for a in self.axes})
 
-  # -- sampling ------------------------------------------------------------
+  # -- list sampling (per-point configs) ------------------------------------
+
+  def sample_type(self, pe_type: str, n: int, seed: int = 0,
+                  method: str = "random") -> List[AcceleratorConfig]:
+    """n deterministic configs of one PE type (may return fewer than n for
+    grid/stratified when constraints filter points)."""
+    if pe_type not in self.pe_types:
+      raise ValueError(f"{pe_type!r} not in this space's {self.pe_types}")
+    if method == "random":
+      return self._sample_random(pe_type, n, seed)
+    if method == "grid":
+      return self._sample_grid(pe_type, n)
+    if method == "stratified":
+      return self._sample_stratified(pe_type, n, seed)
+    raise ValueError(f"unknown sampling method {method!r}; "
+                     f"one of {_METHODS}")
+
+  def sample(self, n_per_type: int, seed: int = 0, method: str = "random"
+             ) -> List[AcceleratorConfig]:
+    """n_per_type configs for every PE type (per-type seeds
+    ``seed + 100*i``)."""
+    out: List[AcceleratorConfig] = []
+    for i, t in enumerate(self.pe_types):
+      out.extend(self.sample_type(t, n_per_type, seed=seed + 100 * i,
+                                  method=method))
+    return out
+
+  def _sample_random(self, pe_type: str, n: int, seed: int
+                     ) -> List[AcceleratorConfig]:
+    rng = np.random.RandomState(seed)
+    out: List[AcceleratorConfig] = []
+    tries = 0
+    max_tries = max(1000 * n, 1000)
+    while len(out) < n:
+      if tries >= max_tries:
+        raise ValueError(
+            f"constraints rejected {tries} straight samples; the "
+            f"constrained space is (nearly) empty for {pe_type}")
+      cfg = self._make(pe_type,
+                       {a.name: rng.choice(a.values) for a in self.axes})
+      tries += 1
+      if self._passes(cfg):
+        out.append(cfg)
+    return out
+
+  def _sample_grid(self, pe_type: str, n: int) -> List[AcceleratorConfig]:
+    sizes = [len(a.values) for a in self.axes]
+    total = math.prod(sizes)
+    if n >= total:
+      flat = np.arange(total, dtype=np.int64)
+    else:
+      flat = np.unique(np.linspace(0, total - 1, n).astype(np.int64))
+    out = []
+    for idx in flat:
+      values = {}
+      for a, size in zip(reversed(self.axes), reversed(sizes)):
+        values[a.name] = a.values[int(idx % size)]
+        idx //= size
+      cfg = self._make(pe_type, values)
+      if self._passes(cfg):
+        out.append(cfg)
+    return out
+
+  def _sample_stratified(self, pe_type: str, n: int, seed: int
+                         ) -> List[AcceleratorConfig]:
+    rng = np.random.RandomState(seed)
+    cols: Dict[str, np.ndarray] = {}
+    for a in self.axes:  # AXIS_ORDER: fixed RNG consumption order
+      bins = (np.arange(n) * len(a.values)) // n  # even per-value coverage
+      cols[a.name] = np.asarray(a.values)[bins][rng.permutation(n)]
+    out = []
+    for i in range(n):
+      cfg = self._make(pe_type, {name: cols[name][i] for name in cols})
+      if self._passes(cfg):
+        out.append(cfg)
+    return out
+
+  # -- columnar sampling -----------------------------------------------------
 
   def sample_type_table(self, pe_type: str, n: int, seed: int = 0,
                         method: str = "random") -> ConfigTable:
@@ -184,7 +360,7 @@ class DesignSpace:
           for a, rng in zip(self.axes, rngs)}
       drawn += batch
       cand = self._make_table(pe_type, cols)
-      mask = self._table_mask(cand)
+      mask = self.table_mask(cand)
       kept = cand if mask.all() else cand.select(mask)
       if len(kept) > n - have:
         kept = kept.select(slice(0, n - have))
@@ -229,7 +405,7 @@ class DesignSpace:
         cols[a.name] = np.asarray(a.values)[idx % size]
         idx //= size
       table = self._make_table(pe_type, cols)
-      table = table.select(self._table_mask(table))
+      table = table.select(self.table_mask(table))
       if len(table):
         yield table
 
@@ -245,6 +421,6 @@ class DesignSpace:
       table = self._make_table(
           pe_type, {a.name: np.asarray(a.values)[idx_cols[a.name][sl]]
                     for a in self.axes})
-      table = table.select(self._table_mask(table))
+      table = table.select(self.table_mask(table))
       if len(table):
         yield table

@@ -27,6 +27,10 @@ from repro_torch.explore.space import DesignSpace
 # dispatched while the device still runs chunk n
 DISPATCH_AHEAD = 2
 
+# explore(vectorized="auto") switches to the streaming engine
+# (CollectAccumulator: identical full frame out) at this many rows
+STREAM_AUTO_MIN_ROWS = 1_000_000
+
 
 def _empty_frame() -> ResultFrame:
   z = np.zeros(0)
@@ -256,6 +260,31 @@ class HistogramAccumulator(Reducer):
     return {"counts": self.counts.copy(), "edges": self.edges.copy()}
 
 
+class CollectAccumulator(Reducer):
+  """Keeps every chunk and reassembles the full frame in global row
+  order — NOT constant-memory.  This is how ``vectorized="auto"`` runs
+  big sweeps through the engine while keeping the one-shot return type
+  bit-exactly."""
+
+  def __init__(self):
+    self._frames = []
+    self._idx = []
+
+  def fold(self, frame: ResultFrame, indices: np.ndarray) -> None:
+    if not len(frame):
+      return
+    self._frames.append(frame)
+    self._idx.append(np.asarray(indices, np.int64))
+
+  def result(self) -> ResultFrame:
+    if not self._frames:
+      return _empty_frame()
+    big = self._frames[0] if len(self._frames) == 1 \
+        else ResultFrame.concat(self._frames)
+    idx = np.concatenate(self._idx)
+    return big.select(np.argsort(idx, kind="stable"))
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -356,11 +385,19 @@ def default_explore_reducers() -> Dict[str, Reducer]:
 def explore_tasks(backend, space: DesignSpace, layers, network: str,
                   n_per_type: int, seed: int, method: str, chunk_size: int,
                   reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
-  """The chunk tasks of a plain streamed sweep.  Each carries the
-  backend's device rungs only: ``fused-device`` when every reducer is
-  fusable, then ``device`` (there is no host rung to degrade to)."""
-  from repro_torch.explore.device import build_plan
-  plan = build_plan(reducers)
+  """The chunk tasks of a plain streamed sweep.  Each carries the rungs
+  its backend offers, best first: ``fused-device`` (a backend with
+  ``fused_eval_pending``, when every reducer is fusable), then ``device``
+  (one with ``eval_pending``); any other backend evaluates each chunk
+  with its ``evaluate_table``."""
+  if not hasattr(backend, "evaluate_table"):
+    raise ValueError(f"backend {backend.name!r} has no evaluate_table; "
+                     "streaming requires the columnar path")
+  plan = None
+  if hasattr(backend, "fused_eval_pending"):
+    from repro_torch.explore.device import build_plan
+    plan = build_plan(reducers)
+  device_mode = hasattr(backend, "eval_pending")
   layers = tuple(layers)
 
   def make_task(chunk, idx, ci) -> ChunkTask:
@@ -371,9 +408,16 @@ def explore_tasks(backend, space: DesignSpace, layers, network: str,
           lambda: backend.fused_eval_pending(chunk, layers, network, plan,
                                              idx),
           layer="device"))
-    rungs.append(Rung(
-        "device", lambda: backend.eval_pending(chunk, layers, network, idx),
-        layer="device"))
+    if device_mode:
+      rungs.append(Rung(
+          "device",
+          lambda: backend.eval_pending(chunk, layers, network, idx),
+          layer="device"))
+    else:
+      rungs.append(Rung(
+          "evaluate_table",
+          lambda: (backend.evaluate_table(chunk, layers, network), idx),
+          layer="backend"))
     return ChunkTask(index=ci, rungs=tuple(rungs))
 
   def gen() -> Iterator[ChunkTask]:

@@ -1,6 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-torch version, and the device sweep, the serving engine (qwen3-0.6b and
-rwkv6-1.6b) and the deploy codecs against the same code on the CPU.
+torch version, and the device sweep, the polynomial PPA models, the
+serving engine (qwen3-0.6b and rwkv6-1.6b) and the deploy codecs against
+the same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -16,9 +17,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.workloads import get_network
 from repro_torch.explore import (DesignSpace, HistogramAccumulator,
-                                 ParetoAccumulator, StatsAccumulator,
-                                 TopKAccumulator, TorchOracleBackend,
-                                 stream_explore)
+                                 ParetoAccumulator, PolynomialBackend,
+                                 StatsAccumulator, TopKAccumulator,
+                                 TorchOracleBackend, stream_explore)
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -663,3 +664,62 @@ def test_codec_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     p2_kernel.pow2_matmul(xf, codes, ones, 3)
   with pytest.raises(ValueError, match="x:"):
     p2_kernel.pow2_matmul(xf.half(), codes, ones, 1)
+
+
+# ---------------------------------------------------------------------------
+# the polynomial PPA models: the card's fixed-order sums equal the CPU's
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def poly_models():
+  """The paper's fit (degree 5, 240 designs a type, resnet20 + vgg16):
+  126-monomial power and area models, 603-monomial latency models."""
+  layers = get_network("resnet20") + get_network("vgg16")
+  return PolynomialBackend.fit(layers=layers, degree=5, n_train=240,
+                               device="cpu").models
+
+
+def _poly_pair(models, cuda):
+  return (PolynomialBackend(models, device=cuda),
+          PolynomialBackend(models, device="cpu"))
+
+
+@pytest.mark.parametrize("pe_type", ["FP32", "INT16", "LightPE-1",
+                                     "LightPE-2"])
+def test_poly_backend_on_the_card_equals_the_cpu(cuda, poly_models, pe_type):
+  gpu, cpu = _poly_pair(poly_models, cuda)
+  space = DesignSpace(pe_types=(pe_type,))
+  layers = get_network("resnet20")
+  cfgs = space.sample(300, seed=41)
+  table = space.sample_table(3000, seed=42)
+  for got, want in ((gpu.evaluate(cfgs, layers), cpu.evaluate(cfgs, layers)),
+                    (gpu.evaluate_table(table, layers),
+                     cpu.evaluate_table(table, layers))):
+    for c in METRICS:
+      np.testing.assert_array_equal(got.column(c), want.column(c), err_msg=c)
+    assert np.array_equal(np.flatnonzero(got.pareto()),
+                          np.flatnonzero(want.pareto()))
+
+
+def test_poly_table_across_the_chunk_edge(cuda, poly_models):
+  """One PE type's rows over more than one 32,768-design chunk: the card
+  equals the CPU, and the rows past the edge equal the same rows
+  evaluated alone."""
+  gpu, cpu = _poly_pair(poly_models, cuda)
+  layers = get_network("resnet20")
+  table = DesignSpace(pe_types=("INT16",)).sample_table(33200, seed=43)
+  got = gpu.evaluate_table(table, layers)
+  want = cpu.evaluate_table(table, layers)
+  tail = gpu.evaluate_table(table.select(slice(32768, None)), layers)
+  for c in METRICS:
+    np.testing.assert_array_equal(got.column(c), want.column(c), err_msg=c)
+    np.testing.assert_array_equal(got.column(c)[32768:], tail.column(c))
+  assert got.reference_index() == want.reference_index()
+
+
+def test_poly_raw_sums_on_the_card_equal_the_cpu(cuda, poly_models):
+  m = poly_models["INT16"].latency
+  x = np.random.RandomState(44).uniform(1.0, 512.0, (4099, 14))
+  got = m.raw_on(torch.from_numpy(x).to(cuda)).cpu()
+  want = m.raw_on(torch.from_numpy(x))
+  assert torch.equal(got, want)
