@@ -18,7 +18,11 @@ method follows: polynomial PPA models fitted on the host (or loaded from
 ``build/ppa_models.npz``) and evaluated on the card through
 ``PolynomialBackend`` for fig 4, Table 2, speedup_dse (against the scalar
 oracle) and a 1,000,000-design table sweep, held bit for bit against the
-same code on the CPU.  Then it serves
+same code on the CPU.  HW x NN co-exploration follows: 1,000
+architectures x 10,000 HW designs (10,000,000 pairs) streamed through
+``ExplorationSession(TorchOracleBackend()).co_explore(..., stream=True)``
+on the card, one block's stages, a smaller joint stream held against
+the CPU, and the polynomial joint path.  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
@@ -71,6 +75,25 @@ POLY_FIG_PER_TYPE = 250
 POLY_SPEEDUP_PER_TYPE = 500
 POLY_ORACLE_DESIGNS = 20
 POLY_PARITY_ROWS = 65536
+
+# co-exploration: the README's streamed HW x NN sweep, nothing cut
+# (``benchmarks/framework_perf.py``'s streaming benchmark, the record in
+# results/BENCH_streaming.json): 1,000 Table-4 architectures from
+# RandomState(0), accuracies uniform(0.5, 0.95), 2,500 HW designs a paper
+# PE type (10,000,000 pairs), seed 3, image size 16, 262,144-pair blocks;
+# its parity check (archs, HW a type, block size) on the card and the
+# CPU; the polynomial joint path (archs, HW a type) and the sub-block of
+# it that runs on the CPU too
+CO_ARCHS = 1000
+CO_HW_PER_TYPE = 2500
+CO_SEED = 3
+CO_IMAGE = 16
+CO_CHUNK = 262144
+CO_JOINT3 = ("top1_err", "energy_mj", "area_mm2")
+CO_PARITY = (100, 500, 16384)
+CO_POLY = (100, 250)
+CO_POLY_PARITY_ARCHS = 10
+CO_RECORD = ROOT / "results" / "BENCH_streaming.json"
 
 # serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
 # K5 decode shape (one slot's cache of 2,048 positions) and the traffic
@@ -351,7 +374,7 @@ def phase_breakdown(layers):
   backend = TorchOracleBackend(chunk_size=SWEEP_CHUNK)
   chunk = next(DesignSpace().iter_tables(SWEEP_PER_TYPE, seed=17,
                                          chunk_size=SWEEP_CHUNK))
-  plan = build_plan(sweep_reducers())
+  plan = build_plan(sweep_reducers(), joint=False)
   rows = []
   stage = lambda name, fn: timed_stage(rows, name, fn)
 
@@ -365,7 +388,8 @@ def phase_breakdown(layers):
         ch.latency_s[None, :], ch.power_mw[None, :], ch.area_mm2[None, :]))
     for name, spec in plan:
       one = device_lib.DevicePlan(specs=((name, spec),), cap=plan.cap)
-      stage(f"reduce {name}", lambda: device_lib._reduce_outputs(cols, one))
+      stage(f"reduce {name}", lambda: device_lib._reduce_outputs(
+          cols, one, grouped=False))
     pend = stage("fused chunk (dispatch)", lambda: backend.fused_eval_pending(
         chunk, layers, "resnet20", plan, np.arange(len(chunk))))
     fused = stage("fused chunk (resolve)", pend.resolve)
@@ -616,6 +640,304 @@ def phase_poly_parity(layers, poly):
         + (f", best-INT16 row {gpu.reference_index()} equal"
            if has_int16 else ""))
   log(f"[poly-parity] {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# co-exploration: every architecture x every HW design, streamed
+# ---------------------------------------------------------------------------
+
+def co_arch_accs(n: int):
+  """``n`` Table-4 architectures and accuracies, drawn as
+  ``benchmarks/framework_perf.py`` draws them (RandomState(0))."""
+  import numpy as np
+  from repro_torch.core.cnn import SEARCH_SPACE, ArchChoice
+  rng = np.random.RandomState(0)
+  archs = [ArchChoice(tuple((int(rng.choice(reps)), int(rng.choice(chs)))
+                            for reps, chs in SEARCH_SPACE))
+           for _ in range(n)]
+  return list(zip(archs, (float(a) for a in rng.uniform(0.5, 0.95, n))))
+
+
+def co_reducers():
+  from repro_torch.explore import ParetoAccumulator, TopKAccumulator
+  return {"pareto": ParetoAccumulator(CO_JOINT3),
+          "top": TopKAccumulator(100, by="energy_mj")}
+
+
+def phase_coexplore(smi):
+  """The co-exploration main path: 1,000 archs x 10,000 HW designs
+  through ``ExplorationSession.co_explore(stream=True)`` on the card."""
+  import numpy as np
+  import torch
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   TorchOracleBackend)
+  from repro_torch.kernels.pareto_front import kernel, ops
+  arch_accs = co_arch_accs(CO_ARCHS)
+  session = ExplorationSession(TorchOracleBackend(chunk_size=CO_CHUNK),
+                               DesignSpace())
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kernel.reset_launch_counts()
+  res = session.co_explore(arch_accs, n_hw_per_type=CO_HW_PER_TYPE,
+                           seed=CO_SEED, image_size=CO_IMAGE, stream=True,
+                           reducers=co_reducers(), chunk_size=CO_CHUNK)
+  torch.cuda.synchronize()
+  launches = dict(kernel.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  m = res.meta
+  front, top = res["pareto"], res["top"]
+  log(f"[coexplore] {res.n_rows} pairs ({CO_ARCHS} archs x "
+      f"{4 * CO_HW_PER_TYPE} HW) in {int(m['n_chunks'])} blocks, "
+      f"{m['seconds']:.3f} s: {m['rows_per_sec']:.1f} pairs/s; rows "
+      f"transferred {int(m['rows_transferred'])}, fraction "
+      f"{m['rows_transferred'] / res.n_rows:.6f}; n_overflows "
+      f"{int(m['n_overflows'])}; peak device memory {peak:.3f} GiB; "
+      f"card: {smi}")
+  front_archs = sorted(set(front.extra["arch_id"].tolist()))
+  log(f"[coexplore] joint front (top1_err, energy_mj, area_mm2) "
+      f"{len(front)} points, archs {front_archs}; "
+      f"top-{len(top)} energy {top.energy_mj[0]:.6g}.."
+      f"{top.energy_mj[-1]:.6g} mJ")
+  log(f"[coexplore] kernel launches during the sweep: {launches}")
+  if CO_RECORD.is_file():
+    ref = json.loads(CO_RECORD.read_text())
+    log(f"[coexplore] results/BENCH_streaming.json (the reference's jax "
+        f"device path on a CPU, commit {ref['provenance']['git_commit']}): "
+        f"{ref['n_pairs']} pairs, rows transferred "
+        f"{ref['device_transfer_rows']}, front {ref['pareto_front_size']} "
+        f"points, top-{ref['top_k']}; this run: {res.n_rows}, "
+        f"{int(m['rows_transferred'])}, {len(front)}, {len(top)}")
+  if res.n_rows != CO_ARCHS * 4 * CO_HW_PER_TYPE:
+    raise AssertionError(f"co-explored {res.n_rows} pairs")
+  if len(top) != 100 or not len(front):
+    raise AssertionError("empty front or short top-k")
+  for name, f in (("front", front), ("top", top)):
+    for c in ("latency_s", "power_mw", "area_mm2", "top1"):
+      v = f.column(c)
+      if not (np.isfinite(v).all() and (v > 0).all()):
+        raise AssertionError(f"{name}: {c} not finite and positive")
+  obj = torch.from_numpy(np.stack([front.column(c) for c in CO_JOINT3],
+                                  axis=1)).cuda()
+  if int(ops.dominance_counts(obj).max()) != 0:
+    raise AssertionError("K2 finds a dominated point on the joint front")
+  log(f"[coexplore] K2: all {len(front)} points of the joint front have "
+      "dominance count 0")
+  return arch_accs
+
+
+def phase_coexplore_breakdown(arch_accs):
+  """Where one 262,144-pair block goes (the first: 104 archs x 2,500
+  FP32 HW rows), each stage between two syncs, host and event ms; the
+  joint oracle is also captured as one CUDA graph."""
+  import numpy as np
+  import torch
+  from repro_torch.core import oracle
+  from repro_torch.core.dataflow import LayerStack
+  from repro_torch.core.supernet import arch_to_layers
+  from repro_torch.explore import DesignSpace, TorchOracleBackend
+  from repro_torch.explore import device as device_lib
+  from repro_torch.explore.streaming import fold_chunk, new_counters
+  backend = TorchOracleBackend(chunk_size=CO_CHUNK)
+  space = DesignSpace()
+  hw = space.sample_type_table(space.pe_types[0], CO_HW_PER_TYPE,
+                               seed=CO_SEED)
+  a_sl, h_sl = next(hw.cross(len(arch_accs)).block_slices(CO_CHUNK))
+  stack = LayerStack.from_layer_lists(
+      [arch_to_layers(a, image_size=CO_IMAGE) for a, _ in arch_accs])
+  unique_cols, slot_ids = stack.dedup_slots()
+  block = stack.slice_archs(a_sl.start, a_sl.stop)
+  sub = hw.select(h_sl)
+  accs = np.asarray([acc for _, acc in arch_accs[a_sl]], np.float64)
+  plan = device_lib.build_plan(co_reducers(), joint=True)
+  idx = np.arange(block.n_archs * len(sub))
+  rows = []
+  stage = lambda name, fn: timed_stage(rows, name, fn)
+
+  for _ in range(2):  # the first pass warms caches; report the second
+    rows.clear()
+    inputs = stage("host batch_inputs (HW rows)",
+                   lambda: oracle.batch_inputs(sub))
+    placed, (uc, sid), valid, accs_t = stage(
+        "placement (inputs, distinct layers, slots, accuracies)",
+        lambda: (backend._place(inputs),
+                 backend.place_dedup((unique_cols, slot_ids[a_sl])),
+                 device_lib.h2d(block.valid, backend.device),
+                 device_lib.h2d(accs, backend.device)))
+    ch = stage("joint oracle (distinct layers, eager)",
+               lambda: oracle.characterize_joint_dedup(placed, uc, sid,
+                                                       valid))
+    lat = ch.latency_s
+    cols = stage("derive columns", lambda: device_lib._derive_columns(
+        lat, ch.power_mw[None, :].expand(lat.shape),
+        ch.area_mm2[None, :].expand(lat.shape), accs=accs_t))
+    for name, spec in plan:
+      one = device_lib.DevicePlan(specs=((name, spec),), cap=plan.cap)
+      stage(f"fused reduction {name}", lambda: device_lib._reduce_outputs(
+          cols, one, grouped=True))
+    pend = stage("fused block (dispatch)",
+                 lambda: backend.fused_co_eval_pending(
+                     sub, block, "coexplore", plan, idx, a_sl.start, accs,
+                     tuple(a for a, _ in arch_accs),
+                     dedup=(uc, sid)))
+    fused = stage("fused block (resolve)", pend.resolve)
+    stage("host fold into the reducers", lambda: fold_chunk(
+        co_reducers(), new_counters(), fused))
+  for name, host_ms, event_ms in rows:
+    log(f"[coexplore-breakdown] {name}: host {host_ms:.3f} ms, events "
+        f"{event_ms:.3f} ms")
+  graph, captured = capture(lambda: oracle.characterize_joint_dedup(
+      placed, uc, sid, valid))
+  graph_ms = replay_ms(graph, samples=10)
+  for f in ("latency_s", "energy_mj", "utilization", "power_mw",
+            "area_mm2"):
+    if not torch.equal(getattr(captured, f), getattr(ch, f)):
+      raise AssertionError(f"graph replay changed {f}")
+  eager_ms = next(e for name, _, e in rows if name.startswith("joint oracle"))
+  log(f"[coexplore-breakdown] {block.n_archs} archs x {len(sub)} HW = "
+      f"{block.n_archs * len(sub):,} pairs; the sweep's "
+      f"{int(stack.valid.sum()):,} layer slots hold {len(unique_cols['A'])} "
+      f"distinct layers: the joint oracle "
+      f"as one CUDA graph replay {graph_ms:.3f} ms on the card (eager: "
+      f"{eager_ms:.3f} ms between events, so the card is busy "
+      f"{graph_ms / eager_ms:.1%} of that stage); fused survivors "
+      f"{fused.n_transferred} rows")
+
+
+def phase_coexplore_parity():
+  """100 archs x 2,000 HW designs through the fused joint stream on the
+  card and on the CPU: the joint oracle bit for bit, identical fronts
+  (the K1 branch among them) and top-k, K1 once per block."""
+  import numpy as np
+  import torch
+  from repro_torch.core import oracle
+  from repro_torch.core.dataflow import LayerStack
+  from repro_torch.core.supernet import arch_to_layers
+  from repro_torch.explore import (DesignSpace, HistogramAccumulator,
+                                   ParetoAccumulator, StatsAccumulator,
+                                   TopKAccumulator, TorchOracleBackend)
+  from repro_torch.explore import device as device_lib
+  from repro_torch.explore.streaming import stream_co_explore
+  from repro_torch.kernels.pareto_front import kernel
+  n_archs, n_hw, chunk = CO_PARITY
+  arch_accs = co_arch_accs(n_archs)
+  space = DesignSpace()
+  t0 = time.perf_counter()
+
+  hw = space.sample_type_table(space.pe_types[0], n_hw, seed=CO_SEED)
+  stack = LayerStack.from_layer_lists(
+      [arch_to_layers(a, image_size=CO_IMAGE) for a, _ in arch_accs])
+  joint = {}
+  for dev in ("cuda", "cpu"):
+    backend = TorchOracleBackend(device=dev)
+    uc, sid = backend.place_dedup(stack.dedup_slots())
+    joint[dev] = oracle.characterize_joint_dedup(
+        backend._place(oracle.batch_inputs(hw)), uc, sid,
+        device_lib.h2d(stack.valid, backend.device))
+  fields = ("clock_mhz", "area_mm2", "power_mw", "latency_s", "energy_mj",
+            "utilization")
+  rel = max(float((getattr(joint["cuda"], f).cpu()
+                   / getattr(joint["cpu"], f) - 1.0).abs().max())
+            for f in fields)
+  log(f"[coexplore-parity] joint oracle, {n_archs} archs x {n_hw} "
+      f"{space.pe_types[0]} HW, card vs CPU: parity_max_rel_err = {rel!r} "
+      f"over {', '.join(fields)}")
+  if rel != 0.0:
+    raise AssertionError("the joint oracle differs between cuda and cpu")
+
+  def reducers():
+    return {"pareto": ParetoAccumulator(CO_JOINT3),
+            "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
+                                          "area_mm2")),
+            "fig12": ParetoAccumulator(("top1_err", "energy_mj")),
+            "top": TopKAccumulator(100, by="energy_mj"),
+            "stats": StatsAccumulator("energy_mj"),
+            "hist": HistogramAccumulator("top1_err", 0.0, 0.5, bins=16)}
+
+  streams = {}
+  for dev in ("cuda", "cpu"):
+    kernel.reset_launch_counts()
+    streams[dev] = stream_co_explore(
+        TorchOracleBackend(device=dev), space, arch_accs,
+        n_hw_per_type=n_hw, seed=CO_SEED, image_size=CO_IMAGE,
+        reducers=reducers(), chunk_size=chunk)
+    if dev == "cuda":
+      torch.cuda.synchronize()
+      k1 = kernel.LAUNCHES["block_dominance_counts"]
+  g, c = streams["cuda"], streams["cpu"]
+  for name in ("pareto", "pareto3", "fig12", "top"):
+    same = len(g[name]) == len(c[name]) and all(
+        np.array_equal(g[name].column(col), c[name].column(col))
+        for col in ("latency_s", "power_mw", "area_mm2", "arch_id",
+                    "top1"))
+    if not same:
+      raise AssertionError(f"joint stream {name} differs card vs CPU")
+  if not np.array_equal(g["hist"]["counts"], c["hist"]["counts"]):
+    raise AssertionError("joint stream histograms differ")
+  for k, v in c["stats"].items():
+    if not abs(g["stats"][k] - v) <= 1e-12 * abs(v):
+      raise AssertionError(f"stats {k}: {g['stats'][k]!r} vs {v!r}")
+  n_chunks = int(g.meta["n_chunks"])
+  log(f"[coexplore-parity] fused joint stream, {g.n_rows} pairs in "
+      f"{n_chunks} blocks: fronts joint {len(g['pareto'])}, "
+      f"latency/energy/area {len(g['pareto3'])}, fig12 {len(g['fig12'])} "
+      f"and top-{len(g['top'])} identical card vs CPU (arch_id, top1 "
+      f"too), histogram equal, stats within 1e-12; K1 launches {k1} for "
+      f"{n_chunks} blocks; n_overflows {int(g.meta['n_overflows'])}; "
+      f"{time.perf_counter() - t0:.2f} s")
+  if k1 != n_chunks:
+    raise AssertionError(f"K1 launched {k1} times for {n_chunks} blocks")
+  return {"k1_launches": k1, "n_chunks": n_chunks}
+
+
+def phase_coexplore_poly(backend, smi):
+  """The paper's method on the joint path: the fitted models of [poly]
+  over 100 archs x 1,000 HW designs through
+  ``PolynomialBackend.co_evaluate_table`` on the card; a sub-block on the
+  CPU too, bit for bit; Fig. 12's normalisation and fronts."""
+  import numpy as np
+  from repro_torch.core import coexplore
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   PolynomialBackend)
+  n_archs, n_hw = CO_POLY
+  arch_accs = co_arch_accs(n_archs)
+  session = ExplorationSession(backend, DesignSpace())
+  t0 = time.perf_counter()
+  frame = session.co_explore(arch_accs, n_hw_per_type=n_hw, seed=CO_SEED,
+                             image_size=CO_IMAGE, vectorized=True)
+  secs = time.perf_counter() - t0
+  _check_frame("[coexplore-poly]", frame, n_archs * 4 * n_hw)
+  log(f"[coexplore-poly] {len(frame)} pairs ({n_archs} archs x {4 * n_hw} "
+      f"HW) through PolynomialBackend.co_evaluate_table on the card: "
+      f"{secs:.3f} s, {secs / len(frame) * 1e6:.2f} us/pair "
+      f"({n_archs} fixed-order latency sums a PE type); card: {smi}")
+
+  # the first PE type's HW (sampled with seed + 17 * 0, as in the sweep)
+  # against the first archs, on the CPU: the card frame's first rows
+  first_type = session.space.pe_types[0]
+  cpu = ExplorationSession(PolynomialBackend(backend.models, device="cpu"),
+                           DesignSpace(pe_types=(first_type,)))
+  want = cpu.co_explore(arch_accs[:CO_POLY_PARITY_ARCHS], n_hw_per_type=n_hw,
+                        seed=CO_SEED, image_size=CO_IMAGE, vectorized=True)
+  got = frame.select(np.arange(len(want)))
+  if not (_frames_equal(got, want) and np.array_equal(
+      got.extra["arch_id"], want.extra["arch_id"])):
+    raise AssertionError("[coexplore-poly] card and CPU differ")
+  log(f"[coexplore-poly] {len(want)} pairs ({CO_POLY_PARITY_ARCHS} archs x "
+      f"{n_hw} {first_type} HW): lat/pwr/area bit-equal card vs CPU")
+
+  points = [coexplore.CoPoint(frame.config_at(i), frame.arch_at(i),
+                              float(frame.extra["top1"][i]),
+                              float(frame.latency_s[i]),
+                              float(frame.power_mw[i]),
+                              float(frame.area_mm2[i]))
+            for i in range(len(frame))]
+  fig = coexplore.normalize_and_front(points)
+  log(f"[coexplore-poly] Fig. 12 (normalised to the min-energy and "
+      f"min-area INT16 pairs): (top1_err, energy) front "
+      f"{int(fig['front_energy'].sum())} points, (top1_err, area) front "
+      f"{int(fig['front_area'].sum())} points, energy "
+      f"{fig['energy'].min():.3f}x..{fig['energy'].max():.3f}x, area "
+      f"{fig['area'].min():.3f}x..{fig['area'].max():.3f}x")
 
 
 # ---------------------------------------------------------------------------
@@ -1517,7 +1839,12 @@ def main() -> int:
   phase_parity(layers, sweep)
   poly = phase_poly(layers, sweep, smi)
   phase_poly_parity(layers, poly)
+  poly_backend = poly["backend"]
   del poly
+  phase_coexplore_breakdown(phase_coexplore(smi))
+  co_parity = phase_coexplore_parity()
+  phase_coexplore_poly(poly_backend, smi)
+  del poly_backend
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()
@@ -1532,7 +1859,10 @@ def main() -> int:
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
       "its plain version on the card, with its launches during its path's "
       "run (K1, K2: the sweep; K5, K6: the first serve run; K7: the first "
-      "serve-rwkv run; K3, K4: the codecs run):")
+      "serve-rwkv run; K3, K4: the codecs run); on the co-exploration "
+      f"path K1 launched {co_parity['k1_launches']} times in "
+      f"[coexplore-parity] ({co_parity['n_chunks']} blocks), no kernel in "
+      "[coexplore] (its joint front projects top1_err out: a staircase):")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

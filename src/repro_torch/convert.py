@@ -1,9 +1,12 @@
 """Carry the reference's state into the port: design points, workloads,
-model parameters and packed deploy codecs; and the port's model back
-into the reference's tree layout.
+co-exploration's architectures and accuracies, model parameters and
+packed deploy codecs; and the port's model back into the reference's
+tree layout.
 
 The sweep's state is the design points (a ConfigTable's columns) and the
-workload's layers; a model's is its parameter tree.  All arrive as plain
+workload's layers; co-exploration's adds (architecture, accuracy) pairs,
+given as per-stage ``(repeats, channels)`` tuples and floats; a model's
+is its parameter tree.  All arrive as plain
 numpy arrays, tuples and dicts, so a caller holding the reference
 package's objects hands over ``{name: getattr(table, name)}``,
 ``dataclasses.astuple(layer)`` or ``jax.tree_util.tree_map(np.asarray,
@@ -13,12 +16,13 @@ layout ``quant.pack_params`` walks.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Mapping, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cnn import ArchChoice
 from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.table import COLUMNS, ConfigTable
 from repro_torch.models.common import model_dtype
@@ -44,6 +48,20 @@ def layers_from_tuples(layers: Iterable[Sequence]) -> List[ConvLayer]:
   """ConvLayers from ``(name, A, C, F, K, S, P, rs, ds)`` tuples (the
   field order of the reference's ConvLayer)."""
   return [ConvLayer(*fields) for fields in layers]
+
+
+def arch_accs_from_plain(stages_list: Iterable[Sequence[Sequence[int]]],
+                         accs: Iterable[float]
+                         ) -> List[Tuple[ArchChoice, float]]:
+  """Co-exploration's ``[(ArchChoice, accuracy)]`` from one per-stage
+  ``((repeats, channels), ...)`` tuple and one float per architecture
+  (``dataclasses.astuple(arch)[0]`` of a reference ArchChoice)."""
+  stages_list, accs = list(stages_list), list(accs)
+  if len(stages_list) != len(accs):
+    raise ValueError(f"{len(stages_list)} architectures for {len(accs)} "
+                     "accuracies")
+  return [(ArchChoice(tuple((int(r), int(c)) for r, c in stages)), float(a))
+          for stages, a in zip(stages_list, accs)]
 
 
 # (module path in the port, path in a reference block's layer, is a

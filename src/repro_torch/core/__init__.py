@@ -1,7 +1,9 @@
 """Host models of the QUIDAM accelerator: PE types, the RS dataflow
-model, the synthesis oracle (scalar and batch), the polynomial PPA
-models, workloads, the ConfigTable, and the ``dse`` compatibility
-shim."""
+model (scalar, batch and joint), the synthesis oracle (scalar, batch and
+joint), the polynomial PPA models, workloads, the ConfigTable and
+JointTable, the Table-4 search space (``cnn``) and its workload bridge
+(``supernet``), and the ``dse`` and ``coexplore`` compatibility
+shims."""
 from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer
 from repro_torch.core.pe import PAPER_PE_TYPES, PE_TYPES, pe_type
 from repro_torch.core.table import ConfigTable

@@ -14,13 +14,21 @@ reference's elementwise operations one for one, in the same order, so
 every output is bit-identical to the reference's numpy batch path.
 Divisions there go through :mod:`repro_torch.core.exact` (see there for
 why).
+
+The joint path of co-exploration runs the same formulas with layer
+features as ``(n_layers, 1)`` float64 tensors against ``(n_hw,)`` HW
+columns: :class:`LayerStack` packs every architecture's layers (host
+numpy), :meth:`LayerStack.dedup_slots` factors them into the distinct
+layer shapes, and :func:`simulate_network_stack_dedup` evaluates each
+distinct layer once and sums per (architecture, slot) in slot order.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import pe as pe_lib
@@ -246,22 +254,26 @@ def simulate_network(cfg: AcceleratorConfig, layers: Sequence[ConvLayer],
   return latency_s, total_energy_pj * 1e-9, all_stats  # pJ -> mJ
 
 
+Feature = Union[float, torch.Tensor]
+
+
 @dataclasses.dataclass
 class LayerStatsBatch:
   """Per-layer simulation output for N design points.  Fields that
-  depend on the layer alone stay Python floats; x * s and x * t with
-  ``t`` a tensor filled with ``s`` round identically, so this matches the
-  reference's broadcast arrays bit for bit."""
+  depend on the layer alone stay Python floats (``(n_layers, 1)``
+  tensors on the joint path); x * s and x * t with ``t`` a tensor filled
+  with ``s`` round identically, so this matches the reference's
+  broadcast arrays bit for bit."""
   cycles: torch.Tensor
   compute_cycles: torch.Tensor
   dram_stall_cycles: torch.Tensor
   utilization: torch.Tensor
-  macs: float
-  spad_writes: float
+  macs: Feature
+  spad_writes: Feature
   gbuf_reads: torch.Tensor
   gbuf_writes: torch.Tensor
   dram_reads: torch.Tensor
-  dram_writes: float
+  dram_writes: Feature
 
 
 def _layer_feats(layer: ConvLayer) -> Dict[str, float]:
@@ -276,13 +288,29 @@ def _layer_feats(layer: ConvLayer) -> Dict[str, float]:
   }
 
 
-def _simulate_layer_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
+def _at_least_one(x: Feature) -> Feature:
+  """``max(x, 1.0)`` of a Python float or elementwise of a tensor."""
+  return max(x, 1.0) if isinstance(x, float) else torch.clamp(x, min=1.0)
+
+
+def _quotient(a: Feature, b: Feature) -> Feature:
+  """``a / b``: Python's division of two floats, :func:`exact.div` once a
+  tensor is involved."""
+  if isinstance(a, float) and isinstance(b, float):
+    return a / b
+  return div(a, b)
+
+
+def _simulate_layer_feats(c: Dict[str, torch.Tensor],
+                          f: Dict[str, Feature],
                           clock_mhz: torch.Tensor) -> LayerStatsBatch:
-  """The batch RS-dataflow formulas over HW columns ``c`` x one layer's
-  features ``f`` (reference: ``dataflow._simulate_layer_feats``)."""
+  """The batch RS-dataflow formulas over HW columns ``c`` x layer
+  features ``f``: Python floats (one layer) or ``(n_layers, 1)`` tensors
+  broadcasting against ``(n_hw,)`` columns (reference:
+  ``dataflow._simulate_layer_feats``)."""
   pe_rows, pe_cols, n_pe = c["pe_rows"], c["pe_cols"], c["n_pe"]
   E, K, C, F = f["E"], f["K"], f["C"], f["F"]
-  k_safe = max(K, 1.0)
+  k_safe = _at_least_one(K)
 
   # ---- spatial mapping -------------------------------------------------
   col_folds = torch.ceil(div(E, pe_cols))
@@ -320,7 +348,7 @@ def _simulate_layer_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
 
   # ---- access counts -----------------------------------------------------
   macs = f["macs"]
-  spad_writes = macs / k_safe
+  spad_writes = _quotient(macs, k_safe)
   ifmap_words = f["ifmap_words"]
   gbuf_bits = c["gbuf_kb"] * 1024 * 8
   ifmap_fits = ifmap_words * c["act_bits"] <= 0.5 * gbuf_bits
@@ -353,14 +381,15 @@ def _simulate_layer_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
       gbuf_writes=gbuf_writes, dram_reads=dram_reads, dram_writes=dram_of)
 
 
-def _layer_energy_feats(c: Dict[str, torch.Tensor], f: Dict[str, float],
+def _layer_energy_feats(c: Dict[str, torch.Tensor], f: Dict[str, Feature],
                         stats: LayerStatsBatch, clock_mhz: torch.Tensor,
                         leakage_mw: torch.Tensor) -> torch.Tensor:
   """Hierarchical energy formulas (pJ per design point; reference:
-  ``dataflow._layer_energy_feats``)."""
+  ``dataflow._layer_energy_feats``), broadcasting like
+  :func:`_simulate_layer_feats`."""
   e = pe_lib.ENERGY_PJ
   mac_e = stats.macs * c["mac_energy_pj"]
-  k = max(f["K"], 1.0)
+  k = _at_least_one(f["K"])
   spad_read_bits = stats.macs * (c["act_bits"] + c["weight_bits"]
                                  + div(c["psum_bits"], k))
   spad_write_bits = stats.spad_writes * c["psum_bits"]
@@ -397,3 +426,252 @@ def simulate_network_batch(c: Dict[str, torch.Tensor],
   latency_s = div(total_cycles, clock_mhz * 1e6)
   utilization = div(util_weighted, torch.clamp(total_cycles, min=1e-12))
   return latency_s, total_energy_pj * 1e-9, utilization  # pJ -> mJ
+
+
+# ---------------------------------------------------------------------------
+# joint HW x NN batching: all architectures x all design points at once
+# ---------------------------------------------------------------------------
+
+# Padded layer slots use a benign 1x1x1 layer so every formula stays
+# finite; the validity mask zeroes their contribution before accumulation
+# (x + 0.0 == x exactly, so padding never perturbs a bit).
+_PAD_LAYER = ConvLayer("pad", A=1, C=1, F=1, K=1, S=1, P=0)
+
+# ConvLayer int fields packed into the stack, in feature order
+_STACK_FIELDS = ("A", "C", "F", "K", "S", "P", "rs", "ds")
+
+
+@dataclasses.dataclass(eq=False)
+class LayerStack:
+  """Padded per-architecture layer features: ``(n_archs, max_layers)``
+  int64 tensors per ConvLayer field plus a validity mask.
+
+  Built once per co-exploration sweep (``from_layer_lists``), on the
+  host in numpy; the derived quantities every dataflow formula needs
+  (out_dim, MAC count, tensor word counts) are precomputed as float64
+  arrays.
+  """
+  A: np.ndarray
+  C: np.ndarray
+  F: np.ndarray
+  K: np.ndarray
+  S: np.ndarray
+  P: np.ndarray
+  rs: np.ndarray
+  ds: np.ndarray
+  valid: np.ndarray
+
+  def __post_init__(self):
+    for name in _STACK_FIELDS:
+      setattr(self, name, np.asarray(getattr(self, name), np.int64))
+    self.valid = np.asarray(self.valid, np.bool_)
+    shape = self.A.shape
+    if len(shape) != 2:
+      raise ValueError(f"LayerStack fields must be 2-D, got shape {shape}")
+    for name in _STACK_FIELDS + ("valid",):
+      if getattr(self, name).shape != shape:
+        raise ValueError(f"field {name!r} has shape "
+                         f"{getattr(self, name).shape}, expected {shape}")
+    # derived float64 tensors (all integer-valued, exact in float64)
+    a, c, f, k = (x.astype(np.float64) for x in (self.A, self.C, self.F,
+                                                 self.K))
+    s, p = self.S.astype(np.float64), self.P.astype(np.float64)
+    out = np.floor((a + 2.0 * p - k) / np.maximum(s, 1.0)) + 1.0
+    self._E = np.maximum(out, 1.0)
+    self._macs = out * out * k * k * c * f
+    self._ifmap_words = a * a * c
+    self._weight_words = k * k * c * f
+    self._of_words = out * out * f
+
+  @property
+  def n_archs(self) -> int:
+    return int(self.A.shape[0])
+
+  @property
+  def max_layers(self) -> int:
+    return int(self.A.shape[1])
+
+  def n_layers(self) -> np.ndarray:
+    """Per-architecture true layer count."""
+    return self.valid.sum(axis=1)
+
+  @classmethod
+  def from_layer_lists(cls, layer_lists: Sequence[Sequence[ConvLayer]]
+                       ) -> "LayerStack":
+    """Pack one ConvLayer list per architecture, right-padded to the
+    longest network."""
+    lists = [list(ls) for ls in layer_lists]
+    n_max = max((len(ls) for ls in lists), default=0) or 1
+    padded = [ls + [_PAD_LAYER] * (n_max - len(ls)) for ls in lists]
+    cols = {name: np.asarray([[getattr(l, name) for l in ls]
+                              for ls in padded], np.int64)
+            for name in _STACK_FIELDS}
+    valid = np.asarray([[True] * len(ls) + [False] * (n_max - len(ls))
+                        for ls in lists], np.bool_)
+    return cls(valid=valid, **cols)
+
+  def slice_archs(self, lo: int, hi: int) -> "LayerStack":
+    """Arch-range sub-stack (the streaming engine's unit of work).
+
+    Row ``a`` of the slice is bit-identical to row ``lo + a`` of the full
+    stack — padding columns are preserved, so per-slot accumulation order
+    (and therefore every latency/energy sum) is unchanged.
+    """
+    sl = slice(lo, hi)
+    return LayerStack(valid=self.valid[sl],
+                      **{name: getattr(self, name)[sl]
+                         for name in _STACK_FIELDS})
+
+  def layers_of(self, arch_id: int) -> List[ConvLayer]:
+    """Materialize one architecture's ConvLayer list (scalar escape)."""
+    out = []
+    for li in range(self.max_layers):
+      if not self.valid[arch_id, li]:
+        break
+      out.append(ConvLayer(
+          f"a{arch_id}l{li}",
+          **{name: int(getattr(self, name)[arch_id, li])
+             for name in _STACK_FIELDS}))
+    return out
+
+  def features(self) -> np.ndarray:
+    """(n_archs, max_layers, 8) float64 layer-feature tensor in the
+    paper's latency-model order (== ConvLayer.features())."""
+    return np.stack([getattr(self, name).astype(np.float64)
+                     for name in _STACK_FIELDS], axis=2)
+
+  def feats_at(self, li: int) -> Dict[str, np.ndarray]:
+    """Layer slot ``li`` as ``(n_archs, 1)`` broadcastable feature
+    columns (the array twin of :func:`_layer_feats`)."""
+    sl = slice(li, li + 1)
+    return {
+        "E": self._E[:, sl], "K": self.K[:, sl].astype(np.float64),
+        "C": self.C[:, sl].astype(np.float64),
+        "F": self.F[:, sl].astype(np.float64),
+        "macs": self._macs[:, sl],
+        "ifmap_words": self._ifmap_words[:, sl],
+        "weight_words": self._weight_words[:, sl],
+        "of_words": self._of_words[:, sl],
+    }
+
+  def fingerprint(self) -> str:
+    """Content hash of the stack."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in _STACK_FIELDS + ("valid",):
+      h.update(np.ascontiguousarray(getattr(self, name)).tobytes())
+    return h.hexdigest()[:16]
+
+  def dedup_slots(self) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Distinct-layer factorization: ``(unique_cols, slot_ids)``.
+
+    Architectures drawn from one search space share most of their layers,
+    so the ``n_archs x max_layers`` slot grid typically references only a
+    few dozen *distinct* layer shapes.  ``unique_cols`` holds one
+    ``(n_distinct, 1)`` float64 column per ConvLayer field (broadcastable
+    against ``(n_hw,)`` HW columns exactly like :meth:`feats_at` rows);
+    ``slot_ids[a, li]`` maps each slot to its distinct row.  The joint
+    oracle simulates each distinct layer once per HW chunk and *gathers*
+    per slot — per-slot accumulation order is unchanged, so results stay
+    bit-identical to the slot-by-slot evaluation (see
+    :func:`simulate_network_stack_dedup`).
+    """
+    feats = np.stack([getattr(self, n).reshape(-1) for n in _STACK_FIELDS],
+                     axis=1)
+    uniq, inv = np.unique(feats, axis=0, return_inverse=True)
+    slot_ids = inv.reshape(self.A.shape).astype(np.int32)
+    cols = {n: uniq[:, i:i + 1].astype(np.float64)
+            for i, n in enumerate(_STACK_FIELDS)}
+    return cols, slot_ids
+
+  def __repr__(self) -> str:
+    return (f"LayerStack({self.n_archs} archs x <= {self.max_layers} "
+            f"layers)")
+
+
+def unique_layer_feats(cols: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+  """Derived feature columns for :meth:`LayerStack.dedup_slots` rows (as
+  ``(n_distinct, 1)`` tensors): the expressions LayerStack precomputes in
+  ``__post_init__``, products left to right, so bit-identical to its
+  :meth:`LayerStack.feats_at` values."""
+  a, c, f, k = cols["A"], cols["C"], cols["F"], cols["K"]
+  s, p = cols["S"], cols["P"]
+  out = torch.floor(div(a + 2.0 * p - k, torch.clamp(s, min=1.0))) + 1.0
+  return {"E": torch.clamp(out, min=1.0), "K": k, "C": c, "F": f,
+          "macs": out * out * k * k * c * f,
+          "ifmap_words": a * a * c,
+          "weight_words": k * k * c * f,
+          "of_words": out * out * f}
+
+
+def _accumulate_slots(clock_mhz, n_slots, slot):
+  """Sum (cycles, energy pJ, utilization x cycles) over layer slots in
+  slot order, masked where a slot is padding; ``slot(li)`` returns the
+  slot's (valid mask, cycles, energy, utilization x cycles) grids.  The
+  totals then become ``(latency_s, energy_mj, utilization)``."""
+  total_cycles = 0.0
+  total_energy_pj = 0.0
+  util_weighted = 0.0
+  for li in range(n_slots):
+    v, cyc, e_pj, util_cyc = slot(li)
+    total_cycles = total_cycles + torch.where(v, cyc, 0.0)
+    total_energy_pj = total_energy_pj + torch.where(v, e_pj, 0.0)
+    util_weighted = util_weighted + torch.where(v, util_cyc, 0.0)
+  latency_s = div(total_cycles, clock_mhz * 1e6)
+  utilization = div(util_weighted, torch.clamp(total_cycles, min=1e-12))
+  return latency_s, total_energy_pj * 1e-9, utilization  # pJ -> mJ
+
+
+def simulate_network_stack_dedup(c: Dict[str, torch.Tensor],
+                                 unique_cols: Dict[str, torch.Tensor],
+                                 slot_ids: torch.Tensor, valid: torch.Tensor,
+                                 clock_mhz: torch.Tensor,
+                                 leakage_mw: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+  """Distinct-layer twin of :func:`simulate_network_stack`: the dataflow
+  and energy formulas run once per *distinct* layer (``(n_distinct,
+  n_hw)`` grids), and each (arch, slot) gathers its distinct row, so the
+  per-slot accumulation order, and every bit, is that of the slot-by-slot
+  evaluation.
+
+  ``unique_cols`` and ``slot_ids`` (int64) come from
+  :meth:`LayerStack.dedup_slots`, ``valid`` is the stack's mask, all as
+  tensors on ``c``'s device.  Returns ``(latency_s, energy_mj,
+  utilization)`` shaped ``(n_archs, n_hw)``.
+  """
+  f = unique_layer_feats(unique_cols)
+  st = _simulate_layer_feats(c, f, clock_mhz)
+  e_pj = _layer_energy_feats(c, f, st, clock_mhz, leakage_mw)
+  cyc = st.cycles
+  util_cyc = st.utilization * cyc
+
+  def slot(li):
+    ids = slot_ids[:, li]
+    return valid[:, li:li + 1], cyc[ids], e_pj[ids], util_cyc[ids]
+
+  return _accumulate_slots(clock_mhz, slot_ids.shape[1], slot)
+
+
+def simulate_network_stack(c: Dict[str, torch.Tensor], stack: LayerStack,
+                           clock_mhz: torch.Tensor, leakage_mw: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+  """Every architecture of ``stack`` x every design point of ``c``, one
+  batched pass per layer slot.  Returns ``(latency_s, energy_mj,
+  utilization)`` shaped ``(n_archs, n_hw)``; row ``a`` is bit-identical
+  to ``simulate_network_batch(c, stack.layers_of(a), ...)``: padded
+  slots contribute exactly 0.0 and the per-slot accumulation order is
+  the per-layer loop's."""
+  device = clock_mhz.device
+  valid = torch.from_numpy(stack.valid).to(device)
+
+  def slot(li):
+    f = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in stack.feats_at(li).items()}
+    st = _simulate_layer_feats(c, f, clock_mhz)
+    e_pj = _layer_energy_feats(c, f, st, clock_mhz, leakage_mw)
+    return valid[:, li:li + 1], st.cycles, e_pj, st.utilization * st.cycles
+
+  return _accumulate_slots(clock_mhz, stack.max_layers, slot)

@@ -24,7 +24,11 @@ The batch oracle evaluates a whole ConfigTable.  Its work splits in two:
 
 The batch result is bit-identical to ``repro.core.oracle.
 characterize_batch`` on the numpy path; like the reference's, it agrees
-with the scalar oracle within about 1e-9, not bit for bit.
+with the scalar oracle within about 1e-9, not bit for bit.  The joint
+form (:func:`characterize_joint`, :func:`characterize_joint_dedup`)
+characterizes every architecture of a co-exploration against every
+design point, bit-identical to the reference's numpy
+``characterize_joint``.
 """
 from __future__ import annotations
 
@@ -40,9 +44,11 @@ import torch
 
 from repro_torch.core import pe as pe_lib
 from repro_torch.core.dataflow import (AcceleratorConfig, ConvLayer,
-                                       layer_energy_pj, simulate_layer,
-                                       simulate_network,
-                                       simulate_network_batch)
+                                       LayerStack, layer_energy_pj,
+                                       simulate_layer, simulate_network,
+                                       simulate_network_batch,
+                                       simulate_network_stack,
+                                       simulate_network_stack_dedup)
 from repro_torch.core.exact import div
 
 # Characterization-model version (the reference's): part of a fitted
@@ -463,5 +469,64 @@ def characterize_batch(inputs: Dict[str, torch.Tensor],
   latency_s, energy_mj, utilization = simulate_network_batch(
       inputs, layers, clock, leak)
   return BatchCharacterization(
+      clock_mhz=clock, area_mm2=area, power_mw=power,
+      latency_s=latency_s, energy_mj=energy_mj, utilization=utilization)
+
+
+# ---------------------------------------------------------------------------
+# joint HW x NN characterization: every architecture x every design point
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class JointCharacterization:
+  """Characterization of ``n_archs x n_hw`` (architecture, HW) pairs.
+
+  Clock / power / area depend only on the hardware and are ``(n_hw,)``;
+  the workload-dependent targets are ``(n_archs, n_hw)`` (arch-major,
+  the :class:`repro_torch.core.table.JointTable` row order when
+  flattened)."""
+  clock_mhz: torch.Tensor
+  area_mm2: torch.Tensor
+  power_mw: torch.Tensor
+  latency_s: torch.Tensor
+  energy_mj: torch.Tensor
+  utilization: torch.Tensor
+
+  @property
+  def n_archs(self) -> int:
+    return int(self.latency_s.shape[0])
+
+  @property
+  def n_hw(self) -> int:
+    return int(self.latency_s.shape[1])
+
+
+def characterize_joint(inputs: Dict[str, torch.Tensor],
+                       stack: LayerStack) -> JointCharacterization:
+  """One characterization per (architecture, design point) pair, the
+  HW-only targets (clock/area/power) once per design point; row ``a`` of
+  the workload targets is bit-identical to ``characterize_batch(inputs,
+  stack.layers_of(a))``."""
+  clock, power, area, leak = hw_batch_targets(inputs)
+  latency_s, energy_mj, utilization = simulate_network_stack(
+      inputs, stack, clock, leak)
+  return JointCharacterization(
+      clock_mhz=clock, area_mm2=area, power_mw=power,
+      latency_s=latency_s, energy_mj=energy_mj, utilization=utilization)
+
+
+def characterize_joint_dedup(inputs: Dict[str, torch.Tensor],
+                             unique_cols: Dict[str, torch.Tensor],
+                             slot_ids: torch.Tensor, valid: torch.Tensor
+                             ) -> JointCharacterization:
+  """Distinct-layer twin of :func:`characterize_joint`: the same outputs,
+  bit for bit, with the dataflow formulas evaluated once per distinct
+  layer shape instead of once per (arch, slot) (see
+  :func:`repro_torch.core.dataflow.simulate_network_stack_dedup`).  The
+  form the joint device path runs."""
+  clock, power, area, leak = hw_batch_targets(inputs)
+  latency_s, energy_mj, utilization = simulate_network_stack_dedup(
+      inputs, unique_cols, slot_ids, valid, clock, leak)
+  return JointCharacterization(
       clock_mhz=clock, area_mm2=area, power_mw=power,
       latency_s=latency_s, energy_mj=energy_mj, utilization=utilization)

@@ -1,5 +1,6 @@
-"""ConfigTable: struct-of-arrays design points (host numpy copy of
-``repro.core.table.ConfigTable``).
+"""ConfigTable: struct-of-arrays design points, and JointTable, the lazy
+architecture x HW cross product of co-exploration (host numpy copies of
+``repro.core.table``).
 
 PE types are stored as small integer codes into a per-table name
 vocabulary (``pe_type_names``); per-PE constants expand to per-row
@@ -174,6 +175,121 @@ class ConfigTable:
       if idx.size:
         yield name, idx
 
+  def cross(self, n_archs: int) -> "JointTable":
+    """Cross product with ``n_archs`` integer-coded architectures."""
+    return JointTable(hw=self, n_archs=n_archs)
+
   def __repr__(self) -> str:
     return (f"ConfigTable({len(self)} rows, "
             f"pe_types={list(self.pe_type_names)})")
+
+
+# ---------------------------------------------------------------------------
+# joint HW x NN cross product
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class JointTable:
+  """The cross product of ``n_archs`` architectures x a HW ConfigTable.
+
+  Joint rows are ordered arch-major — row ``i`` pairs architecture
+  ``i // len(hw)`` with HW design point ``i % len(hw)`` — matching the
+  scalar ``co_explore`` loop order (per PE type: for arch, for hw).  The
+  HW columns are stored once; ``arch_ids()`` / ``hw_indices()`` are pure
+  index arithmetic and :meth:`materialize` tiles the columns only when a
+  caller genuinely needs a flat ``n_archs * n_hw``-row ConfigTable.
+  Architectures live outside the table as integer codes (the
+  ResultFrame's ``arch_lookup`` maps them back to objects).
+  """
+  hw: ConfigTable
+  n_archs: int
+
+  def __post_init__(self):
+    self.n_archs = int(self.n_archs)
+    if self.n_archs < 0:
+      raise ValueError(f"n_archs must be >= 0, got {self.n_archs}")
+
+  def __len__(self) -> int:
+    return self.n_archs * len(self.hw)
+
+  @property
+  def n_hw(self) -> int:
+    return len(self.hw)
+
+  @property
+  def pe_type_names(self) -> Tuple[str, ...]:
+    return self.hw.pe_type_names
+
+  def arch_ids(self) -> np.ndarray:
+    """Per-joint-row architecture code (arch-major repeat)."""
+    return np.repeat(np.arange(self.n_archs, dtype=np.int64), self.n_hw)
+
+  def hw_indices(self) -> np.ndarray:
+    """Per-joint-row index into the underlying HW table."""
+    return np.tile(np.arange(self.n_hw, dtype=np.int64), self.n_archs)
+
+  def pe_type_strings(self) -> np.ndarray:
+    return np.tile(self.hw.pe_type_strings(), self.n_archs)
+
+  def pair_at(self, i: int) -> Tuple[int, AcceleratorConfig]:
+    """(arch_id, hw config) of joint row ``i``."""
+    i = int(i)
+    if not 0 <= i < len(self):
+      raise IndexError(f"joint row {i} out of range for {len(self)} rows")
+    return i // self.n_hw, self.hw.config_at(i % self.n_hw)
+
+  def config_at(self, i: int) -> AcceleratorConfig:
+    """HW half of joint row ``i`` (ResultFrame design-point protocol)."""
+    return self.pair_at(i)[1]
+
+  def select(self, index) -> ConfigTable:
+    """HW columns of the selected joint rows as a flat ConfigTable (used
+    by ResultFrame.select; arch codes ride along in the frame's
+    ``arch_id`` column, so only the HW half is gathered here)."""
+    if isinstance(index, slice):
+      index = np.arange(len(self))[index]
+    idx = np.asarray(index)
+    if idx.dtype == np.bool_:
+      idx = np.flatnonzero(idx)
+    return self.hw.select(idx % max(self.n_hw, 1))
+
+  def block_slices(self, chunk_size: int
+                   ) -> Iterator[Tuple[slice, slice]]:
+    """Tile the arch x HW cross product into (arch_slice, hw_slice)
+    blocks of <= chunk_size joint rows — the streaming engine's unit of
+    work.  HW chunks span as many rows as fit; the arch axis splits into
+    blocks of ``chunk_size // hw_chunk`` so a 100M-pair sweep is visited
+    as a few hundred bounded blocks, never materialized."""
+    if chunk_size <= 0:
+      raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    n_hw = self.n_hw
+    if not n_hw or not self.n_archs:
+      return
+    hw_chunk = min(n_hw, chunk_size)
+    arch_block = max(1, chunk_size // hw_chunk)
+    for a_lo in range(0, self.n_archs, arch_block):
+      a_sl = slice(a_lo, min(a_lo + arch_block, self.n_archs))
+      for h_lo in range(0, n_hw, hw_chunk):
+        yield a_sl, slice(h_lo, min(h_lo + hw_chunk, n_hw))
+
+  def block_indices(self, arch_slice: slice, hw_slice: slice) -> np.ndarray:
+    """Joint row ids of one block, flattened arch-major — i.e. in the
+    exact row order ``co_evaluate_table`` emits for the block's
+    sub-table/sub-stack."""
+    a = np.arange(arch_slice.start, arch_slice.stop, dtype=np.int64)
+    h = np.arange(hw_slice.start, hw_slice.stop, dtype=np.int64)
+    return (a[:, None] * self.n_hw + h[None, :]).reshape(-1)
+
+  def materialize(self) -> ConfigTable:
+    """Flat ``n_archs * n_hw``-row ConfigTable (numpy tiling, no Python
+    per-pair objects) — the escape hatch for consumers of plain tables."""
+    return self.hw.select(self.hw_indices())
+
+  def to_configs(self) -> List[AcceleratorConfig]:
+    """Per-joint-row HW configs (the all-Python escape hatch; completes
+    the ConfigTable protocol ResultFrame.to_points relies on)."""
+    return self.hw.to_configs() * self.n_archs
+
+  def __repr__(self) -> str:
+    return (f"JointTable({self.n_archs} archs x {self.n_hw} hw rows = "
+            f"{len(self)} pairs, pe_types={list(self.hw.pe_type_names)})")

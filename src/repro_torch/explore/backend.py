@@ -13,7 +13,9 @@ The port of ``repro.explore.backend``:
                        blocking; the formulas and the fused reduction run
                        eagerly in float64 there.  Bit-identical to the
                        reference's numpy batch path on every device that
-                       passes :func:`repro_torch.explore.device.ensure_exact`
+                       passes :func:`repro_torch.explore.device.ensure_exact`;
+                       co-exploration (``co_evaluate_table``) runs the
+                       distinct-layer joint oracle the same way
   PolynomialBackend    fast: QUIDAM's fit-once / evaluate-many polynomial
                        models (:mod:`repro_torch.core.ppa`), fitted on the
                        host, memoized in-process, saved and loaded in the
@@ -41,7 +43,7 @@ import torch
 
 from repro_torch.core import oracle
 from repro_torch.core import ppa as ppa_lib
-from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer
+from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer, LayerStack
 from repro_torch.core.pe import PAPER_PE_TYPES
 from repro_torch.core.table import ConfigTable
 from repro_torch.explore import device as device_lib
@@ -157,6 +159,32 @@ class TorchOracleBackend:
     run = device_lib.make_eval_fn(tuple(layers), plan)
     return run(self._place(oracle.batch_inputs(table)))
 
+  def place_dedup(self, dedup: Tuple[Dict[str, np.ndarray], np.ndarray]
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """A :meth:`LayerStack.dedup_slots` factorization on the device
+    (unique columns float64, slot ids int64); tensors pass through."""
+    unique_cols, slot_ids = dedup
+    if isinstance(slot_ids, torch.Tensor):
+      return unique_cols, slot_ids
+    return ({k: device_lib.h2d(v, self.device)
+             for k, v in unique_cols.items()},
+            device_lib.h2d(slot_ids.astype(np.int64), self.device))
+
+  def _co_dispatch(self, hw: ConfigTable, stack: LayerStack, dedup=None,
+                   plan=None, accs: Optional[np.ndarray] = None):
+    """The joint program on one block: every arch of ``stack`` x every
+    row of ``hw``.  ``dedup`` is the block's distinct-layer
+    factorization, on the host or the device (default: the stack's
+    own)."""
+    unique_cols, slot_ids = self.place_dedup(
+        stack.dedup_slots() if dedup is None else dedup)
+    valid = device_lib.h2d(stack.valid, self.device)
+    accs_t = None if accs is None else device_lib.h2d(
+        np.asarray(accs, np.float64), self.device)
+    run = device_lib.make_joint_fn(plan)
+    return run(self._place(oracle.batch_inputs(hw)), unique_cols, slot_ids,
+               valid, accs_t)
+
   # -- one-shot evaluation ----------------------------------------------------
 
   def evaluate(self, cfgs: Configs, layers: Sequence[ConvLayer],
@@ -186,6 +214,33 @@ class TorchOracleBackend:
     return ResultFrame(lat, pwr, area, table.pe_type_strings(), (),
                        network, table=table)
 
+  def co_evaluate_table(self, hw: ConfigTable, stack: LayerStack,
+                        network: str = "coexplore") -> ResultFrame:
+    """Joint HW x NN sweep: every stack architecture against every HW row,
+    through the distinct-layer joint oracle in HW chunks of
+    ``chunk_size // n_archs`` rows; clock/power/area once per HW row,
+    latency/energy once per pair.  Returns the arch-major joint frame
+    (row ``a * n_hw + h``) with a lazy JointTable and an ``arch_id``
+    extra column (the caller attaches ``top1`` and ``arch_lookup``)."""
+    n_hw, n_archs = len(hw), stack.n_archs
+    lat = np.empty((n_archs, n_hw))
+    pwr = np.empty(n_hw)
+    area = np.empty(n_hw)
+    hw_chunk = max(1, self.chunk_size // max(n_archs, 1))
+    dedup = self.place_dedup(stack.dedup_slots())
+    lo = 0
+    for chunk in hw.chunks(hw_chunk):
+      l, p, a = (t.cpu().numpy()
+                 for t in self._co_dispatch(chunk, stack, dedup))
+      hi = lo + len(chunk)
+      lat[:, lo:hi], pwr[lo:hi], area[lo:hi] = l, p, a
+      lo = hi
+    joint = hw.cross(n_archs)
+    return ResultFrame(
+        lat.reshape(-1), np.tile(pwr, n_archs), np.tile(area, n_archs),
+        joint.pe_type_strings(), (), network, table=joint,
+        extra={"arch_id": joint.arch_ids()})
+
   # -- streaming entry points: asynchronous dispatch --------------------------
 
   def eval_pending(self, table: ConfigTable, layers: Sequence[ConvLayer],
@@ -202,6 +257,29 @@ class TorchOracleBackend:
     payloads with O(survivors) device->host transfer."""
     return device_lib.PendingFused(self._dispatch(table, layers, plan), plan,
                                    table, idx, network)
+
+  def co_eval_pending(self, hw: ConfigTable, stack: LayerStack, network: str,
+                      idx: np.ndarray, arch_lo: int, accs: np.ndarray,
+                      arch_lookup: Tuple[object, ...],
+                      dedup=None) -> device_lib.PendingFrame:
+    """Joint twin of :meth:`eval_pending`: resolves to the block's joint
+    frame with its ``arch_id``/``top1`` columns."""
+    return device_lib.PendingFrame(
+        self._co_dispatch(hw, stack, dedup), hw, idx, network,
+        arch_lo=arch_lo, accs=np.asarray(accs, np.float64),
+        arch_lookup=arch_lookup)
+
+  def fused_co_eval_pending(self, hw: ConfigTable, stack: LayerStack,
+                            network: str, plan: device_lib.DevicePlan,
+                            idx: np.ndarray, arch_lo: int, accs: np.ndarray,
+                            arch_lookup: Tuple[object, ...],
+                            dedup=None) -> device_lib.PendingFused:
+    """Joint twin of :meth:`fused_eval_pending`."""
+    accs = np.asarray(accs, np.float64)
+    return device_lib.PendingFused(
+        self._co_dispatch(hw, stack, dedup, plan, accs), plan, hw, idx,
+        network, n_hw=len(hw), arch_lo=arch_lo, accs=accs,
+        arch_lookup=arch_lookup)
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +317,8 @@ class PolynomialBackend:
   for another: each PE type's rows go through the models in chunks, the
   polynomial features and their fixed-order sums on the device, the
   rest on the host (:mod:`repro_torch.core.ppa`).  The joint HW x NN
-  path (``co_evaluate_table``) is not ported yet: it comes with the
-  port's ``LayerStack``.
+  path (``co_evaluate_table``) predicts latency per (arch, HW) pair from
+  a ``LayerStack``'s feature tensors.
   """
   name = "polynomial"
 
@@ -412,3 +490,44 @@ class PolynomialBackend:
                                1e-6) + gb_a
     return ResultFrame(lat, pwr, area, table.pe_type_strings(), (),
                        network, table=table)
+
+  def co_evaluate_table(self, hw: ConfigTable, stack: LayerStack,
+                        network: str = "coexplore",
+                        chunk_size: int = 32768) -> ResultFrame:
+    """Joint HW x NN sweep through the fitted models.
+
+    Power and area (plus the global-buffer macro) are predicted once per
+    HW row; latency per (arch, HW) pair from the stack's feature tensors,
+    one fixed-order sum per arch per HW chunk of ``chunk_size //
+    max_layers`` rows.  Returns the same arch-major joint frame as
+    :meth:`TorchOracleBackend.co_evaluate_table`.
+    """
+    self._check_types(t for t, _ in hw.groups_by_type())
+    n_hw, n_archs = len(hw), stack.n_archs
+    lat = np.zeros((n_archs, n_hw))
+    pwr = np.zeros(n_hw)
+    area = np.zeros(n_hw)
+    feats = stack.features()
+    n_layers = stack.n_layers()
+    hw_chunk = max(1, chunk_size // max(stack.max_layers, 1))
+    for pe_type, idxs in hw.groups_by_type():
+      m = self.models[pe_type]
+      for lo in range(0, idxs.size, hw_chunk):
+        sel = idxs[lo:lo + hw_chunk]
+        sub = hw.select(sel)
+        gb_p, gb_a = gbuf_overheads_table(sub, self.device)
+        pwr[sel] = np.maximum(m.predict_power_mw(sub, self.device), 1e-3) \
+            + gb_p
+        area[sel] = np.maximum(m.predict_area_mm2(sub, self.device),
+                               1e-6) + gb_a
+        hw_feats = sub.latency_hw_features()
+        for a in range(n_archs):
+          lf = feats[a, :int(n_layers[a])]
+          lat[a, sel] = np.maximum(
+              m.predict_network_latency_feats(hw_feats, lf, self.device),
+              1e-9)
+    joint = hw.cross(n_archs)
+    return ResultFrame(
+        lat.reshape(-1), np.tile(pwr, n_archs), np.tile(area, n_archs),
+        joint.pe_type_strings(), (), network, table=joint,
+        extra={"arch_id": joint.arch_ids()})

@@ -1,13 +1,18 @@
-"""The fused per-chunk sweep program, in torch.
+"""The fused per-chunk sweep programs, in torch.
 
 The port of ``repro.explore.device``: one chunk's evaluate ->
 derive-columns -> reduce pipeline runs on the device, and only
-O(survivors) rows come back to the host:
+O(survivors) rows come back to the host.  A plain sweep's chunk is one
+group of design points; a co-exploration block is one group per
+architecture, (A, H) grids of architectures x HW rows:
 
-  pareto    an exact-superset non-dominated prefilter (the 2-D staircase
-            elimination for two objectives, the K1 block dominance
-            kernel for three or more), survivors compacted into a
-            fixed-size index list without a host sync, then gathered
+  pareto    an exact-superset non-dominated prefilter (the minimum for
+            one varying objective, the 2-D staircase elimination per
+            group for two, the K1 block dominance kernel over the
+            flattened chunk for three or more; in a joint block the
+            arch-constant ``top1``/``top1_err`` objectives tie within a
+            group and are projected out first), survivors compacted into
+            a fixed-size index list without a host sync, then gathered
   top-k     a stable sort on the key column (ties resolve to the lowest
             index == the lowest global row id, like
             ``stable_topk_indices``)
@@ -36,8 +41,14 @@ from repro_torch.core.exact import div, floor_div
 from repro_torch.core.table import ConfigTable
 from repro_torch.explore.frame import BASE_COLUMNS, DERIVED_COLUMNS, ResultFrame
 
-# columns the fused program can materialize (frame.column equivalents)
+# columns the fused programs can materialize (frame.column equivalents);
+# top1/top1_err additionally need the joint path's per-arch accuracies
 DEVICE_COLUMNS = BASE_COLUMNS + DERIVED_COLUMNS
+JOINT_COLUMNS = DEVICE_COLUMNS + ("top1", "top1_err")
+
+# columns constant along the HW axis of a joint block (functions of the
+# architecture only): the grouped prefilter may project them out
+ARCH_CONSTANT_COLUMNS = frozenset({"top1", "top1_err"})
 
 # default survivor capacity per pareto reducer per chunk; counts above it
 # fall back to the full chunk for that chunk
@@ -230,17 +241,19 @@ class DevicePlan:
     return iter(self.specs)
 
 
-def build_plan(reducers: Dict[str, object],
+def build_plan(reducers: Dict[str, object], joint: bool,
                cap: int = DEFAULT_SURVIVOR_CAP) -> Optional[DevicePlan]:
   """A DevicePlan covering every reducer, or None when any reducer (or
-  any referenced column) is not device-fusable."""
+  any referenced column) is not device-fusable; ``joint`` plans may also
+  read ``top1``/``top1_err``."""
+  allowed = set(JOINT_COLUMNS if joint else DEVICE_COLUMNS)
   specs = []
   for name, r in reducers.items():
     spec = getattr(r, "device_spec", lambda: None)()
     if spec is None:
       return None
     cols = spec.cols if isinstance(spec, ParetoSpec) else (spec.col,)
-    if not set(cols) <= set(DEVICE_COLUMNS):
+    if not set(cols) <= allowed:
       return None
     specs.append((name, spec))
   return DevicePlan(specs=tuple(specs), cap=int(cap))
@@ -250,14 +263,21 @@ def build_plan(reducers: Dict[str, object],
 # device-side column + prefilter machinery
 # ---------------------------------------------------------------------------
 
-def _derive_columns(lat, pwr, area) -> Dict[str, torch.Tensor]:
+def _derive_columns(lat, pwr, area, accs: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
   """The frame.column formulas, op for op (survivor values stay
-  bit-identical to the host frame's derived columns)."""
+  bit-identical to the host frame's derived columns).  All grids are
+  (G, M): one group per arch for joint blocks (``accs`` holds the
+  groups' accuracies), a single group otherwise."""
   cols = {"latency_s": lat, "power_mw": pwr, "area_mm2": area}
   perf = div(1.0, torch.clamp(lat, min=1e-12))
   cols["perf"] = perf
   cols["perf_per_area"] = div(perf, torch.clamp(area, min=1e-12))
   cols["energy_mj"] = pwr * lat
+  if accs is not None:
+    top1 = accs[:, None].expand(lat.shape)
+    cols["top1"] = top1
+    cols["top1_err"] = 1.0 - top1
   return cols
 
 
@@ -283,19 +303,30 @@ def _staircase_mask(x: torch.Tensor, y: torch.Tensor,
   return alive
 
 
-def _pareto_prefilter(cols, spec: ParetoSpec) -> torch.Tensor:
-  """(G, M) bool exact-superset mask of the chunk front for ``spec``."""
+def _pareto_prefilter(cols, spec: ParetoSpec, grouped: bool) -> torch.Tensor:
+  """(G, M) bool exact-superset mask of the chunk front for ``spec``.
+
+  Grouped (joint) blocks project out arch-constant objectives: rows of
+  one group tie on them, so dominance within a group on the remaining
+  axes is full dominance.  The K1 block filter compares across groups
+  too, so it keeps every axis of the spec.
+  """
   from repro_torch.kernels.pareto_front import ops as pf_ops
   mx = set(spec.maximize)
-  objs = [(-cols[c] if c in mx else cols[c]) for c in spec.cols]
-  if len(objs) == 1:
-    v = objs[0]
+  objs = {c: (-cols[c] if c in mx else cols[c]) for c in spec.cols}
+  var = [objs[c] for c in spec.cols
+         if not (grouped and c in ARCH_CONSTANT_COLUMNS)]
+  if not var:  # all objectives tie within every group
+    return torch.ones(next(iter(objs.values())).shape, dtype=torch.bool,
+                      device=cols["latency_s"].device)
+  if len(var) == 1:
+    v = var[0]
     return v == v.min(dim=1, keepdim=True).values
-  if len(objs) == 2:
-    return _staircase_mask(objs[0], objs[1])
-  obj = torch.stack([o.reshape(-1) for o in objs], dim=1)
+  if len(var) == 2:
+    return _staircase_mask(var[0], var[1])
+  obj = torch.stack([o.reshape(-1) for o in objs.values()], dim=1)
   return pf_ops.block_prefilter_mask(obj, block=PREFILTER_BLOCK).reshape(
-      objs[0].shape)
+      var[0].shape)
 
 
 def _compact(mask: torch.Tensor, cap: int
@@ -340,7 +371,8 @@ def _histogram_counts(v: torch.Tensor, lo: float, hi: float,
   return counts.scatter_add_(0, idx, torch.ones_like(idx))
 
 
-def _reduce_outputs(cols, plan: DevicePlan) -> Dict[str, Dict[str, object]]:
+def _reduce_outputs(cols, plan: DevicePlan,
+                    grouped: bool) -> Dict[str, Dict[str, object]]:
   """Per-reducer outputs of the fused program: tensors still on the
   device, plus plain ints."""
   n = cols["latency_s"].numel()
@@ -348,7 +380,7 @@ def _reduce_outputs(cols, plan: DevicePlan) -> Dict[str, Dict[str, object]]:
   out: Dict[str, Dict[str, object]] = {}
   for name, spec in plan:
     if isinstance(spec, ParetoSpec):
-      mask = _pareto_prefilter(cols, spec).reshape(-1)
+      mask = _pareto_prefilter(cols, spec, grouped).reshape(-1)
       idx, count = _compact(mask, plan.cap)
       out[name] = {"count": count, "idx": idx,
                    **{c: _take_fill(b, idx) for c, b in base.items()}}
@@ -387,9 +419,49 @@ def make_eval_fn(layers: Tuple[ConvLayer, ...],
       return full
     cols = _derive_columns(ch.latency_s[None, :], ch.power_mw[None, :],
                            ch.area_mm2[None, :])
-    return full, _reduce_outputs(cols, plan)
+    return full, _reduce_outputs(cols, plan, grouped=False)
 
   return run
+
+
+def make_joint_fn(plan: Optional[DevicePlan]) -> Callable:
+  """Joint-sweep program over the distinct-layer factorization:
+  (inputs, unique_cols, slot_ids, valid, accs) ->
+  (lat (A, H), pwr (H,), area (H,))[, reductions], every argument a
+  tensor on one device (``accs``, the block's (A,) accuracies, is read
+  by fused plans only)."""
+
+  def run(inputs, unique_cols, slot_ids, valid, accs):
+    ch = oracle.characterize_joint_dedup(inputs, unique_cols, slot_ids,
+                                         valid)
+    full = (ch.latency_s, ch.power_mw, ch.area_mm2)
+    if plan is None:
+      return full
+    lat = ch.latency_s
+    cols = _derive_columns(lat, ch.power_mw[None, :].expand(lat.shape),
+                           ch.area_mm2[None, :].expand(lat.shape), accs=accs)
+    return full, _reduce_outputs(cols, plan, grouped=True)
+
+  return run
+
+
+def joint_chunk_frame(lat: np.ndarray, pwr: np.ndarray, area: np.ndarray,
+                      hw: ConfigTable, network: str, arch_lo: int,
+                      accs: np.ndarray,
+                      arch_lookup: Tuple[object, ...]) -> ResultFrame:
+  """The full joint chunk frame (``co_evaluate_table``'s, with the
+  ``arch_id``/``top1`` columns a streamed block carries), built from the
+  (A, H) / (H,) metric arrays: shared by the non-fused pending path and
+  the fused overflow fallback."""
+  n_archs = lat.shape[0]
+  joint = hw.cross(n_archs)
+  ids = joint.arch_ids()
+  return ResultFrame(
+      lat.reshape(-1), np.tile(pwr, n_archs), np.tile(area, n_archs),
+      joint.pe_type_strings(), (), network, table=joint,
+      extra={"arch_id": ids + arch_lo,
+             "top1": np.asarray(accs, np.float64)[ids]},
+      arch_lookup=arch_lookup)
 
 
 # ---------------------------------------------------------------------------
@@ -428,32 +500,53 @@ class _PendingBase:
 
 
 class PendingFrame(_PendingBase):
-  """Non-fused device chunk: resolves to the ordinary (frame, idx)."""
+  """Non-fused device chunk: resolves to the ordinary (frame, idx); a
+  joint block (``accs`` given) to its joint chunk frame."""
 
   def __init__(self, full: Tuple[torch.Tensor, ...], table: ConfigTable,
-               indices: np.ndarray, network: str):
+               indices: np.ndarray, network: str, arch_lo: int = 0,
+               accs: Optional[np.ndarray] = None,
+               arch_lookup: Tuple[object, ...] = ()):
     self._host, self._event = to_host(full)
     self.table = table
     self.indices = indices
     self.network = network
+    self.arch_lo = int(arch_lo)
+    self.accs = accs
+    self.arch_lookup = tuple(arch_lookup)
 
   def resolve(self) -> Tuple[ResultFrame, np.ndarray]:
     self._wait()
     lat, pwr, area = (h.numpy() for h in self._host)
+    if self.accs is not None:
+      return joint_chunk_frame(lat, pwr, area, self.table, self.network,
+                               self.arch_lo, self.accs,
+                               self.arch_lookup), self.indices
     return ResultFrame(lat, pwr, area, self.table.pe_type_strings(), (),
                        self.network, table=self.table), self.indices
 
 
 class PendingFused(_PendingBase):
-  """Fused device chunk: resolves to a :class:`FusedChunk`."""
+  """Fused device chunk: resolves to a :class:`FusedChunk`.  A joint
+  block (``accs`` given) carries its (A, H) grid's HW width ``n_hw``,
+  first architecture ``arch_lo`` and the sweep's ``arch_lookup``, and
+  its survivor frames get the ``arch_id``/``top1`` columns."""
 
   def __init__(self, outputs, plan: DevicePlan, table: ConfigTable,
-               indices: np.ndarray, network: str):
+               indices: np.ndarray, network: str,
+               n_hw: Optional[int] = None, arch_lo: int = 0,
+               accs: Optional[np.ndarray] = None,
+               arch_lookup: Tuple[object, ...] = ()):
     self._full, reduced = outputs
     self.plan = plan
     self.table = table
     self.indices = np.asarray(indices, np.int64)
     self.network = network
+    self.n_hw = len(table) if n_hw is None else int(n_hw)
+    self.arch_lo = int(arch_lo)
+    self.accs = accs
+    self.arch_lookup = tuple(arch_lookup)
+    self._joint = accs is not None
     slots = [(name, key) for name, out in reduced.items()
              for key, v in out.items() if isinstance(v, torch.Tensor)]
     host, self._event = to_host([reduced[name][key] for name, key in slots])
@@ -461,15 +554,28 @@ class PendingFused(_PendingBase):
     for (name, key), h in zip(slots, host):
       self._reduced[name][key] = h
 
+  def _extras(self, local: np.ndarray) -> Dict[str, np.ndarray]:
+    if not self._joint:
+      return {}
+    arch_local = local // self.n_hw
+    return {"arch_id": arch_local + self.arch_lo,
+            "top1": np.asarray(self.accs, np.float64)[arch_local]}
+
   def _mini_frame(self, local: np.ndarray, rows) -> ResultFrame:
     lat, pwr, area = (np.asarray(r, np.float64) for r in rows)
-    sub = self.table.select(local)
+    hw_local = local % self.n_hw if self._joint else local
+    sub = self.table.select(hw_local)
     return ResultFrame(lat, pwr, area, sub.pe_type_strings(), (),
-                       self.network, table=sub)
+                       self.network, extra=self._extras(local), table=sub,
+                       arch_lookup=self.arch_lookup)
 
   def full_frame(self) -> Tuple[ResultFrame, np.ndarray]:
     """The chunk's ordinary full frame (device -> host fetch)."""
     lat, pwr, area = (t.cpu().numpy() for t in self._full)
+    if self._joint:
+      return joint_chunk_frame(lat, pwr, area, self.table, self.network,
+                               self.arch_lo, self.accs,
+                               self.arch_lookup), self.indices
     return (ResultFrame(lat, pwr, area, self.table.pe_type_strings(), (),
                         self.network, table=self.table), self.indices)
 

@@ -1,8 +1,9 @@
-"""Columnar exploration results (host numpy copy of the parts of
-``repro.explore.frame`` the plain sweep uses).
+"""Columnar exploration results (host numpy copy of
+``repro.explore.frame``).
 
 A :class:`ResultFrame` holds latency / power / area / pe_type as parallel
-numpy arrays; ``pareto_mask`` and ``stable_topk_indices`` are the exact
+numpy arrays, plus extra columns such as co-exploration's ``top1`` and
+``arch_id``; ``pareto_mask`` and ``stable_topk_indices`` are the exact
 host selections the streaming reducers merge chunks with, and
 ``normalize(ref="best-int16")`` the paper's normalization of every
 figure to the best INT16 design.
@@ -15,16 +16,18 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.core.dataflow import AcceleratorConfig
-from repro_torch.core.table import ConfigTable
+from repro_torch.core.table import ConfigTable, JointTable
 
 BASE_COLUMNS = ("latency_s", "power_mw", "area_mm2")
 
-# numeric columns derivable from the base metrics alone — the contract
-# the fused device program mirrors op for op (see explore/device.py)
+# numeric columns derivable from the base metrics alone (plus, on joint
+# frames, the top1/top1_err pair derived from the arch accuracies) — the
+# contract the fused device program mirrors op for op (see
+# explore/device.py)
 DERIVED_COLUMNS = ("perf", "perf_per_area", "energy_mj")
 
 # derived columns where "bigger is better" (auto-negated inside pareto())
-_MAXIMIZE_COLUMNS = frozenset({"perf", "perf_per_area"})
+_MAXIMIZE_COLUMNS = frozenset({"perf", "perf_per_area", "top1"})
 
 # normalization-anchor aliases: metric name -> (column, maximize)
 _REF_ALIASES = {
@@ -200,15 +203,22 @@ class Normalized:
 @dataclasses.dataclass(eq=False)
 class ResultFrame:
   """Struct-of-arrays over evaluated design points; design points ride
-  along as per-point ``cfgs`` or as a columnar ``table``."""
+  along as per-point ``cfgs`` or as a columnar ``table``.
+
+  Co-exploration frames carry architectures as an integer ``arch_id``
+  extra column plus the shared ``arch_lookup`` tuple (one entry per
+  distinct architecture); :meth:`arch_at` maps a row back to its
+  architecture object."""
   latency_s: np.ndarray
   power_mw: np.ndarray
   area_mm2: np.ndarray
   pe_type: np.ndarray
   cfgs: Tuple[AcceleratorConfig, ...] = ()
   network: str = "net"
+  extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
   meta: Dict[str, float] = dataclasses.field(default_factory=dict)
-  table: Optional[ConfigTable] = None
+  table: Optional[Union[ConfigTable, JointTable]] = None
+  arch_lookup: Tuple[object, ...] = ()
 
   def __post_init__(self):
     self.latency_s = np.asarray(self.latency_s, np.float64)
@@ -216,6 +226,7 @@ class ResultFrame:
     self.area_mm2 = np.asarray(self.area_mm2, np.float64)
     self.pe_type = np.asarray(self.pe_type)
     self.cfgs = tuple(self.cfgs)
+    self.arch_lookup = tuple(self.arch_lookup)
     n = len(self.latency_s)
     for name, arr in (("power_mw", self.power_mw),
                       ("area_mm2", self.area_mm2),
@@ -226,6 +237,13 @@ class ResultFrame:
       raise ValueError(f"{len(self.cfgs)} cfgs for {n} rows")
     if self.table is not None and len(self.table) != n:
       raise ValueError(f"{len(self.table)}-row table for {n} rows")
+    if self.arch_lookup:
+      ids = self.extra.get("arch_id")
+      if ids is None:
+        raise ValueError("arch_lookup given without an 'arch_id' column")
+      self.extra["arch_id"] = ids = np.asarray(ids, np.int64)
+      if ids.size and (ids.min() < 0 or ids.max() >= len(self.arch_lookup)):
+        raise ValueError("arch_id out of range for arch_lookup")
 
   def __len__(self) -> int:
     return int(self.latency_s.shape[0])
@@ -247,8 +265,13 @@ class ResultFrame:
       return getattr(self, name)
     if name == "pe_type":
       return self.pe_type
+    if name == "top1_err":
+      return 1.0 - self.extra["top1"]
+    if name in self.extra:
+      return self.extra[name]
     raise KeyError(f"unknown column {name!r}; have base={BASE_COLUMNS}, "
-                   f"derived={DERIVED_COLUMNS}")
+                   f"derived=(perf, perf_per_area, energy_mj, top1_err), "
+                   f"extra={tuple(self.extra)}")
 
   def by_type(self, pe_type: str) -> np.ndarray:
     return self.pe_type == pe_type
@@ -283,6 +306,13 @@ class ResultFrame:
       return self.table.config_at(i)
     raise ValueError("frame carries neither cfgs nor a ConfigTable")
 
+  def arch_at(self, i: int) -> object:
+    """The i-th row's architecture object (``arch_lookup[arch_id[i]]``)."""
+    if not self.arch_lookup:
+      raise ValueError("frame carries no arch_lookup (not a co-exploration "
+                       "frame)")
+    return self.arch_lookup[int(self.extra["arch_id"][i])]
+
   def select(self, index: Union[np.ndarray, Sequence[int]]) -> "ResultFrame":
     """Sub-frame by boolean mask or integer index array."""
     idx = np.asarray(index)
@@ -291,30 +321,70 @@ class ResultFrame:
     cfgs = tuple(self.cfgs[i] for i in idx) if self.cfgs else ()
     return ResultFrame(
         self.latency_s[idx], self.power_mw[idx], self.area_mm2[idx],
-        self.pe_type[idx], cfgs, self.network, dict(self.meta),
-        self.table.select(idx) if self.table is not None else None)
+        self.pe_type[idx], cfgs, self.network,
+        {k: v[idx] for k, v in self.extra.items()}, dict(self.meta),
+        self.table.select(idx) if self.table is not None else None,
+        self.arch_lookup)
+
+  @staticmethod
+  def _merge_arch_lookups(frames: Sequence["ResultFrame"]
+                          ) -> Tuple[Tuple[object, ...], Optional[np.ndarray]]:
+    """Union the frames' arch lookups; returns (merged lookup, remapped
+    arch_id column or None when ids can pass through unchanged)."""
+    lookups = [f.arch_lookup for f in frames]
+    if not any(lookups):
+      return (), None
+    if any(not lu and len(f) for lu, f in zip(lookups, frames)):
+      raise ValueError("cannot concat coded-arch frames with frames that "
+                       "have arch_id but no arch_lookup")
+    first = next(lu for lu in lookups if lu)
+    if all(lu == first or not len(f) for lu, f in zip(lookups, frames)):
+      return first, None  # identical lookups: ids are already aligned
+    merged: List[object] = []
+    index: Dict[object, int] = {}
+    parts: List[np.ndarray] = []
+    for f in frames:
+      remap = np.empty(len(f.arch_lookup), np.int64)
+      for j, arch in enumerate(f.arch_lookup):
+        if arch not in index:
+          index[arch] = len(merged)
+          merged.append(arch)
+        remap[j] = index[arch]
+      parts.append(remap[np.asarray(f.extra["arch_id"], np.int64)]
+                   if len(f) else np.zeros(0, np.int64))
+    return tuple(merged), np.concatenate(parts)
 
   @classmethod
   def concat(cls, frames: Sequence["ResultFrame"]) -> "ResultFrame":
     frames = list(frames)
     if not frames:
       raise ValueError("cannot concat zero frames")
+    keys = set(frames[0].extra)
+    if any(set(f.extra) != keys for f in frames):
+      raise ValueError("frames have mismatched extra columns")
     cfgs = sum((f.cfgs for f in frames), ()) \
         if all(f.cfgs or not len(f) for f in frames) else ()
-    tables = [f.table for f in frames]
+    # JointTables flatten to plain ConfigTables across a concat
+    tables = [f.table.materialize() if isinstance(f.table, JointTable)
+              else f.table for f in frames]
     table = ConfigTable.concat(tables) \
         if all(t is not None for t in tables) else None
+    extra = {k: np.concatenate([f.extra[k] for f in frames]) for k in keys}
+    arch_lookup, remapped = cls._merge_arch_lookups(frames)
+    if remapped is not None:
+      extra["arch_id"] = remapped
     return cls(
         np.concatenate([f.latency_s for f in frames]),
         np.concatenate([f.power_mw for f in frames]),
         np.concatenate([f.area_mm2 for f in frames]),
         np.concatenate([f.pe_type for f in frames]),
-        cfgs, frames[0].network, table=table)
+        cfgs, frames[0].network, extra, table=table,
+        arch_lookup=arch_lookup)
 
   def pareto(self, cols: Sequence[str] = ("perf_per_area", "energy_mj"),
              maximize: Optional[Sequence[str]] = None) -> np.ndarray:
     """Non-dominated mask over the given columns.  Columns in `maximize`
-    (default: perf/perf_per_area) are negated; the rest minimized."""
+    (default: perf/perf_per_area/top1) are negated; the rest minimized."""
     mx = _MAXIMIZE_COLUMNS if maximize is None else frozenset(maximize)
     obj = np.stack([-self.column(c) if c in mx else self.column(c)
                     for c in cols], axis=1)

@@ -1,20 +1,28 @@
-"""ExplorationSession: the facade over the plain design-space sweep (the
-port of ``repro.explore.session``'s ``evaluate`` and ``explore``).
+"""ExplorationSession: the facade over the plain design-space sweep and
+HW x NN co-exploration (the port of ``repro.explore.session``'s
+``evaluate``, ``explore`` and ``co_explore``).
 
 A session binds a backend (how points are scored) to a
 :class:`DesignSpace` (which points exist).  ``explore`` picks between two
 sampling materializations: the per-point config list, and the columnar
-:class:`ConfigTable` for backends that prefer it (``prefers_table``).
-``stream=True`` runs the constant-memory streaming engine and returns a
-StreamResult of reducer outputs; with ``vectorized="auto"``, a one-shot
-sweep of ``STREAM_AUTO_MIN_ROWS`` rows or more on a table backend also
+:class:`ConfigTable` for backends that prefer it (``prefers_table``);
+``co_explore`` between the nested arch x HW loop of scalar evaluations
+and the joint table path (``co_evaluate_table``).  ``stream=True`` runs
+the constant-memory streaming engine and returns a StreamResult of
+reducer outputs; with ``vectorized="auto"``, a one-shot sweep of
+``STREAM_AUTO_MIN_ROWS`` rows (or pairs) or more on a table backend also
 goes through the engine, with a CollectAccumulator: the identical full
 frame comes out.
+
+The reference's resilience, store and fleet options (``policy``,
+``resume_from``, ``store``, ``pool``, ``workers``) come with slice 6.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer
 from repro_torch.explore.backend import OracleBackend
@@ -22,7 +30,8 @@ from repro_torch.explore.frame import ResultFrame
 from repro_torch.explore.space import DesignSpace
 from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
                                            CollectAccumulator, Reducer,
-                                           StreamResult, stream_explore)
+                                           StreamResult, stream_co_explore,
+                                           stream_explore)
 
 
 class ExplorationSession:
@@ -104,6 +113,14 @@ class ExplorationSession:
       frame.meta["speedup"] = per_design / max(t_eval / n, 1e-12)
     return frame
 
+  @staticmethod
+  def _collected_frame(res: StreamResult) -> ResultFrame:
+    """Unwrap a CollectAccumulator run: the identical full frame, tagged
+    with how it was produced."""
+    frame = res["frame"]
+    frame.meta["streamed"] = 1.0
+    return frame
+
   def _explore_streamed_frame(self, layers, network, n_per_type, seed,
                               method, chunk_size) -> ResultFrame:
     """The auto above-threshold path: chunked evaluation through the
@@ -112,8 +129,97 @@ class ExplorationSession:
                          n_per_type=n_per_type, seed=seed, method=method,
                          reducers={"frame": CollectAccumulator()},
                          chunk_size=chunk_size)
-    frame = res["frame"]
-    frame.meta["streamed"] = 1.0
+    frame = self._collected_frame(res)
     frame.meta["eval_seconds"] = res.seconds
     frame.meta["eval_us_per_design"] = res.seconds / max(len(frame), 1) * 1e6
     return frame
+
+  def co_explore(self, arch_accs: Sequence[Tuple[object, float]],
+                 n_hw_per_type: int = 20, seed: int = 3,
+                 image_size: int = 32, method: str = "random",
+                 vectorized: Union[bool, str] = "auto", stream: bool = False,
+                 reducers: Optional[Dict[str, Reducer]] = None,
+                 chunk_size: int = 65536, workers: Optional[int] = None,
+                 policy=None, resume_from=None, store=None, pool=None
+                 ) -> Union[ResultFrame, StreamResult]:
+    """Sampled HW x evaluated architectures -> joint frame (Fig. 12).
+
+    Rows carry a ``top1`` float column and an integer ``arch_id`` column
+    resolving through ``frame.arch_lookup`` (one entry per architecture,
+    in ``arch_accs`` order); the 3-objective joint front is
+    ``frame.pareto(("top1_err", "energy_mj", "area_mm2"))``.
+
+    vectorized: "auto" takes the joint table path when the backend
+    advertises ``prefers_table`` and implements ``co_evaluate_table``;
+    True forces it for any backend with ``co_evaluate_table``; False
+    keeps the nested arch x HW loop of ``backend.evaluate`` calls.  Both
+    emit rows in the same (pe_type, arch, hw) order, though
+    ``method="random"`` samples other HW per path (as :meth:`explore`).
+
+    stream=True runs the streaming engine over lazy JointTable blocks
+    (default reducer: the 3-objective joint front); with "auto", sweeps
+    of ``STREAM_AUTO_MIN_ROWS`` pairs or more go through the engine with
+    a CollectAccumulator, the identical joint frame out.
+    """
+    from repro_torch.core.dataflow import LayerStack
+    from repro_torch.core.supernet import arch_to_layers
+    for name, value in (("workers", workers), ("policy", policy),
+                        ("resume_from", resume_from), ("store", store),
+                        ("pool", pool)):
+      if value is not None:
+        raise NotImplementedError(
+            f"co_explore({name}=...) comes with slice 6 (resilience, "
+            "store and fleet)")
+    if reducers is not None and not stream:
+      raise ValueError("reducers only apply to the streaming engine; "
+                       "pass stream=True")
+    if stream:
+      if not hasattr(self.backend, "co_evaluate_table"):
+        raise ValueError(f"backend {self.backend.name!r} has no "
+                         "co_evaluate_table; streaming needs the joint path")
+      return stream_co_explore(self.backend, self.space, arch_accs,
+                               n_hw_per_type=n_hw_per_type, seed=seed,
+                               image_size=image_size, method=method,
+                               reducers=reducers, chunk_size=chunk_size)
+    if vectorized == "auto":
+      use_joint = bool(getattr(self.backend, "prefers_table", False)) \
+          and hasattr(self.backend, "co_evaluate_table")
+    else:
+      use_joint = bool(vectorized)
+    if use_joint and not hasattr(self.backend, "co_evaluate_table"):
+      raise ValueError(f"backend {self.backend.name!r} has no "
+                       "co_evaluate_table; pass vectorized=False")
+    n_pairs_est = len(arch_accs) * n_hw_per_type * len(self.space.pe_types)
+    if (use_joint and vectorized == "auto"
+        and n_pairs_est >= STREAM_AUTO_MIN_ROWS):
+      res = stream_co_explore(self.backend, self.space, arch_accs,
+                              n_hw_per_type=n_hw_per_type, seed=seed,
+                              image_size=image_size, method=method,
+                              reducers={"frame": CollectAccumulator()},
+                              chunk_size=chunk_size)
+      return self._collected_frame(res)
+    archs = [arch for arch, _ in arch_accs]
+    accs = np.asarray([float(acc) for _, acc in arch_accs], np.float64)
+    arch_layers = [arch_to_layers(arch, image_size=image_size)
+                   for arch in archs]
+    frames: List[ResultFrame] = []
+    if use_joint:
+      stack = LayerStack.from_layer_lists(arch_layers)
+      for ti, pe_type in enumerate(self.space.pe_types):
+        hw = self.space.sample_type_table(pe_type, n_hw_per_type,
+                                          seed=seed + 17 * ti, method=method)
+        f = self.backend.co_evaluate_table(hw, stack, network="coexplore")
+        f.extra["top1"] = accs[f.extra["arch_id"]]
+        f.arch_lookup = tuple(archs)
+        frames.append(f)
+      return ResultFrame.concat(frames)
+    for ti, pe_type in enumerate(self.space.pe_types):
+      cfgs = self.space.sample_type(pe_type, n_hw_per_type,
+                                    seed=seed + 17 * ti, method=method)
+      for aid, layers in enumerate(arch_layers):
+        f = self.backend.evaluate(cfgs, layers, network="coexplore")
+        f.extra["top1"] = np.full(len(f), accs[aid])
+        f.extra["arch_id"] = np.full(len(f), aid, np.int64)
+        f.arch_lookup = tuple(archs)
+        frames.append(f)
+    return ResultFrame.concat(frames)

@@ -1,9 +1,11 @@
 """Streaming sweep engine: constant-memory exploration with online
 Pareto / top-k / stats / histogram reduction (the port of
-``repro.explore.streaming``'s plain path).
+``repro.explore.streaming``).
 
-Chunks come from ``DesignSpace.iter_tables``; each is dispatched to the
-device as a pending handle, and a window of ``DISPATCH_AHEAD`` handles
+Chunks come from ``DesignSpace.iter_tables`` (a plain sweep) or from
+``JointTable.block_slices`` (co-exploration: arch blocks x HW chunks of
+the lazy cross product); each is dispatched to the device as a pending
+handle, and a window of ``DISPATCH_AHEAD`` handles
 stays in flight so host sampling overlaps device execution.  Every
 accumulator is chunk-order invariant and emits survivors in global row
 order, so streamed fronts and top-k are bit-identical to the one-shot
@@ -382,6 +384,12 @@ def default_explore_reducers() -> Dict[str, Reducer]:
   return {"pareto": ParetoAccumulator()}
 
 
+def default_co_reducers() -> Dict[str, Reducer]:
+  """The paper's default 3-objective joint-front reduction plan."""
+  return {"pareto": ParetoAccumulator(("top1_err", "energy_mj",
+                                       "area_mm2"))}
+
+
 def explore_tasks(backend, space: DesignSpace, layers, network: str,
                   n_per_type: int, seed: int, method: str, chunk_size: int,
                   reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
@@ -396,7 +404,7 @@ def explore_tasks(backend, space: DesignSpace, layers, network: str,
   plan = None
   if hasattr(backend, "fused_eval_pending"):
     from repro_torch.explore.device import build_plan
-    plan = build_plan(reducers)
+    plan = build_plan(reducers, joint=False)
   device_mode = hasattr(backend, "eval_pending")
   layers = tuple(layers)
 
@@ -445,3 +453,97 @@ def stream_explore(backend, space: DesignSpace, layers, network: str = "net",
   return run_stream(explore_tasks(backend, space, layers, network,
                                   n_per_type, seed, method, chunk_size,
                                   reducers), reducers)
+
+
+def co_explore_tasks(backend, space: DesignSpace, arch_accs,
+                     n_hw_per_type: int, seed: int, image_size: int,
+                     method: str, chunk_size: int,
+                     reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
+  """The chunk tasks of a streamed co-exploration: per PE type (HW
+  sampled with ``seed + 17 * ti``), the arch x HW cross product in
+  ``JointTable.block_slices`` blocks, global row ids from
+  ``block_indices``, so rows replicate the one-shot joint frame's
+  (pe_type, arch, hw) order.  Rungs as :func:`explore_tasks`:
+  ``fused-device`` (``fused_co_eval_pending``, when every reducer is
+  fusable), then ``device`` (``co_eval_pending``); any other backend
+  evaluates each block with its ``co_evaluate_table``."""
+  from repro_torch.core.dataflow import LayerStack
+  from repro_torch.core.supernet import arch_to_layers
+  if not hasattr(backend, "co_evaluate_table"):
+    raise ValueError(f"backend {backend.name!r} has no co_evaluate_table; "
+                     "streaming requires the joint columnar path")
+  archs = tuple(arch for arch, _ in arch_accs)
+  accs = np.asarray([float(acc) for _, acc in arch_accs], np.float64)
+  stack = LayerStack.from_layer_lists(
+      [arch_to_layers(a, image_size=image_size) for a in archs])
+  plan = None
+  if hasattr(backend, "fused_co_eval_pending"):
+    from repro_torch.explore.device import build_plan
+    plan = build_plan(reducers, joint=True)
+  device_mode = hasattr(backend, "co_eval_pending")
+  if device_mode:
+    # one distinct-layer factorization for the whole sweep, placed on the
+    # device once: every block gathers from the same unique rows
+    unique_cols, slot_ids = backend.place_dedup(stack.dedup_slots())
+
+  def make_task(hw_sub, sub_stack, a_sl, idx, ci) -> ChunkTask:
+    a_lo = a_sl.start
+    rungs = []
+    if plan is not None:
+      rungs.append(Rung(
+          "fused-device",
+          lambda: backend.fused_co_eval_pending(
+              hw_sub, sub_stack, "coexplore", plan, idx, a_lo, accs[a_sl],
+              archs, dedup=(unique_cols, slot_ids[a_sl])),
+          layer="device"))
+    if device_mode:
+      rungs.append(Rung(
+          "device",
+          lambda: backend.co_eval_pending(
+              hw_sub, sub_stack, "coexplore", idx, a_lo, accs[a_sl], archs,
+              dedup=(unique_cols, slot_ids[a_sl])),
+          layer="device"))
+    else:
+      def run():
+        f = backend.co_evaluate_table(hw_sub, sub_stack, network="coexplore")
+        f.extra["arch_id"] = f.extra["arch_id"] + a_lo
+        f.extra["top1"] = accs[f.extra["arch_id"]]
+        f.arch_lookup = archs
+        return f, idx
+      rungs.append(Rung("co_evaluate_table", run, layer="backend"))
+    return ChunkTask(index=ci, rungs=tuple(rungs))
+
+  def gen() -> Iterator[ChunkTask]:
+    offset = 0
+    ci = 0
+    for ti, pe_type in enumerate(space.pe_types):
+      hw = space.sample_type_table(pe_type, n_hw_per_type,
+                                   seed=seed + 17 * ti, method=method)
+      joint = hw.cross(stack.n_archs)
+      for a_sl, h_sl in joint.block_slices(chunk_size):
+        idx = offset + joint.block_indices(a_sl, h_sl)
+        yield make_task(hw.select(h_sl),
+                        stack.slice_archs(a_sl.start, a_sl.stop),
+                        a_sl, idx, ci)
+        ci += 1
+      offset += len(joint)
+
+  return gen()
+
+
+def stream_co_explore(backend, space: DesignSpace, arch_accs,
+                      n_hw_per_type: int = 20, seed: int = 3,
+                      image_size: int = 32, method: str = "random",
+                      reducers: Optional[Dict[str, Reducer]] = None,
+                      chunk_size: int = 65536) -> StreamResult:
+  """Joint HW x NN co-exploration in bounded memory: the arch x HW cross
+  product is visited in ``JointTable.block_slices`` blocks (HW sampled
+  once per PE type; the product never materializes).  Chunk frames carry
+  the one-shot joint frame's ``top1`` / ``arch_id`` / ``arch_lookup``
+  columns and global row ids.  Default reducers: the paper's
+  3-objective (top1_err, energy_mj, area_mm2) joint front."""
+  if reducers is None:
+    reducers = default_co_reducers()
+  return run_stream(co_explore_tasks(backend, space, arch_accs,
+                                     n_hw_per_type, seed, image_size,
+                                     method, chunk_size, reducers), reducers)

@@ -1,6 +1,7 @@
 """The port on a CUDA card: each hand-written kernel against its plain
-torch version, and the device sweep, the polynomial PPA models, the
-serving engine (qwen3-0.6b and rwkv6-1.6b) and the deploy codecs against
+torch version, and the device sweep, co-exploration (the joint oracle,
+the grouped prefilter, fused joint chunks), the polynomial PPA models,
+the serving engine (qwen3-0.6b and rwkv6-1.6b) and the deploy codecs against
 the same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
@@ -15,11 +16,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.cnn import SEARCH_SPACE, ArchChoice
+from repro_torch.core.supernet import arch_to_layers
 from repro_torch.core.workloads import get_network
 from repro_torch.explore import (DesignSpace, HistogramAccumulator,
-                                 ParetoAccumulator, PolynomialBackend,
-                                 StatsAccumulator, TopKAccumulator,
-                                 TorchOracleBackend, stream_explore)
+                                 LayerStack, ParetoAccumulator,
+                                 PolynomialBackend, StatsAccumulator,
+                                 TopKAccumulator, TorchOracleBackend,
+                                 stream_co_explore, stream_explore)
+from repro_torch.explore import device as device_lib
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -151,6 +156,133 @@ def test_fused_stream_identical_to_cpu(cuda):
   np.testing.assert_array_equal(g["hist"]["counts"], c["hist"]["counts"])
   for k, v in c["stats"].items():
     assert g["stats"][k] == pytest.approx(v, rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# co-exploration: the joint oracle, the grouped prefilter and the fused
+# joint chunk on the card against the same code on the CPU
+# ---------------------------------------------------------------------------
+
+def _joint_stack(n_archs, seed, image_size=16):
+  """Table-4 architectures from ``RandomState(seed)`` plus a one-layer
+  network, and their accuracies."""
+  rng = np.random.RandomState(seed)
+  archs = [ArchChoice(tuple((int(rng.choice(reps)), int(rng.choice(chs)))
+                            for reps, chs in SEARCH_SPACE))
+           for _ in range(n_archs - 1)]
+  lists = [arch_to_layers(a, image_size=image_size) for a in archs]
+  lists.append(lists[0][:1])
+  return LayerStack.from_layer_lists(lists), rng.uniform(0.5, 0.95, n_archs)
+
+
+def _joint_reducers():
+  return {"pareto": ParetoAccumulator(("top1_err", "energy_mj", "area_mm2")),
+          "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
+                                        "area_mm2")),
+          "fig12": ParetoAccumulator(("top1_err", "energy_mj")),
+          "top": TopKAccumulator(25, by="energy_mj"),
+          "stats": StatsAccumulator("energy_mj"),
+          "hist": HistogramAccumulator("top1_err", 0.0, 0.5, bins=16)}
+
+
+@pytest.mark.parametrize("chunk_size", [97, 4096])
+def test_joint_oracle_on_the_card_equals_the_cpu(cuda, chunk_size):
+  """co_evaluate_table's HW chunks cut every arch's row (97 // 9 = 10 HW
+  rows a chunk); one row of the stack is a one-layer network."""
+  stack, _ = _joint_stack(9, seed=3)
+  assert stack.n_layers().min() == 1
+  hw = DesignSpace().sample_table(60, seed=4)
+  got = TorchOracleBackend(chunk_size=chunk_size).co_evaluate_table(hw, stack)
+  want = TorchOracleBackend(chunk_size=chunk_size,
+                            device="cpu").co_evaluate_table(hw, stack)
+  for c in METRICS:
+    np.testing.assert_array_equal(got.column(c), want.column(c), err_msg=c)
+  np.testing.assert_array_equal(got.extra["arch_id"], want.extra["arch_id"])
+
+
+def test_grouped_prefilter_k1_branch_matches_plain_version(cuda):
+  """Three varying objectives of a joint block go through K1 over the
+  flattened (A x H) rows, every column of the spec stacked."""
+  stack, accs = _joint_stack(12, seed=5)
+  hw = DesignSpace(pe_types=("INT16",)).sample_table(700, seed=6)
+  spec = device_lib.ParetoSpec(("top1_err", "latency_s", "energy_mj",
+                                "area_mm2"), ())
+  masks = []
+  for dev in (cuda, torch.device("cpu")):
+    backend = TorchOracleBackend(device=dev)
+    _, reduced = backend._co_dispatch(
+        hw, stack, plan=device_lib.DevicePlan((("p", spec),)), accs=accs)
+    full = backend._co_dispatch(hw, stack, accs=accs)
+    lat = full[0]
+    cols = device_lib._derive_columns(
+        lat, full[1][None, :].expand(lat.shape),
+        full[2][None, :].expand(lat.shape),
+        accs=torch.from_numpy(accs).to(dev))
+    kernel.reset_launch_counts()
+    masks.append(device_lib._pareto_prefilter(cols, spec, grouped=True).cpu())
+    launches = kernel.LAUNCHES["block_dominance_counts"]
+    assert launches == (1 if dev.type == "cuda" else 0)
+    assert int(reduced["p"]["count"]) == int(masks[-1].sum())
+  assert torch.equal(masks[0], masks[1])
+  assert 0 < int(masks[0].sum()) < masks[0].numel()
+
+
+@pytest.mark.parametrize("cap", [device_lib.DEFAULT_SURVIVOR_CAP, 8])
+def test_fused_joint_chunk_on_the_card_equals_the_cpu(cuda, cap):
+  """A fused joint block's payloads (survivors with their arch columns,
+  the overflow fallback at a cap of 8, stats, histogram) card vs CPU."""
+  stack, accs = _joint_stack(10, seed=7)
+  hw = DesignSpace().sample_table(50, seed=8)
+  plan = device_lib.build_plan(_joint_reducers(), joint=True, cap=cap)
+  idx = 1000 + np.arange(len(hw) * stack.n_archs)
+  archs = tuple(range(20))
+  chunks = [TorchOracleBackend(device=dev).fused_co_eval_pending(
+      hw, stack, "coexplore", plan, idx, 5, accs, archs).resolve()
+      for dev in (cuda, "cpu")]
+  g, c = chunks
+  assert (g.n_rows, g.n_transferred, g.n_overflows) == \
+      (c.n_rows, c.n_transferred, c.n_overflows)
+  assert (c.n_overflows > 0) == (cap == 8)
+  for name in ("pareto", "pareto3", "fig12", "top"):
+    (_, gf, gi), (_, cf, ci) = g.payloads[name], c.payloads[name]
+    np.testing.assert_array_equal(gi, ci)
+    for col in METRICS + ("arch_id", "top1"):
+      np.testing.assert_array_equal(gf.column(col), cf.column(col))
+  np.testing.assert_array_equal(g.payloads["hist"][1], c.payloads["hist"][1])
+  for k, v in c.payloads["stats"][1].items():
+    assert g.payloads["stats"][1][k] == pytest.approx(v, rel=1e-12)
+
+
+def test_stream_co_explore_on_the_card_equals_the_cpu(cuda):
+  archs = (ArchChoice(((1, 40), (2, 96), (1, 160), (3, 320), (2, 512))),
+           ArchChoice(((2, 64), (1, 80), (3, 256), (1, 384), (1, 320))),
+           ArchChoice(((1, 48), (1, 112), (2, 192), (2, 448), (3, 384))))
+  arch_accs = list(zip(archs, (0.61, 0.83, 0.77)))
+  res = {}
+  for dev in ("cuda", "cpu"):
+    res[dev] = stream_co_explore(
+        TorchOracleBackend(device=dev), DesignSpace(), arch_accs,
+        n_hw_per_type=45, seed=3, image_size=16, reducers=_joint_reducers(),
+        chunk_size=40)  # 45 HW rows a type: every arch's row cut in two
+  g, c = res["cuda"], res["cpu"]
+  assert g.meta["n_chunks"] == c.meta["n_chunks"] == 3 * 2 * 4
+  for name in ("pareto", "pareto3", "fig12", "top"):
+    for col in METRICS + ("arch_id", "top1"):
+      np.testing.assert_array_equal(g[name].column(col), c[name].column(col))
+  np.testing.assert_array_equal(g["hist"]["counts"], c["hist"]["counts"])
+
+
+def test_poly_co_evaluate_table_across_the_chunk_edge(cuda, poly_models):
+  """The joint polynomial path over more HW rows than one chunk of
+  ``32,768 // max_layers``: card and CPU bit-equal."""
+  gpu, cpu = _poly_pair(poly_models, cuda)
+  stack, _ = _joint_stack(3, seed=9)
+  edge = 32768 // stack.max_layers
+  hw = DesignSpace(pe_types=("INT16",)).sample_table(edge + 3, seed=10)
+  got = gpu.co_evaluate_table(hw, stack)
+  want = cpu.co_evaluate_table(hw, stack)
+  for c in METRICS:
+    np.testing.assert_array_equal(got.column(c), want.column(c), err_msg=c)
 
 
 # ---------------------------------------------------------------------------

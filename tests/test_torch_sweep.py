@@ -161,7 +161,8 @@ def test_cap_overflow_falls_back_to_the_full_chunk(layers, port_layers,
   want = RS.stream_explore(R.VectorOracleBackend(), R.DesignSpace(), layers,
                            n_per_type=80, seed=11, reducers=want_red,
                            chunk_size=120)
-  plan = device_lib.build_plan(got_red, cap=2)  # < every chunk's front
+  plan = device_lib.build_plan(got_red, joint=False,
+                               cap=2)  # < every chunk's front
   tasks = [
       (lambda c=c, idx=idx: backend.fused_eval_pending(
           c, port_layers, "net", plan, idx))
