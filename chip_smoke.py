@@ -22,7 +22,15 @@ same code on the CPU.  HW x NN co-exploration follows: 1,000
 architectures x 10,000 HW designs (10,000,000 pairs) streamed through
 ``ExplorationSession(TorchOracleBackend()).co_explore(..., stream=True)``
 on the card, one block's stages, a smaller joint stream held against
-the CPU, and the polynomial joint path.  Then it serves
+the CPU, and the polynomial joint path.  Guided search follows: the
+README's NSGA-II benchmark (24 architectures, population 48, 24
+generations; guided, surrogate and random arms) through
+``ExplorationSession(TorchOracleBackend()).optimize`` on the card, held
+to the reference's record bit for bit, a HW-only search held card
+against CPU, one generation's stages, and the fault tolerance on the
+card (a search killed and resumed from its journal, injected device
+faults demoted along the card's ladder, co-explorations resumed on the
+card and on the CPU, an injected hang under the watchdog).  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
@@ -94,6 +102,31 @@ CO_PARITY = (100, 500, 16384)
 CO_POLY = (100, 250)
 CO_POLY_PARITY_ARCHS = 10
 CO_RECORD = ROOT / "results" / "BENCH_streaming.json"
+
+# guided search: the README's benchmark (``benchmarks/search_perf.py``,
+# its record results/BENCH_search.json), nothing cut: 24 Table-4
+# architectures drawn as co_arch_accs draws them, population 48, 24
+# generations, seed 7 (the random arm: one generation of the guided arm's
+# budget, seed 8); the HW-only search of resnet20: population 48, 24
+# generations, seed 17; the breakdown's journaled prefix; the generation
+# [resilience] (a) kills
+SEARCH = dict(n_archs=24, population=48, generations=24, seed=7)
+SEARCH_OBJ = ("top1_err", "energy_mj", "area_mm2")
+SEARCH_HW = dict(population=48, generations=24, seed=17)
+SEARCH_RECORD = ROOT / "results" / "BENCH_search.json"
+SEARCH_BREAKDOWN_GENS = 4
+SEARCH_KILL_GEN = 12
+BASE_COLS = ("latency_s", "power_mw", "area_mm2")
+SEARCH_COLS = BASE_COLS + ("top1", "arch_id")
+# fault tolerance: [parity]'s 100,000-design fused stream in 16,384-row
+# chunks under a seeded plan of device faults; co-explorations killed at a
+# block ([coexplore-parity]'s size, and a smaller one (archs, HW a type,
+# block) resumed on the CPU); a small stream under the watchdog
+RES_CHUNK = 16384
+RES_FAULT_SEED = 3
+RES_CO_KILL = 7
+RES_CO_SMALL = (20, 100, 512)
+RES_HANG = dict(n_per_type=2500, seed=9, chunk=4096)
 
 # serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
 # K5 decode shape (one slot's cache of 2,048 positions) and the traffic
@@ -664,6 +697,21 @@ def co_reducers():
           "top": TopKAccumulator(100, by="energy_mj")}
 
 
+def co_parity_reducers():
+  """[coexplore-parity]'s reducers: the joint front, a latency/energy/area
+  front (K1's branch), Fig. 12's 2-D front, top-100, stats, a
+  histogram."""
+  from repro_torch.explore import (HistogramAccumulator, ParetoAccumulator,
+                                   StatsAccumulator, TopKAccumulator)
+  return {"pareto": ParetoAccumulator(CO_JOINT3),
+          "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
+                                        "area_mm2")),
+          "fig12": ParetoAccumulator(("top1_err", "energy_mj")),
+          "top": TopKAccumulator(100, by="energy_mj"),
+          "stats": StatsAccumulator("energy_mj"),
+          "hist": HistogramAccumulator("top1_err", 0.0, 0.5, bins=16)}
+
+
 def phase_coexplore(smi):
   """The co-exploration main path: 1,000 archs x 10,000 HW designs
   through ``ExplorationSession.co_explore(stream=True)`` on the card."""
@@ -812,9 +860,7 @@ def phase_coexplore_parity():
   from repro_torch.core import oracle
   from repro_torch.core.dataflow import LayerStack
   from repro_torch.core.supernet import arch_to_layers
-  from repro_torch.explore import (DesignSpace, HistogramAccumulator,
-                                   ParetoAccumulator, StatsAccumulator,
-                                   TopKAccumulator, TorchOracleBackend)
+  from repro_torch.explore import DesignSpace, TorchOracleBackend
   from repro_torch.explore import device as device_lib
   from repro_torch.explore.streaming import stream_co_explore
   from repro_torch.kernels.pareto_front import kernel
@@ -844,22 +890,13 @@ def phase_coexplore_parity():
   if rel != 0.0:
     raise AssertionError("the joint oracle differs between cuda and cpu")
 
-  def reducers():
-    return {"pareto": ParetoAccumulator(CO_JOINT3),
-            "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
-                                          "area_mm2")),
-            "fig12": ParetoAccumulator(("top1_err", "energy_mj")),
-            "top": TopKAccumulator(100, by="energy_mj"),
-            "stats": StatsAccumulator("energy_mj"),
-            "hist": HistogramAccumulator("top1_err", 0.0, 0.5, bins=16)}
-
   streams = {}
   for dev in ("cuda", "cpu"):
     kernel.reset_launch_counts()
     streams[dev] = stream_co_explore(
         TorchOracleBackend(device=dev), space, arch_accs,
         n_hw_per_type=n_hw, seed=CO_SEED, image_size=CO_IMAGE,
-        reducers=reducers(), chunk_size=chunk)
+        reducers=co_parity_reducers(), chunk_size=chunk)
     if dev == "cuda":
       torch.cuda.synchronize()
       k1 = kernel.LAUNCHES["block_dominance_counts"]
@@ -938,6 +975,507 @@ def phase_coexplore_poly(backend, smi):
       f"{int(fig['front_area'].sum())} points, energy "
       f"{fig['energy'].min():.3f}x..{fig['energy'].max():.3f}x, area "
       f"{fig['area'].min():.3f}x..{fig['area'].max():.3f}x")
+
+
+# ---------------------------------------------------------------------------
+# guided search and its fault tolerance
+# ---------------------------------------------------------------------------
+
+def _kernel_modules():
+  """Every hand kernel's launch-count module."""
+  from repro_torch.kernels.flash_attention import kernel as fa_kernel
+  from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+  from repro_torch.kernels.pareto_front import kernel as pf_kernel
+  from repro_torch.kernels.pow2_matmul import kernel as p2_kernel
+  from repro_torch.kernels.quant_decode_attn import kernel as qda_kernel
+  from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+  return (pf_kernel, fa_kernel, qda_kernel, wkv_kernel, i8_kernel, p2_kernel)
+
+
+def _reset_kernel_counts() -> None:
+  for mod in _kernel_modules():
+    mod.reset_launch_counts()
+
+
+def _kernel_counts():
+  import torch
+  torch.cuda.synchronize()
+  return {name: n for mod in _kernel_modules()
+          for name, n in mod.LAUNCHES.items()}
+
+
+def _counted(obj, method: str):
+  """Count the calls of ``obj.method`` (wrapped as an instance
+  attribute); returns the counter."""
+  calls = {"n": 0}
+  inner = getattr(obj, method)
+
+  def call(*args, **kwargs):
+    calls["n"] += 1
+    return inner(*args, **kwargs)
+
+  setattr(obj, method, call)
+  return calls
+
+
+def _no_wait_policy(**kw):
+  from repro_torch.explore import ResiliencePolicy, RetryPolicy
+  return ResiliencePolicy(retry=RetryPolicy(sleep=lambda s: None), **kw)
+
+
+def _same_front(a, b, cols) -> bool:
+  import numpy as np
+  return len(a) == len(b) and all(
+      np.array_equal(a.column(c), b.column(c)) for c in cols)
+
+
+def _check_fault_free(tag, res) -> None:
+  if res.meta["n_retries"] or res.meta["n_demotions"]:
+    raise AssertionError(f"{tag}: {res.meta['n_retries']} retries, "
+                         f"{res.meta['n_demotions']} demotions without a "
+                         "fault")
+
+
+def _search_kwargs():
+  return dict(arch_accs=co_arch_accs(SEARCH["n_archs"]),
+              objectives=SEARCH_OBJ, population=SEARCH["population"],
+              seed=SEARCH["seed"])
+
+
+def phase_search(smi):
+  """The README's guided search: ``benchmarks/search_perf.py`` at full
+  scale through ``ExplorationSession(TorchOracleBackend()).optimize`` on
+  the card, nothing cut: the guided, surrogate and random arms and a
+  same-seed rerun, held bit for bit to the reference's record."""
+  import numpy as np
+  import torch
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   TorchOracleBackend)
+  from repro_torch.explore.search import hypervolume, objective_matrix
+  backend = TorchOracleBackend()
+  calls = _counted(backend, "evaluate_table")
+  session = ExplorationSession(backend, DesignSpace())
+  kw = _search_kwargs()
+  arms = {}
+
+  def run(name, **extra):
+    calls["n"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = session.optimize(**{**kw, **extra})
+    torch.cuda.synchronize()
+    arms[name] = (res, time.perf_counter() - t0, calls["n"])
+    _check_fault_free(f"[search] {name}", res)
+    return res
+
+  _reset_kernel_counts()
+  guided = run("guided", generations=SEARCH["generations"])
+  budget = int(guided.meta["evaluations"])
+  run("surrogate", generations=SEARCH["generations"], surrogate=True)
+  run("random", population=budget, generations=1, seed=SEARCH["seed"] + 1)
+  launches = _kernel_counts()
+  run("rerun", generations=SEARCH["generations"])
+  mats = {name: objective_matrix(arms[name][0]["pareto"], SEARCH_OBJ)
+          for name in ("guided", "surrogate", "random")}
+  union = np.concatenate(list(mats.values()), axis=0)
+  lo, hi = union.min(axis=0), union.max(axis=0)
+  ref = hi + 0.1 * np.maximum(hi - lo, 1e-12)
+  hv = {name: hypervolume(m, ref) for name, m in mats.items()}
+  ratio = hv["guided"] / max(hv["random"], 1e-300)
+  sur_ratio = hv["surrogate"] / max(hv["random"], 1e-300)
+  rerun = arms["rerun"][0]
+  same = (_same_front(guided["pareto"], rerun["pareto"], SEARCH_COLS)
+          and guided.meta["hypervolume"] == rerun.meta["hypervolume"])
+  for name, (res, secs, n_calls) in arms.items():
+    m = res.meta
+    log(f"[search] {name}: {int(m['evaluations'])} evaluations in "
+        f"{int(m['generations'])} generations, {secs:.3f} s "
+        f"({m['evaluations'] / secs:.1f} evaluations/s, "
+        f"{secs / m['generations'] * 1e3:.1f} ms a generation), "
+        f"{n_calls} evaluate_table calls on the card, front "
+        f"{len(res['pareto'])} points")
+  log(f"[search] hv_guided {hv['guided']!r}, hv_surrogate "
+      f"{hv['surrogate']!r}, hv_random {hv['random']!r}; ratios "
+      f"{ratio:.3f} (guided) and {sur_ratio:.3f} (surrogate) vs random; "
+      f"same-seed rerun identical: {same}; kernel launches in the three "
+      f"arms: {launches}; card: {smi}")
+  rec = json.loads(SEARCH_RECORD.read_text())
+  got = {"evaluations": budget,
+         "front_size_guided": len(guided["pareto"]),
+         "front_size_surrogate": len(arms["surrogate"][0]["pareto"]),
+         "front_size_random": len(arms["random"][0]["pareto"]),
+         "hv_guided": hv["guided"], "hv_surrogate": hv["surrogate"],
+         "hv_random": hv["random"]}
+  want = {k: rec[k] for k in got}
+  log(f"[search] results/BENCH_search.json (the reference on a CPU, "
+      f"commit {rec['provenance']['git_commit']}, guided "
+      f"{rec['guided_seconds']} s, surrogate {rec['surrogate_seconds']} s, "
+      f"random {rec['random_seconds']} s): {want}; this run: {got}")
+  if got != want:
+    raise AssertionError("[search] differs from the reference's record")
+  if ratio < 2.0:
+    raise AssertionError(f"[search] guided/random hypervolume {ratio:.3f} "
+                         "below the reference's 2x bar")
+  if not same:
+    raise AssertionError("[search] same-seed reruns differ")
+  return guided
+
+
+def phase_search_hw(layers):
+  """HW-only guided search of resnet20 on the card, then the same search
+  on the CPU: identical fronts, bit-equal hypervolume, one
+  ``eval_pending`` dispatch a generation."""
+  import torch
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   TorchOracleBackend)
+  gpu = TorchOracleBackend()
+  dispatches = _counted(gpu, "eval_pending")
+  res, secs = {}, {}
+  for dev, backend in (("cuda", gpu),
+                       ("cpu", TorchOracleBackend(device="cpu"))):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res[dev] = ExplorationSession(backend, DesignSpace()).optimize(
+        layers, "resnet20", **SEARCH_HW)
+    torch.cuda.synchronize()
+    secs[dev] = time.perf_counter() - t0
+    _check_fault_free(f"[search-hw] {dev}", res[dev])
+  g, c = res["cuda"], res["cpu"]
+  same = (_same_front(g["pareto"], c["pareto"], BASE_COLS)
+          and g.meta["hypervolume"] == c.meta["hypervolume"]
+          and g.meta["evaluations"] == c.meta["evaluations"])
+  log(f"[search-hw] resnet20, population {SEARCH_HW['population']}, "
+      f"{int(g.meta['generations'])} generations, seed {SEARCH_HW['seed']}: "
+      f"{int(g.meta['evaluations'])} evaluations, front "
+      f"{len(g['pareto'])} points, hypervolume {g.meta['hypervolume']!r}; "
+      f"card {secs['cuda']:.3f} s ({dispatches['n']} eval_pending "
+      f"dispatches), CPU {secs['cpu']:.3f} s; identical: {same}")
+  if not same:
+    raise AssertionError("[search-hw] card and CPU searches differ")
+  if dispatches["n"] != int(g.meta["generations"]):
+    raise AssertionError(f"[search-hw] {dispatches['n']} dispatches for "
+                         f"{int(g.meta['generations'])} generations")
+
+
+def _journal_state(jdir):
+  """The one guided-search checkpoint under ``jdir``."""
+  import pickle
+  (path,) = Path(jdir).glob("sweep-*.pkl")
+  with open(path, "rb") as f:
+    return pickle.load(f)["state"]
+
+
+def _generation_stages(space, evaluate, features, state, n_archs):
+  """One surrogate-screened generation after a journaled run's last,
+  stage by stage between syncs: (name, host ms, event ms) rows, and the
+  generation's evaluate call (for profiling)."""
+  import numpy as np
+  from repro_torch.core.seeding import derive_seed
+  from repro_torch.explore import ParetoAccumulator
+  from repro_torch.explore import search as S
+  population = SEARCH["population"]
+  rows = []
+  stage = lambda name, fn: timed_stage(rows, name, fn)
+  card = S._cardinalities(space, n_archs)
+  g = state["g_next"]
+  rng = np.random.RandomState(derive_seed("search-gen", SEARCH["seed"], g))
+  pop_genome, pop_obj = state["pop_genome"], state["pop_obj"]
+  xs, ys = list(state["xs"]), list(state["ys"])
+
+  def parents():
+    rank = S.nondominated_ranks(pop_obj)
+    return rank, S.crowding_distance(pop_obj, rank)
+
+  def variation():
+    cand = S._vary(pop_genome, rank, crowd, rng, card, population * 4, 0.9,
+                   1.0 / card.shape[0])
+    return S._repair(space, cand, rng, set(state["seen"]), card)
+
+  def screen():
+    models = S._fit_surrogates(np.concatenate(xs), np.concatenate(ys))
+    table = S._decode_table(space, cand)
+    arch = cand[:, -1] if n_archs is not None else None
+    x = features(table, arch)
+    pred = np.stack([m.predict(x) for m in models], axis=1)
+    front, ref = S._screen_front(np.concatenate(ys))
+    return cand[S._hv_gain_screen(pred, front, ref, population)]
+
+  rank, crowd = stage("ranks + crowding of the parents", parents)
+  cand = stage("variation + repair (4 x population)", variation)
+  chosen = stage("surrogate fit + screen", screen)
+  table = S._decode_table(space, chosen)
+  arch = chosen[:, -1].copy() if n_archs is not None else None
+  idx = np.arange(state["offset"], state["offset"] + len(chosen))
+
+  def run_eval():
+    out = evaluate(table, idx, arch)
+    return out.resolve() if hasattr(out, "resolve") else out
+
+  frame, idx = stage("evaluate", run_eval)
+  acc = ParetoAccumulator(state["reducers"]["pareto"]["state"]["cols"])
+  acc.restore(state["reducers"]["pareto"])
+  stage("fold into the front", lambda: acc.fold(frame, idx))
+  obj = S.objective_matrix(frame, acc.cols)
+
+  def select():
+    allo = np.concatenate([pop_obj, obj])
+    r = S.nondominated_ranks(allo)
+    c = S.crowding_distance(allo, r)
+    return np.lexsort((np.arange(allo.shape[0]), -c, r))[:population]
+
+  stage("ranks + crowding + survivor selection", select)
+  return rows, run_eval
+
+
+def phase_search_breakdown(layers):
+  """Where one generation's time goes, joint and HW-only: a surrogate
+  search journaled for a few generations, then the next generation's
+  stages between syncs, host and event ms (the first pass warms
+  caches; the second is reported)."""
+  import shutil
+  import tempfile
+  import numpy as np
+  from repro_torch.core.supernet import arch_to_layers
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   TorchOracleBackend)
+  from repro_torch.explore import search as S
+  from repro_torch.explore.session import (hw_evaluator, joint_evaluator,
+                                           joint_features)
+  backend = TorchOracleBackend()
+  calls = _counted(backend, "evaluate_table")
+  dispatches = _counted(backend, "eval_pending")
+  session = ExplorationSession(backend, DesignSpace())
+  kw = _search_kwargs()
+  archs = [a for a, _ in kw["arch_accs"]]
+  accs = np.asarray([acc for _, acc in kw["arch_accs"]], np.float64)
+  arch_layers = [arch_to_layers(a, image_size=32) for a in archs]
+  cases = (
+      ("joint", dict(kw), joint_evaluator(backend, archs, accs, arch_layers,
+                                          "search"),
+       joint_features(accs), len(archs)),
+      ("hw-only", dict(layers=layers, network="resnet20",
+                       population=SEARCH_HW["population"],
+                       seed=SEARCH["seed"]),
+       hw_evaluator(backend, layers, "resnet20"), S.default_features, None))
+  root = ROOT / "build"
+  root.mkdir(exist_ok=True)
+  for tag, opt_kw, evaluate, features, n_archs in cases:
+    jdir = tempfile.mkdtemp(prefix="search-breakdown-", dir=root)
+    try:
+      session.optimize(generations=SEARCH_BREAKDOWN_GENS, surrogate=True,
+                       resume_from=jdir, **opt_kw)
+      state = _journal_state(jdir)
+    finally:
+      shutil.rmtree(jdir)
+    for _ in range(2):
+      calls["n"] = dispatches["n"] = 0
+      rows, run_eval = _generation_stages(session.space, evaluate, features,
+                                          state, n_archs)
+    total_host = sum(h for _, h, _ in rows)
+    for name, host_ms, event_ms in rows:
+      if name == "evaluate":
+        eval_ms = event_ms
+        name += (f" ({calls['n']} evaluate_table calls)" if n_archs
+                 else f" ({dispatches['n']} eval_pending dispatch)")
+      log(f"[search-breakdown] {tag} generation {state['g_next']}: {name}: "
+          f"host {host_ms:.3f} ms, events {event_ms:.3f} ms")
+    device_ms = _device_profile("search-breakdown", f"{tag} evaluate",
+                                run_eval)
+    busy = ("not measured" if device_ms is None
+            else f"{device_ms / eval_ms:.1%} of its evaluate stage, "
+            f"{device_ms / total_host:.1%} of the generation")
+    log(f"[search-breakdown] {tag}: {total_host:.3f} ms a screened "
+        f"generation on the host clock; the card is busy {busy}")
+
+
+def _stream_results_equal(a, b, names) -> bool:
+  import numpy as np
+  return (all(_same_front(a[n], b[n], BASE_COLS) for n in names)
+          and np.array_equal(a["hist"]["counts"], b["hist"]["counts"]))
+
+
+def _stats_close(a, b) -> bool:
+  return all(abs(a[k] - v) <= 1e-12 * abs(v) for k, v in b.items())
+
+
+def phase_resilience(layers, guided):
+  """The fault tolerance on the card: (a) the guided search killed at a
+  generation and resumed from its journal; (b) [parity]'s fused stream
+  under a seeded plan of device faults; (c) a co-exploration killed at a
+  block and resumed on the card, and a smaller one resumed on the CPU;
+  (d) an injected hang on a CUDA pending handle under the watchdog."""
+  import shutil
+  import tempfile
+  import numpy as np
+  import torch
+  from repro_torch.explore import (ChunkError, DesignSpace,
+                                   ExplorationSession, Fault, FaultPlan,
+                                   TorchOracleBackend)
+  from repro_torch.explore.device import build_plan
+  from repro_torch.explore.streaming import (DISPATCH_AHEAD, explore_tasks,
+                                             stream_co_explore,
+                                             stream_explore)
+  from repro_torch.kernels.pareto_front import kernel
+  space = DesignSpace()
+  root = ROOT / "build"
+  root.mkdir(exist_ok=True)
+  jroot = Path(tempfile.mkdtemp(prefix="resilience-", dir=root))
+  try:
+    # (a) the guided search, killed at a generation, resumed
+    session = ExplorationSession(TorchOracleBackend(), space)
+    kw = dict(_search_kwargs(), generations=SEARCH["generations"])
+    kill = _no_wait_policy(fault_plan=FaultPlan(
+        [Fault("kill", SEARCH_KILL_GEN, "task")]))
+    try:
+      session.optimize(policy=kill, resume_from=jroot / "a", **kw)
+    except ChunkError as e:
+      if e.chunk_index != SEARCH_KILL_GEN:
+        raise
+    else:
+      raise AssertionError("[resilience] the injected kill did not fire")
+    t0 = time.perf_counter()
+    res = session.optimize(resume_from=jroot / "a", **kw)
+    secs = time.perf_counter() - t0
+    _check_fault_free("[resilience] (a) resumed", res)
+    same = (_same_front(res["pareto"], guided["pareto"], SEARCH_COLS)
+            and res.meta["hypervolume"] == guided.meta["hypervolume"]
+            and res.meta["evaluations"] == guided.meta["evaluations"])
+    log(f"[resilience] (a) guided search killed at generation "
+        f"{SEARCH_KILL_GEN} (ChunkError), resumed in {secs:.3f} s: "
+        f"n_resumed_chunks {int(res.meta['n_resumed_chunks'])}, "
+        f"{int(res.meta['evaluations'])} evaluations, front "
+        f"{len(res['pareto'])} points, identical to [search]'s guided arm: "
+        f"{same}")
+    if not same or res.meta["n_resumed_chunks"] != SEARCH_KILL_GEN:
+      raise AssertionError("[resilience] (a) the resumed search differs")
+
+    # (b) device faults on the fused stream: demotions to the card's
+    # unfused rung, results unchanged
+    backend = TorchOracleBackend(chunk_size=RES_CHUNK)
+
+    def sweep(policy):
+      kernel.reset_launch_counts()
+      out = stream_explore(backend, space, layers, "resnet20",
+                           n_per_type=25_000, seed=5,
+                           reducers=sweep_reducers(), chunk_size=RES_CHUNK,
+                           policy=policy)
+      torch.cuda.synchronize()
+      return out, kernel.LAUNCHES["block_dominance_counts"]
+
+    clean, k1_clean = sweep(_no_wait_policy())
+    _check_fault_free("[resilience] (b) fault-free", clean)
+    n_chunks = int(clean.meta["n_chunks"])
+    plan = FaultPlan.seeded(RES_FAULT_SEED, n_chunks, p_raise=0.5,
+                            layer="device", times=3)
+    pol = _no_wait_policy(fault_plan=plan)
+    faulty, k1 = sweep(pol)
+    rungs = [r.name for r in next(explore_tasks(
+        backend, space, layers, "resnet20", 25_000, 5, "random", RES_CHUNK,
+        sweep_reducers())).rungs]
+    same = (_stream_results_equal(faulty, clean, ("pareto", "pareto3", "top"))
+            and _stats_close(faulty["stats"], clean["stats"]))
+    log(f"[resilience] (b) 100,000-design fused stream, {n_chunks} chunks, "
+        f"ladder {rungs}: seeded plan of {len(plan.faults)} device faults "
+        f"(3 failures each) at chunks {[f.chunk for f in plan.faults]}: "
+        f"n_retries {int(faulty.meta['n_retries'])}, n_demotions "
+        f"{int(faulty.meta['n_demotions'])} {pol.demotions}; K1 launches "
+        f"{k1} (fault-free {k1_clean}); fronts, top-k and histogram "
+        f"identical to the fault-free run, stats within 1e-12: {same}")
+    if not same or not pol.demotions:
+      raise AssertionError("[resilience] (b) faults changed the results")
+    if any(name != "fused-device" for _, name, _ in pol.demotions) or \
+        rungs != ["fused-device", "device"]:
+      raise AssertionError("[resilience] (b) a demotion left the card")
+    if k1 != n_chunks - len(pol.demotions):
+      raise AssertionError(f"[resilience] (b) K1 launched {k1} times")
+
+    # (c) a co-exploration killed at a block, resumed on the card; a
+    # smaller one killed on the card, resumed on the CPU
+    def co(dev, size, policy=None, jdir=None):
+      n_archs, n_hw, chunk = size
+      return stream_co_explore(
+          TorchOracleBackend(device=dev), space, co_arch_accs(n_archs),
+          n_hw_per_type=n_hw, seed=CO_SEED, image_size=CO_IMAGE,
+          reducers=co_parity_reducers(), chunk_size=chunk, policy=policy,
+          resume_from=jdir)
+
+    names = ("pareto", "pareto3", "fig12", "top")
+    for tag, size, resume_dev in (("card", CO_PARITY, "cuda"),
+                                  ("CPU", RES_CO_SMALL, "cpu")):
+      want = co(resume_dev, size, policy=_no_wait_policy())
+      _check_fault_free(f"[resilience] (c) {tag}", want)
+      jdir = jroot / f"c-{tag}"
+      try:
+        co("cuda", size, jdir=jdir, policy=_no_wait_policy(
+            fault_plan=FaultPlan([Fault("kill", RES_CO_KILL, "task")])))
+      except ChunkError as e:
+        if e.chunk_index != RES_CO_KILL:
+          raise
+      else:
+        raise AssertionError("[resilience] (c) the injected kill did not "
+                             "fire")
+      got = co(resume_dev, size, jdir=jdir)
+      same = (_stream_results_equal(got, want, names)
+              and _stats_close(got["stats"], want["stats"]))
+      log(f"[resilience] (c) co-exploration {size[0]} archs x {size[1]} HW "
+          f"a type, {int(want.meta['n_chunks'])} blocks of {size[2]}, killed "
+          f"on the card at block {RES_CO_KILL}, resumed on the {tag}: "
+          f"n_resumed_chunks {int(got.meta['n_resumed_chunks'])} (the "
+          f"{DISPATCH_AHEAD} blocks in flight run again); fronts, top-k and "
+          f"histogram identical to an uninterrupted {tag} run, stats within "
+          f"1e-12: {same}")
+      if not same or got.meta["n_resumed_chunks"] != \
+          RES_CO_KILL - DISPATCH_AHEAD:
+        raise AssertionError(f"[resilience] (c) the {tag} resume differs")
+
+    # (d) an injected hang at a CUDA handle's resolution under the
+    # watchdog, and the helper thread on the handle's device and stream
+    backend = TorchOracleBackend(chunk_size=RES_HANG["chunk"])
+
+    def small(policy):
+      return stream_explore(backend, space, layers, "resnet20",
+                            n_per_type=RES_HANG["n_per_type"],
+                            seed=RES_HANG["seed"], reducers=sweep_reducers(),
+                            chunk_size=RES_HANG["chunk"], policy=policy)
+
+    calm = _no_wait_policy(resolve_timeout=30.0)
+    want = small(calm)
+    _check_fault_free("[resilience] (d) fault-free", want)
+    pol = _no_wait_policy(resolve_timeout=30.0, fault_plan=FaultPlan(
+        [Fault("hang", 1, "device")]))
+    got = small(pol)
+    same = _stream_results_equal(got, want, ("pareto", "pareto3", "top"))
+    chunk = next(space.iter_tables(RES_HANG["n_per_type"],
+                                   seed=RES_HANG["seed"],
+                                   chunk_size=RES_HANG["chunk"]))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+      pend = backend.fused_eval_pending(
+          chunk, tuple(layers), "resnet20",
+          build_plan(sweep_reducers(), joint=False), np.arange(len(chunk)))
+
+    class Probe:
+      device, stream = pend.device, pend.stream
+
+      def resolve(self):
+        self.seen = (torch.cuda.current_device(),
+                     torch.cuda.current_stream())
+        return pend.resolve()
+
+    probe = Probe()
+    calm._timed_resolve(probe)
+    on_handle = (probe.seen[0] == pend.device.index
+                 and probe.seen[1] == side)
+    log(f"[resilience] (d) injected hang at chunk 1's resolution under a "
+        f"30 s watchdog: demotions {pol.demotions}, results identical: "
+        f"{same}; n_leaked_watchdogs {int(got.meta['n_leaked_watchdogs'])} "
+        f"(fault-free {int(want.meta['n_leaked_watchdogs'])}); a helper "
+        f"thread resolves on the handle's device and stream: {on_handle}")
+    if (not same or pol.demotions != [(1, "fused-device", "resolve")]
+        or got.meta["n_leaked_watchdogs"] or not on_handle):
+      raise AssertionError("[resilience] (d) the watchdog path failed")
+  finally:
+    shutil.rmtree(jroot, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1367,6 +1905,7 @@ def _device_profile(tag, name, fn):
       f"{total_us / 1e3:.3f} ms of device time: {parts}")
   for us, n, key in sorted(kernels, reverse=True)[:PROFILE_TOP]:
     log(f"[{tag}-profile]   {us / 1e3:.3f} ms in {n} x {key[:90]}")
+  return total_us / 1e3
 
 
 def phase_decode_graph(tag, model, params, prompt, eager_ms):
@@ -1845,6 +2384,14 @@ def main() -> int:
   co_parity = phase_coexplore_parity()
   phase_coexplore_poly(poly_backend, smi)
   del poly_backend
+  t_search = time.perf_counter()
+  guided = phase_search(smi)
+  phase_search_hw(layers)
+  phase_search_breakdown(layers)
+  phase_resilience(layers, guided)
+  del guided
+  log(f"[resilience] [search] through [resilience]: "
+      f"{time.perf_counter() - t_search:.1f} s")
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()
@@ -1862,7 +2409,9 @@ def main() -> int:
       "serve-rwkv run; K3, K4: the codecs run); on the co-exploration "
       f"path K1 launched {co_parity['k1_launches']} times in "
       f"[coexplore-parity] ({co_parity['n_chunks']} blocks), no kernel in "
-      "[coexplore] (its joint front projects top1_err out: a staircase):")
+      "[coexplore] (its joint front projects top1_err out: a staircase); "
+      "guided search ranks on the host and launches none ([search]), K1 "
+      "runs in [resilience]'s fused stream:")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

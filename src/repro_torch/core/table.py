@@ -179,6 +179,19 @@ class ConfigTable:
     """Cross product with ``n_archs`` integer-coded architectures."""
     return JointTable(hw=self, n_archs=n_archs)
 
+  def row_keys(self) -> List[bytes]:
+    """Per-row identity keys: equal keys iff equal design points (PE type
+    name + every knob value), independent of each table's ``pe_code``
+    vocabulary.  O(n) Python-level keys, for population-scale dedup
+    checks (the guided search's evaluated points), not million-row
+    sweeps."""
+    vals = np.ascontiguousarray(np.stack(
+        [getattr(self, name).astype(np.float64) for name in COLUMNS],
+        axis=1))
+    names = self.pe_type_strings()
+    return [str(names[i]).encode() + b"|" + vals[i].tobytes()
+            for i in range(len(self))]
+
   def __repr__(self) -> str:
     return (f"ConfigTable({len(self)} rows, "
             f"pe_types={list(self.pe_type_names)})")

@@ -2,7 +2,10 @@
 oracle, the exact oracle on a torch device, the polynomial PPA models),
 fused device sweep, streaming reducers, the columnar result frame with
 its best-INT16 normalization, HW x NN co-exploration (``JointTable``,
-``LayerStack``, ``stream_co_explore``), and the session facade."""
+``LayerStack``, ``stream_co_explore``), guided NSGA-II search
+(``guided_search``, ``hypervolume``), fault tolerance (retry, the
+degradation ladder, journaled resume, fault injection), and the session
+facade."""
 from repro_torch.core.dataflow import LayerStack
 from repro_torch.core.table import ConfigTable, JointTable
 from repro_torch.explore.backend import (OracleBackend, PolynomialBackend,
@@ -11,6 +14,15 @@ from repro_torch.explore.backend import (OracleBackend, PolynomialBackend,
 from repro_torch.explore.frame import (DesignPoint, Normalized, ResultFrame,
                                        pareto_mask, stable_topk_indices,
                                        summary_stats)
+from repro_torch.explore.resilience import (ChunkError, ChunkTask,
+                                            CircuitBreaker, Fault,
+                                            FaultInjected, FaultPlan,
+                                            InjectedHang, ResiliencePolicy,
+                                            RetryPolicy, Rung, SweepJournal,
+                                            SweepKilled, sweep_key)
+from repro_torch.explore.search import (crowding_distance, guided_search,
+                                        hypervolume, nondominated_ranks,
+                                        objective_matrix)
 from repro_torch.explore.session import ExplorationSession
 from repro_torch.explore.space import (AXIS_ORDER, Axis, DesignSpace,
                                        VectorConstraint, vector_constraint)
@@ -22,13 +34,17 @@ from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
                                            TopKAccumulator, run_stream,
                                            stream_co_explore, stream_explore)
 
-__all__ = ["AXIS_ORDER", "Axis", "CollectAccumulator", "ConfigTable",
-           "DesignPoint", "DesignSpace", "ExplorationSession",
-           "HistogramAccumulator", "JointTable", "LayerStack", "Normalized",
-           "OracleBackend", "ParetoAccumulator", "PolynomialBackend",
-           "Reducer", "ResultFrame", "STREAM_AUTO_MIN_ROWS",
-           "StatsAccumulator", "StreamResult", "TopKAccumulator",
-           "TorchOracleBackend", "VectorConstraint", "gbuf_overheads",
-           "gbuf_overheads_table", "pareto_mask", "run_stream",
-           "stable_topk_indices", "stream_co_explore", "stream_explore",
-           "summary_stats", "vector_constraint"]
+__all__ = ["AXIS_ORDER", "Axis", "ChunkError", "ChunkTask", "CircuitBreaker",
+           "CollectAccumulator", "ConfigTable", "DesignPoint", "DesignSpace",
+           "ExplorationSession", "Fault", "FaultInjected", "FaultPlan",
+           "HistogramAccumulator", "InjectedHang", "JointTable", "LayerStack",
+           "Normalized", "OracleBackend", "ParetoAccumulator",
+           "PolynomialBackend", "Reducer", "ResiliencePolicy", "ResultFrame",
+           "RetryPolicy", "Rung", "STREAM_AUTO_MIN_ROWS", "StatsAccumulator",
+           "StreamResult", "SweepJournal", "SweepKilled", "TopKAccumulator",
+           "TorchOracleBackend", "VectorConstraint", "crowding_distance",
+           "gbuf_overheads", "gbuf_overheads_table", "guided_search",
+           "hypervolume", "nondominated_ranks", "objective_matrix",
+           "pareto_mask", "run_stream", "stable_topk_indices",
+           "stream_co_explore", "stream_explore", "summary_stats",
+           "sweep_key", "vector_constraint"]

@@ -482,9 +482,22 @@ class FusedChunk:
 
 class _PendingBase:
   """A dispatched device chunk.  Construction enqueues the work and the
-  copies of its results to the host; ``resolve()`` waits for them."""
+  copies of its results to the host; ``resolve()`` waits for them.
+  ``device`` and ``stream`` name where the work was enqueued, so a
+  helper thread (the resilience watchdog) resolves it there."""
 
   _event: Optional["torch.cuda.Event"] = None
+  device: Optional[torch.device] = None
+  stream: Optional["torch.cuda.Stream"] = None
+
+  def _start_copy(self, tensors: Sequence[torch.Tensor]
+                  ) -> List[torch.Tensor]:
+    host, self._event = to_host(tensors)
+    if tensors:
+      self.device = tensors[0].device
+      if self.device.type == "cuda":
+        self.stream = torch.cuda.current_stream(self.device)
+    return host
 
   def resolve(self):
     raise NotImplementedError
@@ -507,7 +520,7 @@ class PendingFrame(_PendingBase):
                indices: np.ndarray, network: str, arch_lo: int = 0,
                accs: Optional[np.ndarray] = None,
                arch_lookup: Tuple[object, ...] = ()):
-    self._host, self._event = to_host(full)
+    self._host = self._start_copy(full)
     self.table = table
     self.indices = indices
     self.network = network
@@ -549,7 +562,7 @@ class PendingFused(_PendingBase):
     self._joint = accs is not None
     slots = [(name, key) for name, out in reduced.items()
              for key, v in out.items() if isinstance(v, torch.Tensor)]
-    host, self._event = to_host([reduced[name][key] for name, key in slots])
+    host = self._start_copy([reduced[name][key] for name, key in slots])
     self._reduced = {name: dict(out) for name, out in reduced.items()}
     for (name, key), h in zip(slots, host):
       self._reduced[name][key] = h

@@ -1,6 +1,7 @@
-"""ExplorationSession: the facade over the plain design-space sweep and
-HW x NN co-exploration (the port of ``repro.explore.session``'s
-``evaluate``, ``explore`` and ``co_explore``).
+"""ExplorationSession: the facade over the plain design-space sweep, HW x
+NN co-exploration and guided search (the port of
+``repro.explore.session``: ``evaluate``, ``explore``, ``co_explore`` and
+``optimize``).
 
 A session binds a backend (how points are scored) to a
 :class:`DesignSpace` (which points exist).  ``explore`` picks between two
@@ -12,10 +13,14 @@ the constant-memory streaming engine and returns a StreamResult of
 reducer outputs; with ``vectorized="auto"``, a one-shot sweep of
 ``STREAM_AUTO_MIN_ROWS`` rows (or pairs) or more on a table backend also
 goes through the engine, with a CollectAccumulator: the identical full
-frame comes out.
+frame comes out.  ``optimize`` runs the NSGA-II search of
+:mod:`repro_torch.explore.search`, one generation a chunk.
 
-The reference's resilience, store and fleet options (``policy``,
-``resume_from``, ``store``, ``pool``, ``workers``) come with slice 6.
+Streams and searches take the reference's fault tolerance (``policy``,
+``resume_from``, ``checkpoint_every``; :mod:`repro_torch.explore.
+resilience`).  The reference's thread-pool, store and fleet options
+(``workers``, ``store``, ``pool``) come with slice 6 and raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -25,13 +30,85 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer
+from repro_torch.explore import search
 from repro_torch.explore.backend import OracleBackend
 from repro_torch.explore.frame import ResultFrame
 from repro_torch.explore.space import DesignSpace
 from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
                                            CollectAccumulator, Reducer,
-                                           StreamResult, stream_co_explore,
-                                           stream_explore)
+                                           StreamResult, _slice6_options,
+                                           stream_co_explore, stream_explore)
+
+
+def _check_stream_only(stream: bool, policy, resume_from) -> None:
+  if (policy is not None or resume_from is not None) and not stream:
+    raise ValueError("policy/resume_from/pool apply to the streaming "
+                     "engine; pass stream=True")
+
+
+def hw_evaluator(backend, layers: Sequence[ConvLayer], network: str):
+  """The HW-only search's ``evaluate(table, idx, arch)`` hook: one
+  ``eval_pending`` dispatch a generation on a backend that has it (a
+  :class:`TorchOracleBackend`: the whole generation on the card, one
+  pending handle), else ``evaluate_table``, else ``evaluate``."""
+  use_device = hasattr(backend, "eval_pending")
+  use_table = hasattr(backend, "evaluate_table")
+  layer_key = tuple(layers)
+
+  def evaluate(table, idx, arch):
+    if use_device:
+      return backend.eval_pending(table, layer_key, network, idx)
+    if use_table:
+      return backend.evaluate_table(table, layers, network), idx
+    return backend.evaluate(table.to_configs(), layers, network), idx
+
+  return evaluate
+
+
+def joint_evaluator(backend, archs: Sequence[object], accs: np.ndarray,
+                    arch_layers: Sequence[Sequence[ConvLayer]],
+                    network: str):
+  """The joint search's ``evaluate(table, idx, arch)`` hook: rows grouped
+  by architecture gene, one ``evaluate_table`` (else ``evaluate``) per
+  distinct architecture of the generation, reassembled in genome row
+  order with ``top1``/``arch_id`` columns and ``arch_lookup``."""
+  use_table = hasattr(backend, "evaluate_table")
+  archs = tuple(archs)
+
+  def evaluate(table, idx, arch):
+    parts: List[ResultFrame] = []
+    rows: List[np.ndarray] = []
+    for aid in np.unique(arch):
+      sel = np.flatnonzero(arch == aid)
+      sub = table.select(sel)
+      if use_table:
+        f = backend.evaluate_table(sub, arch_layers[aid], network)
+      else:
+        f = backend.evaluate(sub.to_configs(), arch_layers[aid], network)
+      f.extra["top1"] = np.full(len(f), accs[aid])
+      f.extra["arch_id"] = np.full(len(f), aid, np.int64)
+      f.arch_lookup = archs
+      parts.append(f)
+      rows.append(sel)
+    frame = ResultFrame.concat(parts)
+    perm = np.concatenate(rows)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    return frame.select(inv), idx
+
+  return evaluate
+
+
+def joint_features(accs: np.ndarray):
+  """The joint search's surrogate features: the knob bundle of
+  :func:`search.default_features` plus the architecture gene as its
+  accuracy (the quantity the top1_err objective depends on), not as a
+  raw id."""
+  def features(table, arch):
+    base = search.default_features(table, None)
+    return np.concatenate([base, accs[arch][:, None]], axis=1)
+
+  return features
 
 
 class ExplorationSession:
@@ -56,7 +133,9 @@ class ExplorationSession:
               method: str = "random", measure_oracle: int = 0,
               vectorized: Union[bool, str] = "auto", stream: bool = False,
               reducers: Optional[Dict[str, Reducer]] = None,
-              chunk_size: int = 65536) -> Union[ResultFrame, StreamResult]:
+              chunk_size: int = 65536, workers: Optional[int] = None,
+              policy=None, resume_from=None, checkpoint_every: int = 1,
+              store=None, pool=None) -> Union[ResultFrame, StreamResult]:
     """Sample the space and evaluate ``network``; optionally time the
     scalar oracle on the first ``measure_oracle`` configs for the paper's
     speedup claim.
@@ -70,17 +149,25 @@ class ExplorationSession:
 
     frame.meta carries eval_seconds, eval_us_per_design and, when
     measured, oracle_seconds_per_design and speedup.
+
+    ``policy`` / ``resume_from`` / ``checkpoint_every`` (stream=True
+    only) enable chunk retry, degradation along the chunk's ladder and
+    journaled resume — see :mod:`repro_torch.explore.resilience`.
     """
+    _slice6_options("explore", workers=workers, store=store, pool=pool)
     if reducers is not None and not stream:
       raise ValueError("reducers only apply to the streaming engine; "
                        "pass stream=True")
+    _check_stream_only(stream, policy, resume_from)
     if stream:
       if measure_oracle:
         raise ValueError("measure_oracle is a one-shot feature; "
                          "pass stream=False")
       return stream_explore(self.backend, self.space, layers, network,
                             n_per_type=n_per_type, seed=seed, method=method,
-                            reducers=reducers, chunk_size=chunk_size)
+                            reducers=reducers, chunk_size=chunk_size,
+                            policy=policy, resume_from=resume_from,
+                            checkpoint_every=checkpoint_every)
     if vectorized == "auto":
       use_table = bool(getattr(self.backend, "prefers_table", False))
     else:
@@ -134,14 +221,91 @@ class ExplorationSession:
     frame.meta["eval_us_per_design"] = res.seconds / max(len(frame), 1) * 1e6
     return frame
 
+  def optimize(self, layers: Optional[Sequence[ConvLayer]] = None,
+               network: str = "search", *,
+               arch_accs: Optional[Sequence[Tuple[object, float]]] = None,
+               objectives: Optional[Sequence[str]] = None,
+               maximize: Optional[Sequence[str]] = None,
+               population: int = 32, generations: int = 12, seed: int = 17,
+               image_size: int = 32, surrogate: bool = False,
+               surrogate_pool: int = 4, crossover_rate: float = 0.9,
+               mutation_rate: Optional[float] = None,
+               reducers: Optional[Dict[str, Reducer]] = None,
+               policy=None, resume_from=None, checkpoint_every: int = 1
+               ) -> StreamResult:
+    """Guided multi-objective search (:mod:`repro_torch.explore.search`)
+    instead of enumeration: an NSGA-II-style optimizer whose generations
+    evaluate as single chunks through this session's backend, fronts
+    folding through the chunk-order-invariant ParetoAccumulator — the
+    same :class:`StreamResult` the streaming engine returns, same-seed
+    reruns bit-identical.
+
+    Two modes, like :meth:`explore` / :meth:`co_explore`:
+
+      * HW-only (pass ``layers``): searches the DesignSpace for one
+        workload; default objectives ``("perf_per_area", "energy_mj")``
+        (the paper's front axes).  On a backend with ``eval_pending``
+        (``TorchOracleBackend``) each generation is one dispatch on its
+        device (:func:`hw_evaluator`).
+      * joint (pass ``arch_accs``): the architecture choice becomes one
+        more integer gene, and each generation evaluates grouped by
+        architecture through ``evaluate_table`` (:func:`joint_evaluator`);
+        default objectives ``("top1_err", "energy_mj", "area_mm2")`` (the
+        Fig. 12 front).  A backend flagged ``jit`` is refused, as in the
+        reference; the port's backends have no such flag.
+
+    ``surrogate=True`` adds online polynomial screening (models refit on
+    all evaluated points each generation, on the host) — proposals are
+    pre-ranked by expected hypervolume gain before spending budget.
+    ``meta`` carries evaluations / generations / hypervolume.
+    """
+    if (layers is None) == (arch_accs is None):
+      raise ValueError("pass exactly one of layers= (HW-only search) or "
+                       "arch_accs= (joint search)")
+    if arch_accs is None:
+      if objectives is None:
+        objectives = ("perf_per_area", "energy_mj")
+      return search.guided_search(
+          self.space, hw_evaluator(self.backend, layers, network),
+          objectives, maximize=maximize,
+          population=population, generations=generations, seed=seed,
+          surrogate=surrogate, surrogate_pool=surrogate_pool,
+          crossover_rate=crossover_rate, mutation_rate=mutation_rate,
+          reducers=reducers, policy=policy, resume_from=resume_from,
+          checkpoint_every=checkpoint_every)
+
+    from repro_torch.core.supernet import arch_to_layers
+    if objectives is None:
+      objectives = ("top1_err", "energy_mj", "area_mm2")
+    if getattr(self.backend, "jit", False):
+      raise ValueError(
+          "joint optimize() needs a non-jit backend: each generation "
+          "evaluates per-architecture layer lists, which would thrash "
+          "the bounded jit program cache; use VectorOracleBackend() or "
+          "PolynomialBackend")
+    archs = [arch for arch, _ in arch_accs]
+    accs = np.asarray([float(acc) for _, acc in arch_accs], np.float64)
+    arch_layers = [arch_to_layers(arch, image_size=image_size)
+                   for arch in archs]
+    return search.guided_search(
+        self.space,
+        joint_evaluator(self.backend, archs, accs, arch_layers, network),
+        objectives, maximize=maximize,
+        population=population, generations=generations, seed=seed,
+        surrogate=surrogate, surrogate_pool=surrogate_pool,
+        features=joint_features(accs), crossover_rate=crossover_rate,
+        mutation_rate=mutation_rate, n_archs=len(archs),
+        reducers=reducers, policy=policy, resume_from=resume_from,
+        checkpoint_every=checkpoint_every)
+
   def co_explore(self, arch_accs: Sequence[Tuple[object, float]],
                  n_hw_per_type: int = 20, seed: int = 3,
                  image_size: int = 32, method: str = "random",
                  vectorized: Union[bool, str] = "auto", stream: bool = False,
                  reducers: Optional[Dict[str, Reducer]] = None,
                  chunk_size: int = 65536, workers: Optional[int] = None,
-                 policy=None, resume_from=None, store=None, pool=None
-                 ) -> Union[ResultFrame, StreamResult]:
+                 policy=None, resume_from=None, checkpoint_every: int = 1,
+                 store=None, pool=None) -> Union[ResultFrame, StreamResult]:
     """Sampled HW x evaluated architectures -> joint frame (Fig. 12).
 
     Rows carry a ``top1`` float column and an integer ``arch_id`` column
@@ -159,20 +323,16 @@ class ExplorationSession:
     stream=True runs the streaming engine over lazy JointTable blocks
     (default reducer: the 3-objective joint front); with "auto", sweeps
     of ``STREAM_AUTO_MIN_ROWS`` pairs or more go through the engine with
-    a CollectAccumulator, the identical joint frame out.
+    a CollectAccumulator, the identical joint frame out.  ``policy`` /
+    ``resume_from`` / ``checkpoint_every`` as :meth:`explore`.
     """
     from repro_torch.core.dataflow import LayerStack
     from repro_torch.core.supernet import arch_to_layers
-    for name, value in (("workers", workers), ("policy", policy),
-                        ("resume_from", resume_from), ("store", store),
-                        ("pool", pool)):
-      if value is not None:
-        raise NotImplementedError(
-            f"co_explore({name}=...) comes with slice 6 (resilience, "
-            "store and fleet)")
+    _slice6_options("co_explore", workers=workers, store=store, pool=pool)
     if reducers is not None and not stream:
       raise ValueError("reducers only apply to the streaming engine; "
                        "pass stream=True")
+    _check_stream_only(stream, policy, resume_from)
     if stream:
       if not hasattr(self.backend, "co_evaluate_table"):
         raise ValueError(f"backend {self.backend.name!r} has no "
@@ -180,7 +340,9 @@ class ExplorationSession:
       return stream_co_explore(self.backend, self.space, arch_accs,
                                n_hw_per_type=n_hw_per_type, seed=seed,
                                image_size=image_size, method=method,
-                               reducers=reducers, chunk_size=chunk_size)
+                               reducers=reducers, chunk_size=chunk_size,
+                               policy=policy, resume_from=resume_from,
+                               checkpoint_every=checkpoint_every)
     if vectorized == "auto":
       use_joint = bool(getattr(self.backend, "prefers_table", False)) \
           and hasattr(self.backend, "co_evaluate_table")

@@ -10,19 +10,34 @@ stays in flight so host sampling overlaps device execution.  Every
 accumulator is chunk-order invariant and emits survivors in global row
 order, so streamed fronts and top-k are bit-identical to the one-shot
 frame's ``pareto``/``top_k`` on the same sweep.
+
+Fault tolerance (:mod:`repro_torch.explore.resilience`): each chunk
+carries its ladder of rungs, a ``policy`` walks it on failures, and
+``resume_from`` journals reducer snapshots under a content-addressed key
+so a killed sweep resumes where its last checkpoint left it.  The engine
+is single-threaded and folds in chunk-index order, so a resumed or
+degraded run folds exactly what an uninterrupted one does (the
+reference's threaded engine folds in completion order; the port has no
+worker pool until slice 6).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.explore.frame import (_MAXIMIZE_COLUMNS, ResultFrame,
                                        pareto_mask, stable_topk_indices)
-from repro_torch.explore.resilience import ChunkError, ChunkTask, Rung
+from repro_torch.explore.resilience import (ChunkError, ChunkTask,
+                                            ResiliencePolicy, Rung,
+                                            SweepJournal,
+                                            arch_accs_fingerprint,
+                                            reducers_fingerprint,
+                                            space_fingerprint, sweep_key)
 from repro_torch.explore.space import DesignSpace
 
 # how many device chunks stay in flight: chunk n+ahead is sampled and
@@ -71,6 +86,30 @@ class Reducer:
       raise ValueError(f"{type(self).__name__} cannot fold {kind!r}")
     self.fold(frame, indices)
 
+  def snapshot(self) -> Dict[str, object]:
+    """Journal-serializable copy of the accumulator state (see
+    :class:`repro_torch.explore.resilience.SweepJournal`): a deep copy of
+    ``__dict__``.  Accumulator state is host numpy arrays, scalars,
+    frames and lists (never a ``torch.Tensor``: fused payloads reach the
+    host before they fold), all picklable and isolated from later
+    in-place folds by the copy."""
+    return {"cls": type(self).__name__,
+            "state": copy.deepcopy(self.__dict__)}
+
+  def restore(self, snap: Dict[str, object]) -> None:
+    """Adopt a :meth:`snapshot`; folding the not-yet-journaled chunks on
+    top is bit-identical to an uninterrupted run."""
+    if snap.get("cls") != type(self).__name__:
+      raise ValueError(f"snapshot of {snap.get('cls')!r} cannot restore "
+                       f"a {type(self).__name__}")
+    self.__dict__.update(copy.deepcopy(snap["state"]))
+
+  def fingerprint(self) -> str:
+    """Content key for the journal's reducer-plan component: two
+    reducers with equal fingerprints accept each other's snapshots (the
+    reference's strings, so keys agree across the two packages)."""
+    return type(self).__name__
+
 
 class ParetoAccumulator(Reducer):
   """Online non-dominated front over the given columns: per-chunk
@@ -115,6 +154,10 @@ class ParetoAccumulator(Reducer):
     from repro_torch.explore.device import ParetoSpec
     return ParetoSpec(self.cols,
                       tuple(c for c in self.cols if c in self._mx))
+
+  def fingerprint(self) -> str:
+    mx = ",".join(sorted(c for c in self.cols if c in self._mx))
+    return f"Pareto(cols={','.join(self.cols)};mx={mx})"
 
   def result(self) -> ResultFrame:
     if self._frame is None:
@@ -163,6 +206,9 @@ class TopKAccumulator(Reducer):
     from repro_torch.explore.device import TopKSpec
     return TopKSpec(self.by, self.k, self.maximize)
 
+  def fingerprint(self) -> str:
+    return f"TopK(k={self.k};by={self.by};mx={self.maximize})"
+
   def result(self) -> ResultFrame:
     return self._frame if self._frame is not None else _empty_frame()
 
@@ -210,6 +256,9 @@ class StatsAccumulator(Reducer):
     from repro_torch.explore.device import StatsSpec
     return StatsSpec(self.col)
 
+  def fingerprint(self) -> str:
+    return f"Stats(col={self.col})"
+
   def fold_payload(self, payload) -> None:
     kind, data = payload[0], payload[1]
     if kind != "stats":
@@ -251,6 +300,10 @@ class HistogramAccumulator(Reducer):
     from repro_torch.explore.device import HistSpec
     return HistSpec(self.col, float(self.edges[0]), float(self.edges[-1]),
                     len(self.counts))
+
+  def fingerprint(self) -> str:
+    return (f"Hist(col={self.col};lo={self.edges[0]!r};"
+            f"hi={self.edges[-1]!r};bins={len(self.counts)})")
 
   def fold_payload(self, payload) -> None:
     kind, data = payload[0], payload[1]
@@ -305,6 +358,7 @@ class StreamResult:
 
 
 def new_counters() -> Dict[str, int]:
+  """A fresh run-stats dict in the shape the journal checkpoints."""
   return {"n_rows": 0, "n_chunks": 0, "n_transferred": 0,
           "n_overflows": 0, "n_retries": 0, "n_demotions": 0}
 
@@ -331,29 +385,94 @@ def fold_chunk(reducers: Dict[str, Reducer], counters: Dict[str, int],
     r.fold(frame, indices)
 
 
-def run_stream(tasks: Iterable[ChunkTask],
-               reducers: Dict[str, Reducer]) -> StreamResult:
+def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
+               policy: Optional[ResiliencePolicy] = None,
+               resume_from=None, journal_key: str = "",
+               checkpoint_every: int = 1) -> StreamResult:
   """Drain ``tasks`` (each producing one evaluated chunk), folding every
   reducer as chunks complete.  Pending handles wait in a window of
   ``DISPATCH_AHEAD`` before they are resolved, so the host prepares the
-  next chunks while the device runs earlier ones.  A failing chunk
-  raises :class:`ChunkError` carrying its global index."""
+  next chunks while the device runs earlier ones; chunks fold in
+  chunk-index order.
+
+  Failure semantics:
+
+  * ``policy`` — a :class:`ResiliencePolicy` executing each
+    :class:`ChunkTask` through retry + its ladder; its retry/demotion
+    totals land in ``meta``.
+  * a fatally failing chunk raises :class:`ChunkError` carrying the
+    chunk's global index.
+  * ``resume_from`` — a :class:`SweepJournal` (or its directory path).
+    Reducer snapshots plus the set of folded chunk indices are recorded
+    under ``journal_key`` every ``checkpoint_every`` folds *and* on the
+    way out of a fatal error; a checkpoint holds only chunks already
+    folded (the dispatch window's are recomputed after a resume).  On
+    entry, a matching record restores the reducers and already-folded
+    chunks are skipped before dispatch.
+  """
   t0 = time.perf_counter()
+  journal = None
+  done_chunks: set = set()
   counters = new_counters()
+  n_resumed = 0
+  if resume_from is not None:
+    journal = resume_from if isinstance(resume_from, SweepJournal) \
+        else SweepJournal(resume_from)
+    state = journal.load_state(journal_key)
+    if state is not None:
+      done_chunks = set(state["done"])
+      for name, r in reducers.items():
+        r.restore(state["reducers"][name])
+      counters.update(state["counters"])
+      n_resumed = len(done_chunks)
+  base_retries = counters["n_retries"]
+  base_demotions = counters["n_demotions"]
+  since_ckpt = 0
+
+  def totals() -> Tuple[int, int]:
+    extra_r = policy.n_retries if policy is not None else 0
+    extra_d = policy.n_demotions if policy is not None else 0
+    return base_retries + extra_r, base_demotions + extra_d
+
+  def checkpoint(force: bool = False) -> None:
+    nonlocal since_ckpt
+    if journal is None:
+      return
+    since_ckpt += 1
+    if not force and since_ckpt < max(int(checkpoint_every), 1):
+      return
+    counters["n_retries"], counters["n_demotions"] = totals()
+    journal.record(journal_key, {
+        "done": set(done_chunks),
+        "reducers": {name: r.snapshot() for name, r in reducers.items()},
+        "counters": dict(counters)})
+    since_ckpt = 0
+
+  def fail(index, exc):
+    """Flush the journal, then surface the failing chunk's global
+    index (a bare re-raise would lose it)."""
+    checkpoint(force=True)
+    if isinstance(exc, ChunkError):
+      raise exc
+    raise ChunkError(index, f"{type(exc).__name__}: {exc}") from exc
 
   def finish(index, result) -> None:
     try:
       fold_chunk(reducers, counters, result)
     except Exception as e:
-      raise ChunkError(index, f"{type(e).__name__}: {e}") from e
+      fail(index, e)
+    done_chunks.add(index)
+    checkpoint()
 
   window: "deque" = deque()
   for i, task in enumerate(tasks):
     index = getattr(task, "index", i)
+    if index in done_chunks:
+      continue
     try:
-      res = task()
+      res = policy.execute(task) if policy is not None else task()
     except Exception as e:
-      raise ChunkError(index, f"{type(e).__name__}: {e}") from e
+      fail(index, e)
     if hasattr(res, "resolve"):
       window.append((index, res))
       if len(window) > DISPATCH_AHEAD:
@@ -362,14 +481,21 @@ def run_stream(tasks: Iterable[ChunkTask],
       finish(index, res)
   while window:
     finish(*window.popleft())
+  checkpoint(force=True)
   seconds = time.perf_counter() - t0
+  n_retries, n_demotions = totals()
   meta = {"seconds": seconds,
           "n_chunks": float(counters["n_chunks"]),
           "rows_transferred": float(counters["n_transferred"]),
           "rows_per_sec": counters["n_rows"] / max(seconds, 1e-12),
-          "n_retries": float(counters["n_retries"]),
-          "n_demotions": float(counters["n_demotions"]),
+          "n_retries": float(n_retries),
+          "n_demotions": float(n_demotions),
+          "n_resumed_chunks": float(n_resumed),
           "n_overflows": float(counters["n_overflows"])}
+  if policy is not None:
+    meta["n_leaked_watchdogs"] = float(policy.watchdogs.n_live())
+    if policy.breaker is not None:
+      meta.update(policy.breaker.meta())
   return StreamResult(
       results={name: r.result() for name, r in reducers.items()},
       n_rows=counters["n_rows"], seconds=seconds, meta=meta)
@@ -390,6 +516,41 @@ def default_co_reducers() -> Dict[str, Reducer]:
                                        "area_mm2"))}
 
 
+def explore_sweep_key(space: DesignSpace, reducers: Dict[str, Reducer], *,
+                      n_per_type: int, seed: int, method: str,
+                      chunk_size: int, network: str) -> str:
+  """The content-addressed journal key of a plain streamed sweep."""
+  return sweep_key("explore", space_fingerprint(space),
+                   reducers_fingerprint(reducers),
+                   {"n_per_type": n_per_type, "seed": seed,
+                    "method": method, "chunk_size": chunk_size,
+                    "network": network})
+
+
+def co_explore_sweep_key(space: DesignSpace, reducers: Dict[str, Reducer],
+                         arch_accs, *, n_hw_per_type: int, seed: int,
+                         image_size: int, method: str,
+                         chunk_size: int) -> str:
+  """The content-addressed journal key of a streamed co-exploration."""
+  archs = tuple(arch for arch, _ in arch_accs)
+  accs = np.asarray([float(acc) for _, acc in arch_accs], np.float64)
+  return sweep_key("co-explore", space_fingerprint(space),
+                   reducers_fingerprint(reducers),
+                   {"n_hw_per_type": n_hw_per_type, "seed": seed,
+                    "image_size": image_size, "method": method,
+                    "chunk_size": chunk_size,
+                    "archs": arch_accs_fingerprint(archs, accs)})
+
+
+def _slice6_options(owner: str, **options) -> None:
+  """The reference's thread-pool and fleet options, not ported yet."""
+  for name, value in options.items():
+    if value is not None:
+      raise NotImplementedError(
+          f"{owner}({name}=...) comes with slice 6 (store, service and "
+          "fleet)")
+
+
 def explore_tasks(backend, space: DesignSpace, layers, network: str,
                   n_per_type: int, seed: int, method: str, chunk_size: int,
                   reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
@@ -397,7 +558,9 @@ def explore_tasks(backend, space: DesignSpace, layers, network: str,
   its backend offers, best first: ``fused-device`` (a backend with
   ``fused_eval_pending``, when every reducer is fusable), then ``device``
   (one with ``eval_pending``); any other backend evaluates each chunk
-  with its ``evaluate_table``."""
+  with its ``evaluate_table``.  The last rung is the backend's own
+  (on the card under a card backend): unlike the reference's ladder,
+  none ends on the host (see :mod:`repro_torch.explore.resilience`)."""
   if not hasattr(backend, "evaluate_table"):
     raise ValueError(f"backend {backend.name!r} has no evaluate_table; "
                      "streaming requires the columnar path")
@@ -444,15 +607,29 @@ def stream_explore(backend, space: DesignSpace, layers, network: str = "net",
                    n_per_type: int = 200, seed: int = 17,
                    method: str = "random",
                    reducers: Optional[Dict[str, Reducer]] = None,
-                   chunk_size: int = 65536) -> StreamResult:
+                   chunk_size: int = 65536, workers: Optional[int] = None,
+                   policy: Optional[ResiliencePolicy] = None,
+                   resume_from=None, checkpoint_every: int = 1,
+                   pool=None) -> StreamResult:
   """Sample -> evaluate -> reduce a plain HW sweep in bounded memory.
   Global row ids follow the one-shot sample order, so survivors match the
-  one-shot frame row for row."""
+  one-shot frame row for row.  ``policy`` walks each chunk's ladder on
+  failures; ``resume_from`` journals and restores the sweep under
+  :func:`explore_sweep_key` (the backend is not part of the key, so a
+  journal written on the card resumes on the CPU)."""
+  _slice6_options("stream_explore", workers=workers, pool=pool)
   if reducers is None:
     reducers = default_explore_reducers()
+  key = ""
+  if resume_from is not None:
+    key = explore_sweep_key(space, reducers, n_per_type=n_per_type,
+                            seed=seed, method=method, chunk_size=chunk_size,
+                            network=network)
   return run_stream(explore_tasks(backend, space, layers, network,
                                   n_per_type, seed, method, chunk_size,
-                                  reducers), reducers)
+                                  reducers), reducers,
+                    policy=policy, resume_from=resume_from, journal_key=key,
+                    checkpoint_every=checkpoint_every)
 
 
 def co_explore_tasks(backend, space: DesignSpace, arch_accs,
@@ -535,15 +712,30 @@ def stream_co_explore(backend, space: DesignSpace, arch_accs,
                       n_hw_per_type: int = 20, seed: int = 3,
                       image_size: int = 32, method: str = "random",
                       reducers: Optional[Dict[str, Reducer]] = None,
-                      chunk_size: int = 65536) -> StreamResult:
+                      chunk_size: int = 65536,
+                      workers: Optional[int] = None,
+                      policy: Optional[ResiliencePolicy] = None,
+                      resume_from=None, checkpoint_every: int = 1,
+                      pool=None) -> StreamResult:
   """Joint HW x NN co-exploration in bounded memory: the arch x HW cross
   product is visited in ``JointTable.block_slices`` blocks (HW sampled
   once per PE type; the product never materializes).  Chunk frames carry
   the one-shot joint frame's ``top1`` / ``arch_id`` / ``arch_lookup``
   columns and global row ids.  Default reducers: the paper's
-  3-objective (top1_err, energy_mj, area_mm2) joint front."""
+  3-objective (top1_err, energy_mj, area_mm2) joint front.  ``policy``
+  and ``resume_from`` as :func:`stream_explore`, under
+  :func:`co_explore_sweep_key`."""
+  _slice6_options("stream_co_explore", workers=workers, pool=pool)
   if reducers is None:
     reducers = default_co_reducers()
+  key = ""
+  if resume_from is not None:
+    key = co_explore_sweep_key(space, reducers, arch_accs,
+                               n_hw_per_type=n_hw_per_type, seed=seed,
+                               image_size=image_size, method=method,
+                               chunk_size=chunk_size)
   return run_stream(co_explore_tasks(backend, space, arch_accs,
                                      n_hw_per_type, seed, image_size,
-                                     method, chunk_size, reducers), reducers)
+                                     method, chunk_size, reducers), reducers,
+                    policy=policy, resume_from=resume_from, journal_key=key,
+                    checkpoint_every=checkpoint_every)

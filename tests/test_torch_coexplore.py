@@ -376,13 +376,15 @@ def test_session_auto_routes_like_the_reference(backend, arch_accs,
 
 def test_session_co_explore_refusals(backend, arch_accs):
   session = P.ExplorationSession(backend, P.DesignSpace())
-  for kwargs in ({"workers": 2}, {"policy": object()},
-                 {"resume_from": "x"}, {"store": object()},
-                 {"pool": object()}):
+  for kwargs in ({"workers": 2}, {"store": object()}, {"pool": object()}):
     with pytest.raises(NotImplementedError, match="slice 6"):
       session.co_explore(arch_accs, stream=True, **kwargs)
   with pytest.raises(ValueError, match="stream=True"):
     session.co_explore(arch_accs, reducers=PS.default_co_reducers())
+  # policy and resume_from (ported with slice 5b) apply to the stream
+  for kwargs in ({"policy": object()}, {"resume_from": "x"}):
+    with pytest.raises(ValueError, match="stream=True"):
+      session.co_explore(arch_accs, **kwargs)
   plain = P.ExplorationSession(P.OracleBackend(), P.DesignSpace())
   with pytest.raises(ValueError, match="co_evaluate_table"):
     plain.co_explore(arch_accs, vectorized=True)

@@ -1,8 +1,10 @@
 """The port on a CUDA card: each hand-written kernel against its plain
 torch version, and the device sweep, co-exploration (the joint oracle,
 the grouped prefilter, fused joint chunks), the polynomial PPA models,
-the serving engine (qwen3-0.6b and rwkv6-1.6b) and the deploy codecs against
-the same code on the CPU.
+the serving engine (qwen3-0.6b and rwkv6-1.6b), the deploy codecs and
+guided search with its fault tolerance (journals that move between card
+and CPU, the watchdog on a CUDA handle) against the same code on the
+CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -19,11 +21,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.cnn import SEARCH_SPACE, ArchChoice
 from repro_torch.core.supernet import arch_to_layers
 from repro_torch.core.workloads import get_network
-from repro_torch.explore import (DesignSpace, HistogramAccumulator,
-                                 LayerStack, ParetoAccumulator,
-                                 PolynomialBackend, StatsAccumulator,
-                                 TopKAccumulator, TorchOracleBackend,
-                                 stream_co_explore, stream_explore)
+from repro_torch.explore import (ChunkError, DesignSpace,
+                                 ExplorationSession, Fault, FaultPlan,
+                                 HistogramAccumulator, LayerStack,
+                                 ParetoAccumulator, PolynomialBackend,
+                                 ResiliencePolicy, RetryPolicy,
+                                 StatsAccumulator, TopKAccumulator,
+                                 TorchOracleBackend, stream_co_explore,
+                                 stream_explore)
+from repro_torch.explore.streaming import DISPATCH_AHEAD
 from repro_torch.explore import device as device_lib
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
@@ -855,3 +861,159 @@ def test_poly_raw_sums_on_the_card_equal_the_cpu(cuda, poly_models):
   got = m.raw_on(torch.from_numpy(x).to(cuda)).cpu()
   want = m.raw_on(torch.from_numpy(x))
   assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# guided search and the fault tolerance on the card: the search is host
+# numpy over the card's bit-equal oracle, so card and CPU runs are
+# identical; journals move between them; the watchdog's helper thread
+# resolves a CUDA handle on its own device and stream
+# ---------------------------------------------------------------------------
+
+def _search_arch_accs(n=8):
+  """``benchmarks/search_perf.py``'s smoke-scale architectures."""
+  rng = np.random.RandomState(0)
+  archs = [ArchChoice(tuple((int(rng.choice(reps)), int(rng.choice(chs)))
+                            for reps, chs in SEARCH_SPACE))
+           for _ in range(n)]
+  return list(zip(archs, rng.uniform(0.5, 0.95, size=n)))
+
+
+@pytest.mark.parametrize("mode", ["joint", "surrogate", "hw-only"])
+def test_optimize_on_the_card_equals_the_cpu(cuda, mode):
+  res = {}
+  for dev in (cuda, "cpu"):
+    session = ExplorationSession(TorchOracleBackend(device=dev),
+                                 DesignSpace())
+    if mode == "hw-only":
+      res[str(dev)] = session.optimize(get_network("resnet20"), "resnet20",
+                                       population=16, generations=6, seed=17)
+    else:
+      res[str(dev)] = session.optimize(
+          arch_accs=_search_arch_accs(), population=16, generations=6,
+          seed=7, surrogate=mode == "surrogate")
+  g, c = res["cuda"], res["cpu"]
+  cols = METRICS + (() if mode == "hw-only" else ("arch_id", "top1"))
+  assert len(g["pareto"]) == len(c["pareto"])
+  for col in cols:
+    np.testing.assert_array_equal(g["pareto"].column(col),
+                                  c["pareto"].column(col), err_msg=col)
+  assert g.meta["hypervolume"] == c.meta["hypervolume"]
+  assert g.meta["evaluations"] == c.meta["evaluations"]
+
+
+def _no_wait(**kw):
+  return ResiliencePolicy(retry=RetryPolicy(sleep=lambda s: None), **kw)
+
+
+@pytest.mark.parametrize("written,resumed", [("cuda", "cpu"),
+                                             ("cpu", "cuda")])
+def test_a_journal_moves_between_the_card_and_the_cpu(cuda, tmp_path,
+                                                      written, resumed):
+  archs = (ArchChoice(((1, 40), (2, 96), (1, 160), (3, 320), (2, 512))),
+           ArchChoice(((2, 64), (1, 80), (3, 256), (1, 384), (1, 320))),
+           ArchChoice(((1, 48), (1, 112), (2, 192), (2, 448), (3, 384))))
+  arch_accs = list(zip(archs, (0.61, 0.83, 0.77)))
+
+  def run(dev, **kw):
+    return stream_co_explore(
+        TorchOracleBackend(device={"cuda": cuda}.get(dev, dev)),
+        DesignSpace(), arch_accs,
+        n_hw_per_type=45, seed=3, image_size=16, reducers=_joint_reducers(),
+        chunk_size=40, **kw)
+
+  want = run(resumed)
+  with pytest.raises(ChunkError) as err:
+    run(written, resume_from=tmp_path, policy=_no_wait(
+        fault_plan=FaultPlan([Fault("kill", 9, "task")])))
+  assert err.value.chunk_index == 9
+  got = run(resumed, resume_from=tmp_path)
+  assert got.meta["n_resumed_chunks"] == 9 - DISPATCH_AHEAD
+  for name in ("pareto", "pareto3", "fig12", "top"):
+    for col in METRICS + ("arch_id", "top1"):
+      np.testing.assert_array_equal(got[name].column(col),
+                                    want[name].column(col))
+  np.testing.assert_array_equal(got["hist"]["counts"],
+                                want["hist"]["counts"])
+
+
+def test_a_killed_search_on_the_card_resumes_on_the_cpu(cuda, tmp_path):
+  kw = dict(arch_accs=_search_arch_accs(), population=16, generations=6,
+            seed=7)
+  card = ExplorationSession(TorchOracleBackend(device=cuda), DesignSpace())
+  cpu = ExplorationSession(TorchOracleBackend(device="cpu"), DesignSpace())
+  want = card.optimize(**kw)
+  with pytest.raises(ChunkError):
+    card.optimize(resume_from=tmp_path, policy=_no_wait(
+        fault_plan=FaultPlan([Fault("kill", 3, "task")])), **kw)
+  got = cpu.optimize(resume_from=tmp_path, **kw)
+  assert got.meta["n_resumed_chunks"] == 3.0
+  for col in METRICS + ("arch_id", "top1"):
+    np.testing.assert_array_equal(got["pareto"].column(col),
+                                  want["pareto"].column(col))
+
+
+def test_the_watchdog_resolves_a_cuda_handle_on_its_device_and_stream(cuda):
+  backend = TorchOracleBackend(device=cuda)
+  layers = tuple(get_network("resnet20")[:4])
+  table = DesignSpace().sample_table(300, seed=5)
+  plan = device_lib.build_plan(
+      {"pareto": ParetoAccumulator(),
+       "top": TopKAccumulator(5, by="energy_mj")}, joint=False)
+  side = torch.cuda.Stream()
+  with torch.cuda.stream(side):
+    pend = backend.fused_eval_pending(table, layers, "net", plan,
+                                      np.arange(len(table)))
+  assert pend.device == torch.device("cuda", torch.cuda.current_device())
+  assert pend.stream == side
+  seen = {}
+
+  class Probe:
+    device, stream = pend.device, pend.stream
+
+    def resolve(self):
+      seen["device"] = torch.cuda.current_device()
+      seen["stream"] = torch.cuda.current_stream()
+      return pend.resolve()
+
+  pol = _no_wait(resolve_timeout=30.0)
+  chunk = pol._timed_resolve(Probe())
+  assert seen["stream"] == side and seen["device"] == pend.device.index
+  want = backend.fused_eval_pending(table, layers, "net", plan,
+                                    np.arange(len(table))).resolve()
+  for name in ("pareto", "top"):
+    np.testing.assert_array_equal(chunk.payloads[name][2],
+                                  want.payloads[name][2])
+  assert pol.watchdogs.n_live() == 0
+
+
+def test_an_injected_hang_on_the_card_demotes_to_the_card_rung(cuda):
+  layers = get_network("resnet20")[:4]
+
+  def run(policy):
+    return stream_explore(
+        TorchOracleBackend(device=cuda), DesignSpace(), layers, "net",
+        n_per_type=40, seed=4, chunk_size=32, policy=policy,
+        reducers={"pareto": ParetoAccumulator(),
+                  "top": TopKAccumulator(5, by="energy_mj")})
+
+  want = run(_no_wait(resolve_timeout=30.0))
+  assert want.meta["n_retries"] == want.meta["n_demotions"] == 0.0
+  pol = _no_wait(resolve_timeout=30.0,
+                 fault_plan=FaultPlan([Fault("hang", 2, "device"),
+                                       Fault("raise", 3, "device",
+                                             times=3)]))
+  got = run(pol)
+  # chunk 3 dispatches while chunk 2 still waits in the window
+  assert sorted(pol.demotions) == [(2, "fused-device", "resolve"),
+                                   (3, "fused-device", "dispatch")]
+  assert got.meta["n_leaked_watchdogs"] == 0.0
+  for name in ("pareto", "top"):
+    for col in METRICS:
+      np.testing.assert_array_equal(got[name].column(col),
+                                    want[name].column(col))
+  dead = _no_wait(fault_plan=FaultPlan([Fault("raise", 1, "device",
+                                              times=99)]))
+  with pytest.raises(ChunkError) as err:
+    run(dead)
+  assert err.value.chunk_index == 1

@@ -56,6 +56,13 @@ def test_port_imports_neither_jax_nor_the_reference(path):
   assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "core/seeding.py", "train/__init__.py", "train/fault_tolerance.py",
+    "explore/resilience.py", "explore/search.py"])
+def test_the_scan_covers_the_guided_search_slice(module):
+  assert REPO / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_the_scan_sees_forbidden_imports(tmp_path):
   f = tmp_path / "mod.py"
   f.write_text("import jax.numpy as jnp\nfrom repro.core import oracle\n"
