@@ -30,7 +30,16 @@ to the reference's record bit for bit, a HW-only search held card
 against CPU, one generation's stages, and the fault tolerance on the
 card (a search killed and resumed from its journal, injected device
 faults demoted along the card's ladder, co-explorations resumed on the
-card and on the CPU, an injected hang under the watchdog).  Then it serves
+card and on the CPU, an injected hang under the watchdog).  The
+exploration service follows: ``benchmarks/service_perf.py``'s recipe
+through ``ExplorationService`` with a ``ResultStore`` (a cold grid sweep,
+a store hit, a delta sweep, chaos sessions) held to its record's counts
+and a session whose 3-D front launches K1; the 1,000,000-design sweep
+through a ``DevicePool`` of the card (with the silent-corruption sentinel
+recomputing on the CPU, and a quarantined pool raising), a store entry
+written on the card and loaded by a CPU process, the sweep on four worker
+threads, and ``benchmarks/framework_perf.py``'s resilience benchmark at
+full scale against its record.  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
@@ -50,6 +59,7 @@ naming the device.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -127,6 +137,29 @@ RES_FAULT_SEED = 3
 RES_CO_KILL = 7
 RES_CO_SMALL = (20, 100, 512)
 RES_HANG = dict(n_per_type=2500, seed=9, chunk=4096)
+
+# the result store, the service and the fleet: benchmarks/service_perf.py's
+# recipe at full scale (its record results/BENCH_service.json): resnet20's
+# first 4 layers, a grid taking this many values of each axis (the edit
+# adds pe_rows' next value), 65,536-row chunks, 5,000 random designs a
+# type in each chaos session; one more session, and the fleet's sentinel
+# and quarantine runs, over [parity]'s 100,000-design stream with
+# sweep_reducers() (its 3-D front runs K1); [store-parity]'s sweep (designs
+# a type, seed, chunk), small enough for the CPU to recompute; [workers]'
+# thread count; benchmarks/framework_perf.py::resilience_perf at full
+# scale (its record results/BENCH_resilience.json): 200 archs from
+# RandomState(0) x 500 HW a type, 65,536-pair blocks
+SERVICE_RECORD = ROOT / "results" / "BENCH_service.json"
+SERVICE_TAKE = {"pe_rows": 8, "pe_cols": 9, "sp_if": 8, "sp_fw": 8,
+                "sp_ps": 7, "gbuf_kb": 7, "bandwidth_gbps": 1}
+SERVICE_CHUNK = 65536
+SERVICE_CHAOS_PER_TYPE = 5000
+SERVICE_K1 = dict(n_per_type=25_000, seed=5, chunk=RES_CHUNK)
+FLEET_SDC_EVERY = 4
+STORE_PARITY = dict(n_per_type=5000, seed=11, chunk=4096)
+WORKERS = 4
+RES_PERF = dict(n_archs=200, n_hw_per_type=500, chunk=65536)
+RES_PERF_RECORD = ROOT / "results" / "BENCH_resilience.json"
 
 # serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
 # K5 decode shape (one slot's cache of 2,048 positions) and the traffic
@@ -1479,6 +1512,477 @@ def phase_resilience(layers, guided):
 
 
 # ---------------------------------------------------------------------------
+# the result store, the exploration service, the fleet, the worker pool
+# ---------------------------------------------------------------------------
+
+class _K1Recorder:
+  """While active, keeps the inputs and outputs of the first ``keep`` K1
+  launches a path makes, so they can be held against the plain version
+  after the path's launch counts are read (the holds launch nothing)."""
+
+  def __init__(self, keep: int = 4):
+    self.keep = keep
+    self.records = []
+
+  def __enter__(self):
+    from repro_torch.kernels.pareto_front import kernel
+    self._inner = kernel.block_dominance_counts
+
+    def launch(obj_t, block):
+      out = self._inner(obj_t, block)
+      if len(self.records) < self.keep:
+        self.records.append((obj_t.clone(), block, out.clone()))
+      return out
+
+    kernel.block_dominance_counts = launch
+    return self
+
+  def __exit__(self, *exc):
+    from repro_torch.kernels.pareto_front import kernel
+    kernel.block_dominance_counts = self._inner
+
+  def hold(self, tag: str) -> int:
+    """Max |kernel - plain| over the recorded launches (0 or raises)."""
+    from repro_torch.kernels.pareto_front import ref
+    if not self.records:
+      raise AssertionError(f"{tag}: K1 never launched")
+    err = max(int((out.long() - ref.block_dominance_counts_ref(
+        obj_t.T, block).long()).abs().max())
+        for obj_t, block, out in self.records)
+    if err:
+      raise AssertionError(f"{tag}: K1 differs from its plain version by "
+                           f"{err}")
+    return err
+
+
+def _service_spaces():
+  from repro_torch.core.ppa import HW_RANGES
+  from repro_torch.explore import DesignSpace
+  from repro_torch.explore.space import AXIS_ORDER
+  axes = {name: HW_RANGES[name][:SERVICE_TAKE[name]] for name in AXIS_ORDER}
+  edited = dict(axes)
+  edited["pe_rows"] = HW_RANGES["pe_rows"][:SERVICE_TAKE["pe_rows"] + 1]
+  return DesignSpace(axes=axes), DesignSpace(axes=edited)
+
+
+def _results_identical(got, want) -> bool:
+  """service_perf's identity: pareto and top-k, every metric column."""
+  import numpy as np
+  return all(
+      np.array_equal(getattr(got["pareto"], c), getattr(want["pareto"], c))
+      and np.array_equal(getattr(got["top"], c), getattr(want["top"], c))
+      for c in BASE_COLS)
+
+
+def phase_service(layers):
+  """``benchmarks/service_perf.py``'s recipe on the card, nothing cut
+  (its record results/BENCH_service.json): a cold full-grid sweep through
+  ``ExplorationService`` with a store, the identical resubmission (a store
+  hit), a one-axis edit (a delta sweep over the new subgrid) against the
+  edited space from scratch, and two chaos sessions under seeded task
+  faults and a shared breaker against solo runs; then one session over
+  sweep_reducers() (its 3-D front runs K1), held to the solo stream."""
+  import shutil
+  import tempfile
+  import numpy as np
+  import torch
+  from repro_torch.explore import (CircuitBreaker, DesignSpace,
+                                   ExplorationService, FaultPlan,
+                                   ParetoAccumulator, RetryPolicy,
+                                   TopKAccumulator, TorchOracleBackend,
+                                   stream_explore)
+  from repro_torch.kernels.pareto_front import kernel
+  record = json.loads(SERVICE_RECORD.read_text())
+  base_space, edited_space = _service_spaces()
+  small = layers[:4]
+
+  def reducers():
+    return {"pareto": ParetoAccumulator(("latency_s", "power_mw")),
+            "top": TopKAccumulator(50, by="power_mw")}
+
+  def backend():
+    return TorchOracleBackend(chunk_size=SERVICE_CHUNK)
+
+  def grid_submit(svc, space):
+    return svc.submit_explore(space, small, "resnet20",
+                              n_per_type=space.per_type_grid_size(),
+                              method="grid", chunk_size=SERVICE_CHUNK,
+                              reducers=reducers())
+
+  def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+  def drained(svc, space):
+    h = grid_submit(svc, space)
+    svc.drain()
+    return h.result()
+
+  sdir = Path(tempfile.mkdtemp(prefix="service-", dir=ROOT / "build"))
+  try:
+    svc = ExplorationService(backend(), slots=2, store=str(sdir))
+    cold, cold_s = timed(lambda: drained(svc, base_space))
+    hit, hit_s = timed(lambda: grid_submit(svc, base_space).result())
+    delta, delta_s = timed(lambda: drained(svc, edited_space))
+    scratch, scratch_s = timed(lambda: stream_explore(
+        backend(), edited_space, small, network="resnet20",
+        n_per_type=edited_space.per_type_grid_size(), method="grid",
+        reducers=reducers(), chunk_size=SERVICE_CHUNK))
+    service = svc.service_meta()
+  finally:
+    shutil.rmtree(sdir, ignore_errors=True)
+
+  space = DesignSpace()
+  refs = {s: stream_explore(backend(), space, small, network="resnet20",
+                            n_per_type=SERVICE_CHAOS_PER_TYPE, seed=s,
+                            reducers=reducers(), chunk_size=SERVICE_CHUNK)
+          for s in (1, 2)}
+  plan = FaultPlan.seeded(seed=5, n_chunks=16, p_raise=0.5, layer="task",
+                          times=2)
+  chaos = ExplorationService(backend(), slots=2,
+                             retry=RetryPolicy(sleep=lambda s: None),
+                             fault_plan=plan,
+                             breaker=CircuitBreaker(threshold=2))
+
+  def chaos_run():
+    handles = {s: chaos.submit_explore(space, small, "resnet20",
+                                       n_per_type=SERVICE_CHAOS_PER_TYPE,
+                                       seed=s, chunk_size=SERVICE_CHUNK,
+                                       reducers=reducers())
+               for s in (1, 2)}
+    chaos.drain()
+    return {s: h.result() for s, h in handles.items()}
+
+  sessions, chaos_s = timed(chaos_run)
+  got = {"n_pairs": scratch.n_rows, "base_rows": cold.n_rows,
+         "delta_rows": int(delta.meta.get("n_delta_rows", 0)),
+         "store_hit_taken": hit.meta.get("store_hit") == 1.0,
+         "store_hit_bit_identical": _results_identical(hit, cold),
+         "delta_sweep_taken": delta.meta.get("delta_sweep") == 1.0,
+         "delta_bit_identical": (_results_identical(delta, scratch)
+                                 and delta.n_rows == scratch.n_rows),
+         "chaos_sessions": len(sessions),
+         "chaos_faults_fired": plan.n_fired,
+         "chaos_bit_identical": all(_results_identical(sessions[s], refs[s])
+                                    for s in sessions)}
+  log("[service] port (record results/BENCH_service.json, the reference "
+      "on a host CPU): " + "; ".join(f"{k} {v!r} ({record[k]!r})"
+                                     for k, v in got.items()))
+  log(f"[service] seconds a phase on the card: cold grid sweep "
+      f"{cold_s:.4f} ({cold.n_rows} rows, {int(cold.meta['n_chunks'])} "
+      f"chunks), store hit {hit_s:.6f}, delta sweep {delta_s:.4f} "
+      f"({int(delta.meta['n_chunks'])} chunks), scratch {scratch_s:.4f}, "
+      f"chaos {chaos_s:.4f} ({int(sum(r.meta['n_retries'] for r in sessions.values()))} "
+      f"retries, {int(sum(r.meta['n_demotions'] for r in sessions.values()))} "
+      f"demotions, breaker {sessions[1].meta['breaker_state']}); "
+      f"store-hit speedup {cold_s / max(hit_s, 1e-9):.1f}x, delta "
+      f"speedup {scratch_s / max(delta_s, 1e-9):.2f}x")
+  log(f"[service] service_meta: " + ", ".join(
+      f"{k} {v}" for k, v in service.items()
+      if isinstance(v, (int, float))))
+  differ = [k for k, v in got.items() if v != record[k]]
+  if differ:
+    raise AssertionError(f"[service] differs from its record in {differ}")
+
+  # one more session: the 3-D front, so K1 runs under the service
+  n, seed, chunk = (SERVICE_K1["n_per_type"], SERVICE_K1["seed"],
+                    SERVICE_K1["chunk"])
+  want = stream_explore(TorchOracleBackend(chunk_size=chunk), space, layers,
+                        "resnet20", n_per_type=n, seed=seed,
+                        reducers=sweep_reducers(), chunk_size=chunk)
+  svc = ExplorationService(TorchOracleBackend(chunk_size=chunk), slots=2)
+  kernel.reset_launch_counts()
+  with _K1Recorder() as rec:
+    t0 = time.perf_counter()
+    h = svc.submit_explore(space, layers, "resnet20", n_per_type=n,
+                           seed=seed, chunk_size=chunk,
+                           reducers=sweep_reducers())
+    svc.drain()
+    res = h.result()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+  k1 = kernel.LAUNCHES["block_dominance_counts"]
+  err = rec.hold("[service]")
+  same = (_stream_results_equal(res, want, ("pareto", "pareto3", "top"))
+          and _stats_close(res["stats"], want["stats"]))
+  log(f"[service] a session over sweep_reducers(), {res.n_rows} designs in "
+      f"{int(res.meta['n_chunks'])} chunks, {secs:.3f} s: K1 launches {k1}, "
+      f"the first {len(rec.records)} held to the plain version (max "
+      f"|diff| {err}); fronts, top-k and histogram identical to the solo "
+      f"stream, stats within 1e-12: {same}")
+  if not same or k1 != int(res.meta["n_chunks"]):
+    raise AssertionError("[service] the K1 session differs")
+  return {"k1_launches": k1, "k1_err": err,
+          "ms": {"cold": cold_s * 1e3, "hit": hit_s * 1e3,
+                 "delta": delta_s * 1e3, "scratch": scratch_s * 1e3,
+                 "chaos": chaos_s * 1e3}}
+
+
+def phase_fleet(layers, sweep, sweep_launches):
+  """A ``DevicePool()`` of the card through ``stream_explore(...,
+  pool=pool)`` over [sweep]'s sweep and reducers: bit-identical to
+  [sweep], the same K1 launches; the sentinel (``sdc_check_every``) on
+  the 100,000-design stream, its CPU recomputes matching; and the one
+  device quarantined, which must raise ``ChunkError`` (H13)."""
+  import numpy as np
+  import torch
+  from repro_torch.explore import (ChunkError, DesignSpace, DevicePool,
+                                   TorchOracleBackend, stream_explore)
+  from repro_torch.kernels.pareto_front import kernel
+  space = DesignSpace()
+  pool = DevicePool()
+  backend = TorchOracleBackend(chunk_size=SWEEP_CHUNK)
+  kernel.reset_launch_counts()
+  with _K1Recorder() as rec:
+    t0 = time.perf_counter()
+    res = stream_explore(backend, space, layers, "resnet20",
+                         n_per_type=SWEEP_PER_TYPE,
+                         reducers=sweep_reducers(), chunk_size=SWEEP_CHUNK,
+                         pool=pool)
+    torch.cuda.synchronize()
+    pooled_s = time.perf_counter() - t0
+  k1 = kernel.LAUNCHES["block_dominance_counts"]
+  err = rec.hold("[fleet]")
+  same = (_stream_results_equal(res, sweep, ("pareto", "pareto3", "top"))
+          and _stats_close(res["stats"], sweep["stats"]))
+  exact_stats = res["stats"] == sweep["stats"]
+  log(f"[fleet] DevicePool({[str(d) for d in pool.devices()]}) over "
+      f"[sweep]'s {res.n_rows} designs in {int(res.meta['n_chunks'])} "
+      f"chunks, {pooled_s:.3f} s ({res.n_rows / pooled_s:.1f} rows/s; "
+      f"[sweep] "
+      f"{sweep.meta['rows_per_sec']:.1f}): fronts, top-k and histogram "
+      f"identical to [sweep], stats within 1e-12: {same} (bit for bit: "
+      f"{exact_stats}); K1 launches {k1} ([sweep] "
+      f"{sweep_launches['block_dominance_counts']}), the first "
+      f"{len(rec.records)} held to the plain version (max |diff| {err})")
+  if not same or k1 != sweep_launches["block_dominance_counts"]:
+    raise AssertionError("[fleet] the pooled sweep differs from [sweep]")
+
+  n, seed, chunk = (SERVICE_K1["n_per_type"], SERVICE_K1["seed"],
+                    SERVICE_K1["chunk"])
+  small = TorchOracleBackend(chunk_size=chunk)
+  want = stream_explore(small, space, layers, "resnet20", n_per_type=n,
+                        seed=seed, reducers=sweep_reducers(),
+                        chunk_size=chunk)
+  sentinel = DevicePool(sdc_check_every=FLEET_SDC_EVERY)
+  t0 = time.perf_counter()
+  got = stream_explore(small, space, layers, "resnet20", n_per_type=n,
+                       seed=seed, reducers=sweep_reducers(),
+                       chunk_size=chunk, pool=sentinel)
+  secs = time.perf_counter() - t0
+  same = (_stream_results_equal(got, want, ("pareto", "pareto3", "top"))
+          and _stats_close(got["stats"], want["stats"]))
+  log(f"[fleet] sdc_check_every={FLEET_SDC_EVERY} over the {got.n_rows}-"
+      f"design stream ({int(got.meta['n_chunks'])} chunks), {secs:.3f} s: "
+      f"{int(got.meta['n_corruption_checks'])} sentinel checks recomputed "
+      f"on the CPU, {int(got.meta['n_corruptions_detected'])} mismatches; "
+      f"results identical to the pool-less stream: {same}")
+  if (not same or got.meta["n_corruption_checks"] < 1
+      or got.meta["n_corruptions_detected"]):
+    raise AssertionError("[fleet] the sentinel's CPU recompute differs")
+
+  dead = DevicePool(breaker_cooldown=1000, breaker_jitter=0)
+  dead.quarantine(0)
+  try:
+    stream_explore(small, space, layers, "resnet20", n_per_type=1000,
+                   seed=seed, reducers=sweep_reducers(), chunk_size=chunk,
+                   pool=dead)
+  except ChunkError as e:
+    log(f"[fleet] the one device quarantined: ChunkError ({e}); no host "
+        "rung under a card backend (H13)")
+  else:
+    raise AssertionError("[fleet] a quarantined pool did not raise")
+  counters = {"sweep": pool.counters(), "sentinel": sentinel.counters(),
+              "quarantined": dead.counters()}
+  log(f"[fleet] pool counters(): {counters}")
+  return {"k1_launches": k1, "k1_err": err, "ms": pooled_s * 1e3}
+
+
+def phase_store_parity(layers):
+  """A store entry from a card run (``cached_stream_explore`` over
+  sweep_reducers()), loaded by a fresh process on the CPU as a store hit
+  and held to the card's results and to a CPU run."""
+  import shutil
+  import tempfile
+  import numpy as np
+  import torch
+  from repro_torch.explore import (DesignSpace, ResultStore,
+                                   TorchOracleBackend, cached_stream_explore)
+  n, seed, chunk = (STORE_PARITY["n_per_type"], STORE_PARITY["seed"],
+                    STORE_PARITY["chunk"])
+  sdir = Path(tempfile.mkdtemp(prefix="store-parity-", dir=ROOT / "build"))
+  try:
+    card = cached_stream_explore(
+        TorchOracleBackend(chunk_size=chunk), DesignSpace(), layers,
+        "resnet20", n_per_type=n, seed=seed, reducers=sweep_reducers(),
+        chunk_size=chunk, store=ResultStore(sdir))
+    torch.cuda.synchronize()
+    names = ("pareto", "pareto3", "top")
+    np.savez(sdir / "card.npz", hist=card["hist"]["counts"],
+             stats=np.asarray([card["stats"][k] for k in sorted(
+                 card["stats"])]),
+             **{f"{name}_{c}": card[name].column(c) for name in names
+                for c in BASE_COLS})
+    script = f"""
+import sys
+import numpy as np
+sys.path.insert(0, {str(ROOT / 'src')!r})
+sys.path.insert(0, {str(ROOT)!r})
+from chip_smoke import sweep_reducers
+from repro_torch.core.workloads import get_network
+from repro_torch.explore import (DesignSpace, ResultStore,
+                                 TorchOracleBackend, cached_stream_explore,
+                                 stream_explore)
+import torch
+assert not torch.cuda.is_available()
+kw = dict(n_per_type={n}, seed={seed}, chunk_size={chunk})
+layers = get_network("resnet20")
+hit = cached_stream_explore(TorchOracleBackend(device="cpu"), DesignSpace(),
+                            layers, "resnet20", reducers=sweep_reducers(),
+                            store=ResultStore({str(sdir)!r}), **kw)
+assert hit.meta["store_hit"] == 1.0, hit.meta
+cpu = stream_explore(TorchOracleBackend(device="cpu"), DesignSpace(), layers,
+                     "resnet20", reducers=sweep_reducers(), **kw)
+card = np.load({str(sdir / 'card.npz')!r})
+for res in (hit, cpu):
+  for name in {names!r}:
+    for c in {BASE_COLS!r}:
+      assert np.array_equal(res[name].column(c), card[name + "_" + c]), name
+  assert np.array_equal(res["hist"]["counts"], card["hist"])
+  got = np.asarray([res["stats"][k] for k in sorted(res["stats"])])
+  assert np.all(np.abs(got - card["stats"]) <= 1e-12 * np.abs(card["stats"]))
+print("STORE-PARITY", len(hit["pareto"]), len(hit["pareto3"]),
+      len(hit["top"]), hit.n_rows)
+"""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+  finally:
+    shutil.rmtree(sdir, ignore_errors=True)
+  if proc.returncode != 0 or "STORE-PARITY" not in proc.stdout:
+    raise AssertionError(f"[store-parity] the CPU process failed:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+  sizes = proc.stdout.split("STORE-PARITY")[1].split()
+  log(f"[store-parity] {card.n_rows} designs swept on the card into a "
+      f"store; a fresh CPU process ({secs:.2f} s) loaded the entry as a "
+      f"store hit: fronts {sizes[0]} / {sizes[1]} and top-{sizes[2]} "
+      f"identical to the card's and to its own CPU sweep, histogram equal, "
+      f"stats within 1e-12")
+
+
+def phase_workers(layers, sweep):
+  """[sweep]'s sweep at ``workers=WORKERS`` on the card (each thread
+  dispatches on its own current stream; folds in chunk-index order):
+  bit-identical to ``workers=1``.  Runs 1, N, N, 1 and prints each
+  time."""
+  import torch
+  from repro_torch.explore import (DesignSpace, TorchOracleBackend,
+                                   stream_explore)
+  from repro_torch.kernels.pareto_front import kernel
+  times = []
+  for workers in (1, WORKERS, WORKERS, 1):
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = stream_explore(TorchOracleBackend(chunk_size=SWEEP_CHUNK),
+                         DesignSpace(), layers, "resnet20",
+                         n_per_type=SWEEP_PER_TYPE,
+                         reducers=sweep_reducers(), chunk_size=SWEEP_CHUNK,
+                         workers=workers)
+    torch.cuda.synchronize()
+    times.append((workers, time.perf_counter() - t0))
+    k1 = kernel.LAUNCHES["block_dominance_counts"]
+    same = (_stream_results_equal(res, sweep, ("pareto", "pareto3", "top"))
+            and res["stats"] == sweep["stats"])
+    if not same or k1 != int(res.meta["n_chunks"]):
+      raise AssertionError(f"[workers] workers={workers} differs from "
+                           f"[sweep] (K1 {k1})")
+  log(f"[workers] [sweep]'s {res.n_rows} designs at workers 1, {WORKERS}, "
+      f"{WORKERS}, 1: " + ", ".join(f"{w}: {t:.3f} s" for w, t in times)
+      + f"; every run bit-identical to [sweep], stats included; K1 once a "
+      f"chunk in each")
+  return times
+
+
+def phase_resilience_perf():
+  """``benchmarks/framework_perf.py::resilience_perf`` at full scale on
+  the card (its record results/BENCH_resilience.json): 200 archs x 500
+  HW a type streamed in 65,536-pair blocks; (a) killed at block
+  n_chunks // 2 and resumed from its journal; (b) healed under a seeded
+  plan of task faults."""
+  import shutil
+  import tempfile
+  import torch
+  from repro_torch.explore import (ChunkError, DesignSpace,
+                                   ExplorationSession, Fault, FaultPlan,
+                                   ParetoAccumulator, TopKAccumulator,
+                                   TorchOracleBackend)
+  from repro_torch.explore.streaming import DISPATCH_AHEAD
+  record = json.loads(RES_PERF_RECORD.read_text())
+  arch_accs = co_arch_accs(RES_PERF["n_archs"])
+  session = ExplorationSession(
+      TorchOracleBackend(chunk_size=RES_PERF["chunk"]), DesignSpace())
+
+  def sweep(**kw):
+    return session.co_explore(
+        arch_accs, n_hw_per_type=RES_PERF["n_hw_per_type"], seed=3,
+        image_size=16, stream=True, chunk_size=RES_PERF["chunk"],
+        reducers={"pareto": ParetoAccumulator(CO_JOINT3),
+                  "top": TopKAccumulator(50, by="energy_mj")}, **kw)
+
+  def timed(**kw):
+    t0 = time.perf_counter()
+    out = sweep(**kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+  ref, healthy_s = timed()
+  n_chunks = int(ref.meta["n_chunks"])
+  kill_at = n_chunks // 2
+  jdir = Path(tempfile.mkdtemp(prefix="resilience-perf-", dir=ROOT / "build"))
+  try:
+    killed = -1
+    try:
+      sweep(policy=_no_wait_policy(fault_plan=FaultPlan(
+          [Fault("kill", kill_at, "task")])), resume_from=jdir)
+    except ChunkError as e:
+      killed = e.chunk_index
+    resumed, resume_s = timed(resume_from=jdir)
+  finally:
+    shutil.rmtree(jdir, ignore_errors=True)
+  plan = FaultPlan.seeded(7, n_chunks, p_raise=0.5, layer="task")
+  healed, faulty_s = timed(policy=_no_wait_policy(fault_plan=plan))
+  got = {"n_pairs": ref.n_rows, "n_chunks": n_chunks,
+         "kill_at_chunk": kill_at, "killed_chunk_index": killed,
+         "n_resumed_chunks": int(resumed.meta["n_resumed_chunks"]),
+         "resume_bit_identical": _results_identical(resumed, ref),
+         "injected_faults": len(plan.faults),
+         "faults_fired": plan.n_fired,
+         "n_retries": int(healed.meta["n_retries"]),
+         "n_demotions": int(healed.meta["n_demotions"]),
+         "healed_bit_identical": _results_identical(healed, ref)}
+  log("[resilience-perf] port (record results/BENCH_resilience.json, the "
+      "reference on a host CPU): " + "; ".join(
+          f"{k} {v!r} ({record[k]!r})" for k, v in got.items()))
+  log(f"[resilience-perf] n_resumed_chunks {got['n_resumed_chunks']}, not "
+      f"the record's {record['n_resumed_chunks']}: a checkpoint holds only "
+      f"folded blocks, and the {DISPATCH_AHEAD} blocks of the dispatch "
+      f"window in flight at the kill were not folded, so they run again "
+      f"(the reference's numpy path has no window); seconds on the card: "
+      f"healthy {healthy_s:.4f}, resume {resume_s:.4f} "
+      f"({resume_s / healthy_s:.3f} of healthy), healed {faulty_s:.4f} "
+      f"({faulty_s / healthy_s:.3f})")
+  want = dict((k, record[k]) for k in got)
+  want["n_resumed_chunks"] = kill_at - DISPATCH_AHEAD
+  if got != want:
+    raise AssertionError(f"[resilience-perf] differs from its record: "
+                         f"{got} vs {want}")
+
+
+# ---------------------------------------------------------------------------
 # serving: K6, K5, the engine, and the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -2392,6 +2896,20 @@ def main() -> int:
   del guided
   log(f"[resilience] [search] through [resilience]: "
       f"{time.perf_counter() - t_search:.1f} s")
+  t_service = time.perf_counter()
+  service = phase_service(layers)
+  fleet = phase_fleet(layers, sweep, launches)
+  phase_store_parity(layers)
+  phase_workers(layers, sweep)
+  phase_resilience_perf()
+  del sweep
+  k1 = kernels["block_dominance_counts"]
+  k1["launches_service"] = service["k1_launches"]
+  k1["launches_fleet"] = fleet["k1_launches"]
+  k1["max_abs_err"] = max(k1["max_abs_err"], float(service["k1_err"]),
+                          float(fleet["k1_err"]))
+  log(f"[resilience-perf] [service] through [resilience-perf]: "
+      f"{time.perf_counter() - t_service:.1f} s")
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()
@@ -2411,7 +2929,10 @@ def main() -> int:
       f"[coexplore-parity] ({co_parity['n_chunks']} blocks), no kernel in "
       "[coexplore] (its joint front projects top1_err out: a staircase); "
       "guided search ranks on the host and launches none ([search]), K1 "
-      "runs in [resilience]'s fused stream:")
+      "runs in [resilience]'s fused stream; on the service path K1 "
+      f"launched {service['k1_launches']} times ([service]'s 3-D session), "
+      f"on the fleet path {fleet['k1_launches']} times ([fleet]'s pooled "
+      "sweep), each held there to its plain version:")
   log(json.dumps({"kernels": list(kernels.values())}))
   log(smi)
   log(json.dumps({"ok": True, "device": {

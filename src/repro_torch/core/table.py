@@ -139,6 +139,9 @@ class ConfigTable:
   def to_configs(self) -> List[AcceleratorConfig]:
     return [self.config_at(i) for i in range(len(self))]
 
+  def __iter__(self) -> Iterator[AcceleratorConfig]:
+    return (self.config_at(i) for i in range(len(self)))
+
   def select(self, index) -> "ConfigTable":
     """Sub-table by boolean mask, slice, or integer index array."""
     idx = index if isinstance(index, slice) else np.asarray(index)

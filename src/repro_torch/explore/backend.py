@@ -28,10 +28,14 @@ GBS), so the buffer adds on as a pre-characterized SRAM macro via
 (the batch formulas, on a device).
 
 The device backends run on CUDA unless the caller asks for another
-device; they never move to the CPU on their own.
+device; they never move to the CPU on their own.  Inside a fleet pin
+(:func:`repro_torch.explore.fleet.pin`) a :class:`TorchOracleBackend`
+places, launches and records its chunk on the pinned device instead of
+its own, on that device's current stream.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import os
@@ -47,10 +51,33 @@ from repro_torch.core.dataflow import AcceleratorConfig, ConvLayer, LayerStack
 from repro_torch.core.pe import PAPER_PE_TYPES
 from repro_torch.core.table import ConfigTable
 from repro_torch.explore import device as device_lib
+from repro_torch.explore import fleet
 from repro_torch.explore.frame import ResultFrame
+
+try:  # Protocol is typing-only
+  from typing import Protocol
+except ImportError:  # pragma: no cover - py<3.8
+  Protocol = object  # type: ignore[assignment]
 
 Configs = Union[Sequence[AcceleratorConfig], ConfigTable]
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+class EvaluationBackend(Protocol):
+  """Anything that turns (configs, workload) into a ResultFrame.
+
+  ``cfgs`` may be a sequence of per-point dataclasses or a columnar
+  :class:`ConfigTable`.  Backends that implement the optional
+  ``evaluate_table(table, layers, network)`` method (and advertise
+  ``prefers_table = True``) get handed ConfigTables directly by
+  :class:`~repro_torch.explore.ExplorationSession`, keeping
+  million-point sweeps columnar end to end.
+  """
+  name: str
+
+  def evaluate(self, cfgs: Configs, layers: Sequence[ConvLayer],
+               network: str = "net") -> ResultFrame:
+    ...
 
 
 def resolve_device(device: DeviceLike, owner: str) -> torch.device:
@@ -151,8 +178,31 @@ class TorchOracleBackend:
     self.chunk_size = chunk_size
     device_lib.ensure_exact(self.device)
 
+  def target(self) -> torch.device:
+    """Where this thread's dispatches go: the fleet's pin when one is
+    set (checked for exactness once per device), else the backend's own
+    device."""
+    pinned = fleet.pinned_device()
+    if pinned is None:
+      return self.device
+    dev = torch.device(pinned)
+    device_lib.ensure_exact(dev)
+    return dev
+
+  @contextlib.contextmanager
+  def _on_target(self):
+    """Run a dispatch on :meth:`target`: under ``torch.cuda.device`` for
+    a CUDA target, so launches and recorded events use that device's
+    current stream."""
+    dev = self.target()
+    if dev.type != "cuda":
+      yield dev
+      return
+    with torch.cuda.device(dev):
+      yield dev
+
   def _place(self, inputs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return place_inputs(inputs, self.device)
+    return place_inputs(inputs, self.target())
 
   def _dispatch(self, table: ConfigTable, layers: Sequence[ConvLayer],
                 plan=None):
@@ -161,26 +211,32 @@ class TorchOracleBackend:
 
   def place_dedup(self, dedup: Tuple[Dict[str, np.ndarray], np.ndarray]
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """A :meth:`LayerStack.dedup_slots` factorization on the device
-    (unique columns float64, slot ids int64); tensors pass through."""
+    """A :meth:`LayerStack.dedup_slots` factorization on :meth:`target`
+    (unique columns float64, slot ids int64); tensors already there pass
+    through, tensors on another device are copied over."""
+    dev = self.target()
     unique_cols, slot_ids = dedup
     if isinstance(slot_ids, torch.Tensor):
-      return unique_cols, slot_ids
-    return ({k: device_lib.h2d(v, self.device)
-             for k, v in unique_cols.items()},
-            device_lib.h2d(slot_ids.astype(np.int64), self.device))
+      here = slot_ids.device
+      if here.type == dev.type and dev.index in (None, here.index):
+        return unique_cols, slot_ids
+      return ({k: v.to(dev) for k, v in unique_cols.items()},
+              slot_ids.to(dev))
+    return ({k: device_lib.h2d(v, dev) for k, v in unique_cols.items()},
+            device_lib.h2d(slot_ids.astype(np.int64), dev))
 
   def _co_dispatch(self, hw: ConfigTable, stack: LayerStack, dedup=None,
                    plan=None, accs: Optional[np.ndarray] = None):
     """The joint program on one block: every arch of ``stack`` x every
     row of ``hw``.  ``dedup`` is the block's distinct-layer
-    factorization, on the host or the device (default: the stack's
+    factorization, on the host or a device (default: the stack's
     own)."""
+    dev = self.target()
     unique_cols, slot_ids = self.place_dedup(
         stack.dedup_slots() if dedup is None else dedup)
-    valid = device_lib.h2d(stack.valid, self.device)
+    valid = device_lib.h2d(stack.valid, dev)
     accs_t = None if accs is None else device_lib.h2d(
-        np.asarray(accs, np.float64), self.device)
+        np.asarray(accs, np.float64), dev)
     run = device_lib.make_joint_fn(plan)
     return run(self._place(oracle.batch_inputs(hw)), unique_cols, slot_ids,
                valid, accs_t)
@@ -206,11 +262,12 @@ class TorchOracleBackend:
     pwr = np.empty(n)
     area = np.empty(n)
     lo = 0
-    for chunk in table.chunks(self.chunk_size):
-      l, p, a = (t.cpu().numpy() for t in self._dispatch(chunk, layers))
-      hi = lo + len(chunk)
-      lat[lo:hi], pwr[lo:hi], area[lo:hi] = l, p, a
-      lo = hi
+    with self._on_target():
+      for chunk in table.chunks(self.chunk_size):
+        l, p, a = (t.cpu().numpy() for t in self._dispatch(chunk, layers))
+        hi = lo + len(chunk)
+        lat[lo:hi], pwr[lo:hi], area[lo:hi] = l, p, a
+        lo = hi
     return ResultFrame(lat, pwr, area, table.pe_type_strings(), (),
                        network, table=table)
 
@@ -227,14 +284,15 @@ class TorchOracleBackend:
     pwr = np.empty(n_hw)
     area = np.empty(n_hw)
     hw_chunk = max(1, self.chunk_size // max(n_archs, 1))
-    dedup = self.place_dedup(stack.dedup_slots())
-    lo = 0
-    for chunk in hw.chunks(hw_chunk):
-      l, p, a = (t.cpu().numpy()
-                 for t in self._co_dispatch(chunk, stack, dedup))
-      hi = lo + len(chunk)
-      lat[:, lo:hi], pwr[lo:hi], area[lo:hi] = l, p, a
-      lo = hi
+    with self._on_target():
+      dedup = self.place_dedup(stack.dedup_slots())
+      lo = 0
+      for chunk in hw.chunks(hw_chunk):
+        l, p, a = (t.cpu().numpy()
+                   for t in self._co_dispatch(chunk, stack, dedup))
+        hi = lo + len(chunk)
+        lat[:, lo:hi], pwr[lo:hi], area[lo:hi] = l, p, a
+        lo = hi
     joint = hw.cross(n_archs)
     return ResultFrame(
         lat.reshape(-1), np.tile(pwr, n_archs), np.tile(area, n_archs),
@@ -246,8 +304,9 @@ class TorchOracleBackend:
   def eval_pending(self, table: ConfigTable, layers: Sequence[ConvLayer],
                    network: str, idx: np.ndarray) -> device_lib.PendingFrame:
     """Dispatch one streaming chunk; resolves to (frame, idx)."""
-    return device_lib.PendingFrame(self._dispatch(table, layers), table, idx,
-                                   network)
+    with self._on_target():
+      return device_lib.PendingFrame(self._dispatch(table, layers), table,
+                                     idx, network)
 
   def fused_eval_pending(self, table: ConfigTable,
                          layers: Sequence[ConvLayer], network: str,
@@ -255,8 +314,9 @@ class TorchOracleBackend:
                          idx: np.ndarray) -> device_lib.PendingFused:
     """Dispatch one fused evaluate+reduce chunk; resolves to per-reducer
     payloads with O(survivors) device->host transfer."""
-    return device_lib.PendingFused(self._dispatch(table, layers, plan), plan,
-                                   table, idx, network)
+    with self._on_target():
+      return device_lib.PendingFused(self._dispatch(table, layers, plan),
+                                     plan, table, idx, network)
 
   def co_eval_pending(self, hw: ConfigTable, stack: LayerStack, network: str,
                       idx: np.ndarray, arch_lo: int, accs: np.ndarray,
@@ -264,10 +324,11 @@ class TorchOracleBackend:
                       dedup=None) -> device_lib.PendingFrame:
     """Joint twin of :meth:`eval_pending`: resolves to the block's joint
     frame with its ``arch_id``/``top1`` columns."""
-    return device_lib.PendingFrame(
-        self._co_dispatch(hw, stack, dedup), hw, idx, network,
-        arch_lo=arch_lo, accs=np.asarray(accs, np.float64),
-        arch_lookup=arch_lookup)
+    with self._on_target():
+      return device_lib.PendingFrame(
+          self._co_dispatch(hw, stack, dedup), hw, idx, network,
+          arch_lo=arch_lo, accs=np.asarray(accs, np.float64),
+          arch_lookup=arch_lookup)
 
   def fused_co_eval_pending(self, hw: ConfigTable, stack: LayerStack,
                             network: str, plan: device_lib.DevicePlan,
@@ -276,10 +337,11 @@ class TorchOracleBackend:
                             dedup=None) -> device_lib.PendingFused:
     """Joint twin of :meth:`fused_eval_pending`."""
     accs = np.asarray(accs, np.float64)
-    return device_lib.PendingFused(
-        self._co_dispatch(hw, stack, dedup, plan, accs), plan, hw, idx,
-        network, n_hw=len(hw), arch_lo=arch_lo, accs=accs,
-        arch_lookup=arch_lookup)
+    with self._on_target():
+      return device_lib.PendingFused(
+          self._co_dispatch(hw, stack, dedup, plan, accs), plan, hw, idx,
+          network, n_hw=len(hw), arch_lo=arch_lo, accs=accs,
+          arch_lookup=arch_lookup)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,9 @@ would be a fallback that hides the device, so:
     :class:`ChunkError`; it never moves to the CPU;
   * the same ladder under ``device="cpu"`` runs on the CPU;
   * :meth:`ResiliencePolicy.execute_from` moves only along the ladder it
-    is given, and the circuit breaker skips only non-terminal rungs;
+    is given, and the circuit breaker skips, and counts, only the
+    non-terminal rungs (H16: with the breaker open, chunks go straight
+    to the terminal rung, the card's own under a card backend);
   * results stay bit-identical on every rung, because every rung is the
     same exact oracle (``parity_max_rel_err == 0.0``).
 
@@ -58,6 +60,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib
+import io
 import os
 import pickle
 import struct
@@ -119,7 +123,7 @@ FAULT_LAYERS = ("task", "device", "backend", "fleet")
 # fleet-layer faults fire at shard granularity inside the fleet's
 # dispatch loop, not in the per-chunk ladder: a slow shard triggers
 # speculation, a corrupt shard exercises the SDC sentinel, a lost device
-# exercises elastic resharding (the fleet executor comes with slice 6)
+# exercises elastic resharding (see repro_torch.explore.fleet)
 FLEET_FAULT_KINDS = ("slow", "corrupt", "device-lost")
 
 # wildcard chunk for fleet faults: fires at ANY chunk dispatched on the
@@ -581,13 +585,20 @@ class ResiliencePolicy:
       skip_device = not self.breaker.allow_device()
     for r in range(start, len(task.rungs)):
       rung = task.rungs[r]
-      if skip_device and rung.layer == "device" and r + 1 < len(task.rungs):
+      # the breaker guards the rungs it can route past: the non-terminal
+      # device rungs.  The terminal rung is the ladder's safe harbor (the
+      # reference's host rung, the port's own unfused rung) and feeds it
+      # nothing, or its successes would reset a failing fused rung's
+      # streak on every chunk
+      guarded = (rung.layer == "device" and r + 1 < len(task.rungs)
+                 and self.breaker is not None)
+      if skip_device and guarded:
         continue  # breaker open: route straight past the device rungs
       try:
         out = self.retry.call(self._attempt(task, rung),
                               on_retry=lambda a, e: self._note_retry())
       except StepFailure as e:
-        if rung.layer == "device" and self.breaker is not None:
+        if guarded:
           self.breaker.record_failure()
         if r + 1 < len(task.rungs):
           self._note_demotion(task.index, rung.name, "dispatch")
@@ -596,7 +607,7 @@ class ResiliencePolicy:
         raise
       if hasattr(out, "resolve") and r + 1 < len(task.rungs):
         return _GuardedPending(self, task, r, out)
-      if rung.layer == "device" and self.breaker is not None:
+      if guarded:
         self.breaker.record_success()
       return out
     raise StepFailure(f"chunk {task.index}: every ladder rung "
@@ -710,6 +721,49 @@ class _GuardedPending:
 
 JOURNAL_VERSION = 1
 
+# the classes a reducer snapshot holds, by module under the package root:
+# the reference writes them as ``repro.<module>``, the port as
+# ``repro_torch.<module>``; both load as the port's
+SNAPSHOT_CLASSES = {
+    "explore.frame": ("ResultFrame", "DesignPoint"),
+    "core.table": ("ConfigTable", "JointTable"),
+    "core.dataflow": ("AcceleratorConfig", "ConvLayer"),
+    "core.cnn": ("ArchChoice",)}
+_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numeric", "numpy._core.numeric")
+_NUMPY_NAMES = ("_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer")
+_BUILTIN_NAMES = ("set", "frozenset", "slice", "range", "complex",
+                  "bytearray")
+
+
+class SnapshotUnpickler(pickle.Unpickler):
+  """Loads journal records and store entries written by either package,
+  and nothing else.  ``repro.<module>.<Class>`` and
+  ``repro_torch.<module>.<Class>`` both resolve to the port's class for
+  the classes a snapshot holds (:data:`SNAPSHOT_CLASSES`), so loading an
+  entry the reference wrote never imports the reference; numpy arrays,
+  scalars and dtypes and a few builtin containers load as themselves.
+  Any other global raises ``pickle.UnpicklingError``, which callers
+  treat like a corrupt record."""
+
+  def find_class(self, module: str, name: str):
+    root, _, sub = module.partition(".")
+    if root in ("repro", "repro_torch") and \
+        name in SNAPSHOT_CLASSES.get(sub, ()):
+      return getattr(importlib.import_module(f"repro_torch.{sub}"), name)
+    if (module in _NUMPY_MODULES and name in _NUMPY_NAMES) or (
+        module == "numpy.dtypes" and name.endswith("DType")):
+      return super().find_class(module, name)
+    if module == "builtins" and name in _BUILTIN_NAMES:
+      return super().find_class(module, name)
+    raise pickle.UnpicklingError(
+        f"{module}.{name} is not a class a snapshot holds")
+
+
+def load_snapshot(payload: bytes):
+  """``pickle.loads`` through :class:`SnapshotUnpickler`."""
+  return SnapshotUnpickler(io.BytesIO(payload)).load()
+
 
 def _sha(parts: Iterable[str]) -> str:
   h = hashlib.sha256()
@@ -770,6 +824,9 @@ class SweepJournal:
   This journal is the foundation the ROADMAP's exploration-as-a-service
   sweep-cache builds on: the key is content-addressed, so a *finished*
   sweep's record doubles as a cache hit for an identical future sweep.
+  Records load through :class:`SnapshotUnpickler`, so a journal the
+  reference wrote under the same key resumes in the port without
+  importing the reference.
   """
 
   def __init__(self, dir_path):
@@ -791,7 +848,7 @@ class SweepJournal:
   def load(self, key: str) -> Optional[Dict[str, object]]:
     try:
       with open(self.path(key), "rb") as f:
-        payload = pickle.load(f)
+        payload = load_snapshot(f.read())
     except FileNotFoundError:
       return None
     except Exception:  # truncated/corrupt record -> fresh start
@@ -852,7 +909,7 @@ class SweepJournal:
           or hashlib.sha256(payload).digest() != digest):
         break
       try:
-        rec = pickle.loads(payload)
+        rec = load_snapshot(payload)
       except Exception:
         break
       if rec.get("version") != JOURNAL_VERSION or rec.get("key") != key:

@@ -18,9 +18,10 @@ frame comes out.  ``optimize`` runs the NSGA-II search of
 
 Streams and searches take the reference's fault tolerance (``policy``,
 ``resume_from``, ``checkpoint_every``; :mod:`repro_torch.explore.
-resilience`).  The reference's thread-pool, store and fleet options
-(``workers``, ``store``, ``pool``) come with slice 6 and raise
-``NotImplementedError`` until then.
+resilience`).  Streams also take a thread pool (``workers``), a result
+store (``store``: :mod:`repro_torch.explore.store`, store hits and delta
+sweeps) and a device fleet (``pool``: :mod:`repro_torch.explore.fleet`);
+each gives the same fronts and top-k as the run without it.
 """
 from __future__ import annotations
 
@@ -36,14 +37,22 @@ from repro_torch.explore.frame import ResultFrame
 from repro_torch.explore.space import DesignSpace
 from repro_torch.explore.streaming import (STREAM_AUTO_MIN_ROWS,
                                            CollectAccumulator, Reducer,
-                                           StreamResult, _slice6_options,
-                                           stream_co_explore, stream_explore)
+                                           StreamResult, stream_co_explore,
+                                           stream_explore)
 
 
-def _check_stream_only(stream: bool, policy, resume_from) -> None:
-  if (policy is not None or resume_from is not None) and not stream:
+def _check_stream_only(stream: bool, reducers, policy, resume_from, pool,
+                       store) -> None:
+  if reducers is not None and not stream:
+    raise ValueError("reducers only apply to the streaming engine; "
+                     "pass stream=True")
+  if (policy is not None or resume_from is not None
+      or pool is not None) and not stream:
     raise ValueError("policy/resume_from/pool apply to the streaming "
                      "engine; pass stream=True")
+  if store is not None and not stream:
+    raise ValueError("store applies to the streaming engine; "
+                     "pass stream=True")
 
 
 def hw_evaluator(backend, layers: Sequence[ConvLayer], network: str):
@@ -153,21 +162,35 @@ class ExplorationSession:
     ``policy`` / ``resume_from`` / ``checkpoint_every`` (stream=True
     only) enable chunk retry, degradation along the chunk's ladder and
     journaled resume — see :mod:`repro_torch.explore.resilience`.
+    ``workers`` sets the stream's thread pool (default
+    :func:`~repro_torch.explore.streaming.default_workers`), ``pool``
+    shards it over a :class:`~repro_torch.explore.fleet.DevicePool`, and
+    ``store`` (a :class:`~repro_torch.explore.store.ResultStore` or its
+    directory) serves finished sweeps and runs one-axis edits of stored
+    grid sweeps as delta sweeps (``resume_from`` is then the store's
+    journal).
     """
-    _slice6_options("explore", workers=workers, store=store, pool=pool)
-    if reducers is not None and not stream:
-      raise ValueError("reducers only apply to the streaming engine; "
-                       "pass stream=True")
-    _check_stream_only(stream, policy, resume_from)
+    _check_stream_only(stream, reducers, policy, resume_from, pool, store)
     if stream:
       if measure_oracle:
         raise ValueError("measure_oracle is a one-shot feature; "
                          "pass stream=False")
+      if store is not None:
+        from repro_torch.explore.store import cached_stream_explore
+        return cached_stream_explore(self.backend, self.space, layers,
+                                     network, n_per_type=n_per_type,
+                                     seed=seed, method=method,
+                                     reducers=reducers,
+                                     chunk_size=chunk_size, workers=workers,
+                                     policy=policy,
+                                     checkpoint_every=checkpoint_every,
+                                     store=store, pool=pool)
       return stream_explore(self.backend, self.space, layers, network,
                             n_per_type=n_per_type, seed=seed, method=method,
                             reducers=reducers, chunk_size=chunk_size,
-                            policy=policy, resume_from=resume_from,
-                            checkpoint_every=checkpoint_every)
+                            workers=workers, policy=policy,
+                            resume_from=resume_from,
+                            checkpoint_every=checkpoint_every, pool=pool)
     if vectorized == "auto":
       use_table = bool(getattr(self.backend, "prefers_table", False))
     else:
@@ -178,7 +201,7 @@ class ExplorationSession:
     if (use_table and vectorized == "auto" and not measure_oracle
         and n_per_type * len(self.space.pe_types) >= STREAM_AUTO_MIN_ROWS):
       return self._explore_streamed_frame(layers, network, n_per_type, seed,
-                                          method, chunk_size)
+                                          method, chunk_size, workers)
     if use_table:
       cfgs = self.space.sample_table(n_per_type, seed=seed, method=method)
     else:
@@ -209,13 +232,13 @@ class ExplorationSession:
     return frame
 
   def _explore_streamed_frame(self, layers, network, n_per_type, seed,
-                              method, chunk_size) -> ResultFrame:
+                              method, chunk_size, workers) -> ResultFrame:
     """The auto above-threshold path: chunked evaluation through the
     engine, identical full frame out (CollectAccumulator)."""
     res = stream_explore(self.backend, self.space, layers, network,
                          n_per_type=n_per_type, seed=seed, method=method,
                          reducers={"frame": CollectAccumulator()},
-                         chunk_size=chunk_size)
+                         chunk_size=chunk_size, workers=workers)
     frame = self._collected_frame(res)
     frame.meta["eval_seconds"] = res.seconds
     frame.meta["eval_us_per_design"] = res.seconds / max(len(frame), 1) * 1e6
@@ -324,25 +347,34 @@ class ExplorationSession:
     (default reducer: the 3-objective joint front); with "auto", sweeps
     of ``STREAM_AUTO_MIN_ROWS`` pairs or more go through the engine with
     a CollectAccumulator, the identical joint frame out.  ``policy`` /
-    ``resume_from`` / ``checkpoint_every`` as :meth:`explore`.
+    ``resume_from`` / ``checkpoint_every`` / ``workers`` / ``store`` /
+    ``pool`` as :meth:`explore` (no delta sweeps: a joint sweep's
+    identity includes its architectures).
     """
     from repro_torch.core.dataflow import LayerStack
     from repro_torch.core.supernet import arch_to_layers
-    _slice6_options("co_explore", workers=workers, store=store, pool=pool)
-    if reducers is not None and not stream:
-      raise ValueError("reducers only apply to the streaming engine; "
-                       "pass stream=True")
-    _check_stream_only(stream, policy, resume_from)
+    _check_stream_only(stream, reducers, policy, resume_from, pool, store)
     if stream:
       if not hasattr(self.backend, "co_evaluate_table"):
         raise ValueError(f"backend {self.backend.name!r} has no "
                          "co_evaluate_table; streaming needs the joint path")
+      if store is not None:
+        from repro_torch.explore.store import cached_stream_co_explore
+        return cached_stream_co_explore(self.backend, self.space, arch_accs,
+                                        n_hw_per_type=n_hw_per_type,
+                                        seed=seed, image_size=image_size,
+                                        method=method, reducers=reducers,
+                                        chunk_size=chunk_size,
+                                        workers=workers, policy=policy,
+                                        checkpoint_every=checkpoint_every,
+                                        store=store, pool=pool)
       return stream_co_explore(self.backend, self.space, arch_accs,
                                n_hw_per_type=n_hw_per_type, seed=seed,
                                image_size=image_size, method=method,
                                reducers=reducers, chunk_size=chunk_size,
-                               policy=policy, resume_from=resume_from,
-                               checkpoint_every=checkpoint_every)
+                               workers=workers, policy=policy,
+                               resume_from=resume_from,
+                               checkpoint_every=checkpoint_every, pool=pool)
     if vectorized == "auto":
       use_joint = bool(getattr(self.backend, "prefers_table", False)) \
           and hasattr(self.backend, "co_evaluate_table")
@@ -358,7 +390,7 @@ class ExplorationSession:
                               n_hw_per_type=n_hw_per_type, seed=seed,
                               image_size=image_size, method=method,
                               reducers={"frame": CollectAccumulator()},
-                              chunk_size=chunk_size)
+                              chunk_size=chunk_size, workers=workers)
       return self._collected_frame(res)
     archs = [arch for arch, _ in arch_accs]
     accs = np.asarray([float(acc) for _, acc in arch_accs], np.float64)

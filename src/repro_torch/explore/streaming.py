@@ -11,22 +11,29 @@ accumulator is chunk-order invariant and emits survivors in global row
 order, so streamed fronts and top-k are bit-identical to the one-shot
 frame's ``pareto``/``top_k`` on the same sweep.
 
+``workers > 1`` evaluates chunks on a thread pool (the host halves,
+sampling and hashing, release the GIL in numpy); ``pool=`` shards them
+over a :class:`repro_torch.explore.fleet.DevicePool`.  Either way the
+engine folds in chunk-index order through a reorder buffer, so a
+threaded or fleet run folds exactly what a single-threaded one does,
+stats included (the reference folds threaded chunks as they finish,
+which can move a stats mean in its last bit).
+
 Fault tolerance (:mod:`repro_torch.explore.resilience`): each chunk
 carries its ladder of rungs, a ``policy`` walks it on failures, and
 ``resume_from`` journals reducer snapshots under a content-addressed key
-so a killed sweep resumes where its last checkpoint left it.  The engine
-is single-threaded and folds in chunk-index order, so a resumed or
-degraded run folds exactly what an uninterrupted one does (the
-reference's threaded engine folds in completion order; the port has no
-worker pool until slice 6).
+so a killed sweep resumes where its last checkpoint left it.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import (Callable, Dict, Iterable, Iterator, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -40,13 +47,32 @@ from repro_torch.explore.resilience import (ChunkError, ChunkTask,
                                             space_fingerprint, sweep_key)
 from repro_torch.explore.space import DesignSpace
 
+# a chunk producer, the engine's unit of work: it returns the evaluated
+# (frame, global row ids) pair, or a pending handle with .resolve()
+Task = Callable[[], object]
+
 # how many device chunks stay in flight: chunk n+ahead is sampled and
 # dispatched while the device still runs chunk n
 DISPATCH_AHEAD = 2
 
+# every wait on the worker pool is bounded and re-armed in a loop, so a
+# slow chunk never wedges the submitting thread invisibly
+POOL_WAIT_SECONDS = 60.0
+
 # explore(vectorized="auto") switches to the streaming engine
 # (CollectAccumulator: identical full frame out) at this many rows
 STREAM_AUTO_MIN_ROWS = 1_000_000
+
+
+def default_workers(backend=None) -> int:
+  """Thread-pool width: 1 for a backend on CUDA (its chunks dispatch
+  asynchronously with a ``DISPATCH_AHEAD`` window, so one submitting
+  thread already overlaps host and device work, as the reference gives
+  its ``jit=True`` backend one), otherwise one per core up to 8."""
+  device = getattr(backend, "device", None)
+  if device is not None and getattr(device, "type", None) == "cuda":
+    return 1
+  return max(1, min(8, os.cpu_count() or 1))
 
 
 def _empty_frame() -> ResultFrame:
@@ -110,6 +136,16 @@ class Reducer:
     reference's strings, so keys agree across the two packages)."""
     return type(self).__name__
 
+  def remap_indices(self, ranker: Callable[[ResultFrame], np.ndarray]
+                    ) -> None:
+    """Rewrite the retained survivors' global row ids via ``ranker`` (a
+    frame -> int64 ids function).  Delta sweeps
+    (:mod:`repro_torch.explore.store`) restore a cached accumulator whose
+    ids were assigned in the base space's enumeration and re-address
+    them in the edited space before folding the new subgrid; a strictly
+    monotone remap leaves every selection and tie-break unchanged.
+    Default: no retained ids (stats and histogram state is id-free)."""
+
 
 class ParetoAccumulator(Reducer):
   """Online non-dominated front over the given columns: per-chunk
@@ -154,6 +190,10 @@ class ParetoAccumulator(Reducer):
     from repro_torch.explore.device import ParetoSpec
     return ParetoSpec(self.cols,
                       tuple(c for c in self.cols if c in self._mx))
+
+  def remap_indices(self, ranker) -> None:
+    if self._frame is not None and len(self._frame):
+      self._idx = np.asarray(ranker(self._frame), np.int64)
 
   def fingerprint(self) -> str:
     mx = ",".join(sorted(c for c in self.cols if c in self._mx))
@@ -205,6 +245,10 @@ class TopKAccumulator(Reducer):
   def device_spec(self):
     from repro_torch.explore.device import TopKSpec
     return TopKSpec(self.by, self.k, self.maximize)
+
+  def remap_indices(self, ranker) -> None:
+    if self._frame is not None and len(self._frame):
+      self._idx = np.asarray(ranker(self._frame), np.int64)
 
   def fingerprint(self) -> str:
     return f"TopK(k={self.k};by={self.by};mx={self.maximize})"
@@ -278,7 +322,9 @@ class StatsAccumulator(Reducer):
 
 class HistogramAccumulator(Reducer):
   """Streaming fixed-range histogram of one column; values outside
-  ``(lo, hi)`` are clipped into the edge bins."""
+  ``(lo, hi)`` are clipped into the edge bins.  :meth:`quantile`
+  interpolates linearly within bins (approximate: the error is bounded
+  by the bin width)."""
 
   def __init__(self, col: str, lo: float, hi: float, bins: int = 64):
     if not hi > lo:
@@ -311,6 +357,21 @@ class HistogramAccumulator(Reducer):
       return super().fold_payload(payload)
     self.counts += np.asarray(data, np.int64)
 
+  def quantile(self, q: float) -> float:
+    """Approximate q-quantile from the bin counts (linear within bins)."""
+    total = int(self.counts.sum())
+    if not total:
+      return float("nan")
+    target = np.clip(q, 0.0, 1.0) * total
+    cum = np.cumsum(self.counts)
+    b = int(np.searchsorted(cum, target, side="left"))
+    b = min(b, len(self.counts) - 1)
+    below = cum[b] - self.counts[b]
+    frac = (target - below) / max(self.counts[b], 1)
+    return float(self.edges[b]
+                 + np.clip(frac, 0.0, 1.0) * (self.edges[b + 1]
+                                              - self.edges[b]))
+
   def result(self) -> Dict[str, np.ndarray]:
     return {"counts": self.counts.copy(), "edges": self.edges.copy()}
 
@@ -330,6 +391,9 @@ class CollectAccumulator(Reducer):
       return
     self._frames.append(frame)
     self._idx.append(np.asarray(indices, np.int64))
+
+  def remap_indices(self, ranker) -> None:
+    self._idx = [np.asarray(ranker(f), np.int64) for f in self._frames]
 
   def result(self) -> ResultFrame:
     if not self._frames:
@@ -385,15 +449,29 @@ def fold_chunk(reducers: Dict[str, Reducer], counters: Dict[str, int],
     r.fold(frame, indices)
 
 
-def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
+def run_stream(tasks: Iterable[Task], reducers: Dict[str, Reducer],
+               workers: int = 1, dispatch_ahead: int = DISPATCH_AHEAD,
                policy: Optional[ResiliencePolicy] = None,
                resume_from=None, journal_key: str = "",
-               checkpoint_every: int = 1) -> StreamResult:
+               checkpoint_every: int = 1, pool=None) -> StreamResult:
   """Drain ``tasks`` (each producing one evaluated chunk), folding every
-  reducer as chunks complete.  Pending handles wait in a window of
-  ``DISPATCH_AHEAD`` before they are resolved, so the host prepares the
-  next chunks while the device runs earlier ones; chunks fold in
-  chunk-index order.
+  reducer in chunk-index order.  Pending handles wait in a window of
+  ``dispatch_ahead`` before they are resolved, so the host prepares the
+  next chunks while the device runs earlier ones.
+
+  ``workers > 1`` executes tasks on a thread pool with an in-flight
+  window of ``2 x workers`` tasks, so peak memory stays O(window x
+  chunk).  Results pass a reorder buffer (the oldest task is waited for
+  first) and then the same dispatch window as one worker, so a threaded
+  run folds the same chunks in the same order, bit for bit, stats
+  included; folds happen on the calling thread only.  On CUDA each
+  worker thread dispatches on its own current stream.
+
+  ``pool`` — a :class:`repro_torch.explore.fleet.DevicePool`: the sweep
+  goes to :func:`repro_torch.explore.fleet.run_fleet`, which shards
+  chunks over the pool's devices (health tracking, straggler
+  speculation, resharding, the silent-corruption sentinel) and folds in
+  the same order.
 
   Failure semantics:
 
@@ -401,7 +479,7 @@ def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
     :class:`ChunkTask` through retry + its ladder; its retry/demotion
     totals land in ``meta``.
   * a fatally failing chunk raises :class:`ChunkError` carrying the
-    chunk's global index.
+    chunk's global index (tasks not yet started are cancelled).
   * ``resume_from`` — a :class:`SweepJournal` (or its directory path).
     Reducer snapshots plus the set of folded chunk indices are recorded
     under ``journal_key`` every ``checkpoint_every`` folds *and* on the
@@ -410,6 +488,13 @@ def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
     entry, a matching record restores the reducers and already-folded
     chunks are skipped before dispatch.
   """
+  if pool is not None:
+    from repro_torch.explore.fleet import run_fleet
+    return run_fleet(tasks, reducers, pool, policy=policy,
+                     dispatch_ahead=dispatch_ahead, resume_from=resume_from,
+                     journal_key=journal_key,
+                     checkpoint_every=checkpoint_every)
+  workers = max(1, int(workers))
   t0 = time.perf_counter()
   journal = None
   done_chunks: set = set()
@@ -448,6 +533,9 @@ def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
         "counters": dict(counters)})
     since_ckpt = 0
 
+  def execute(task):
+    return policy.execute(task) if policy is not None else task()
+
   def fail(index, exc):
     """Flush the journal, then surface the failing chunk's global
     index (a bare re-raise would lose it)."""
@@ -464,18 +552,54 @@ def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
     done_chunks.add(index)
     checkpoint()
 
+  def indexed() -> Iterator[Tuple[int, Task]]:
+    """(global chunk index, task) pairs, skipping already-folded chunks
+    before they are materialized or dispatched."""
+    for i, task in enumerate(tasks):
+      index = getattr(task, "index", i)
+      if index not in done_chunks:
+        yield index, task
+
+  def in_order() -> Iterator[Tuple[int, object]]:
+    """(index, executed task) in chunk-index order; a failing task
+    raises :class:`ChunkError` when its turn comes."""
+    if workers == 1:
+      for index, task in indexed():
+        try:
+          yield index, execute(task)
+        except Exception as e:
+          fail(index, e)
+      return
+    with ThreadPoolExecutor(max_workers=workers) as executor:
+      inflight: "deque" = deque()  # (index, future), submission order
+
+      def oldest() -> Tuple[int, object]:
+        index, fut = inflight.popleft()
+        while not wait([fut], timeout=POOL_WAIT_SECONDS).done:
+          pass
+        try:
+          return index, fut.result()
+        except Exception as e:
+          fail(index, e)
+
+      try:
+        for index, task in indexed():
+          inflight.append((index, executor.submit(execute, task)))
+          if len(inflight) >= 2 * workers:
+            yield oldest()
+        while inflight:
+          yield oldest()
+      finally:
+        # fatal (or abandoned): drop queued tasks so the pool shuts down
+        # promptly instead of grinding through the in-flight window
+        for _, fut in inflight:
+          fut.cancel()
+
   window: "deque" = deque()
-  for i, task in enumerate(tasks):
-    index = getattr(task, "index", i)
-    if index in done_chunks:
-      continue
-    try:
-      res = policy.execute(task) if policy is not None else task()
-    except Exception as e:
-      fail(index, e)
+  for index, res in in_order():
     if hasattr(res, "resolve"):
       window.append((index, res))
-      if len(window) > DISPATCH_AHEAD:
+      if len(window) > max(int(dispatch_ahead), 0):
         finish(*window.popleft())
     else:
       finish(index, res)
@@ -484,7 +608,7 @@ def run_stream(tasks: Iterable[ChunkTask], reducers: Dict[str, Reducer],
   checkpoint(force=True)
   seconds = time.perf_counter() - t0
   n_retries, n_demotions = totals()
-  meta = {"seconds": seconds,
+  meta = {"seconds": seconds, "workers": float(workers),
           "n_chunks": float(counters["n_chunks"]),
           "rows_transferred": float(counters["n_transferred"]),
           "rows_per_sec": counters["n_rows"] / max(seconds, 1e-12),
@@ -542,25 +666,24 @@ def co_explore_sweep_key(space: DesignSpace, reducers: Dict[str, Reducer],
                     "archs": arch_accs_fingerprint(archs, accs)})
 
 
-def _slice6_options(owner: str, **options) -> None:
-  """The reference's thread-pool and fleet options, not ported yet."""
-  for name, value in options.items():
-    if value is not None:
-      raise NotImplementedError(
-          f"{owner}({name}=...) comes with slice 6 (store, service and "
-          "fleet)")
-
-
 def explore_tasks(backend, space: DesignSpace, layers, network: str,
                   n_per_type: int, seed: int, method: str, chunk_size: int,
-                  reducers: Dict[str, Reducer]) -> Iterator[ChunkTask]:
+                  reducers: Dict[str, Reducer],
+                  row_ids: Optional[Callable[[object, int], np.ndarray]]
+                  = None) -> Iterator[ChunkTask]:
   """The chunk tasks of a plain streamed sweep.  Each carries the rungs
   its backend offers, best first: ``fused-device`` (a backend with
   ``fused_eval_pending``, when every reducer is fusable), then ``device``
   (one with ``eval_pending``); any other backend evaluates each chunk
   with its ``evaluate_table``.  The last rung is the backend's own
   (on the card under a card backend): unlike the reference's ladder,
-  none ends on the host (see :mod:`repro_torch.explore.resilience`)."""
+  none ends on the host (see :mod:`repro_torch.explore.resilience`).
+
+  ``row_ids(chunk, offset)`` overrides the global row ids (default: the
+  one-shot sample order ``arange(offset, offset + len)``); delta sweeps
+  (:mod:`repro_torch.explore.store`) pass the edited space's canonical
+  grid ranks.  The exploration service and the store's drivers consume
+  these same tasks."""
   if not hasattr(backend, "evaluate_table"):
     raise ValueError(f"backend {backend.name!r} has no evaluate_table; "
                      "streaming requires the columnar path")
@@ -596,7 +719,10 @@ def explore_tasks(backend, space: DesignSpace, layers, network: str,
     for ci, chunk in enumerate(
         space.iter_tables(n_per_type, seed=seed, method=method,
                           chunk_size=chunk_size)):
-      idx = np.arange(offset, offset + len(chunk), dtype=np.int64)
+      if row_ids is None:
+        idx = np.arange(offset, offset + len(chunk), dtype=np.int64)
+      else:
+        idx = np.asarray(row_ids(chunk, offset), np.int64)
       offset += len(chunk)
       yield make_task(chunk, idx, ci)
 
@@ -616,8 +742,8 @@ def stream_explore(backend, space: DesignSpace, layers, network: str = "net",
   one-shot frame row for row.  ``policy`` walks each chunk's ladder on
   failures; ``resume_from`` journals and restores the sweep under
   :func:`explore_sweep_key` (the backend is not part of the key, so a
-  journal written on the card resumes on the CPU)."""
-  _slice6_options("stream_explore", workers=workers, pool=pool)
+  journal written on the card resumes on the CPU).  ``workers``
+  (default :func:`default_workers`) and ``pool`` as :func:`run_stream`."""
   if reducers is None:
     reducers = default_explore_reducers()
   key = ""
@@ -628,8 +754,10 @@ def stream_explore(backend, space: DesignSpace, layers, network: str = "net",
   return run_stream(explore_tasks(backend, space, layers, network,
                                   n_per_type, seed, method, chunk_size,
                                   reducers), reducers,
+                    workers=default_workers(backend) if workers is None
+                    else workers,
                     policy=policy, resume_from=resume_from, journal_key=key,
-                    checkpoint_every=checkpoint_every)
+                    checkpoint_every=checkpoint_every, pool=pool)
 
 
 def co_explore_tasks(backend, space: DesignSpace, arch_accs,
@@ -722,10 +850,9 @@ def stream_co_explore(backend, space: DesignSpace, arch_accs,
   once per PE type; the product never materializes).  Chunk frames carry
   the one-shot joint frame's ``top1`` / ``arch_id`` / ``arch_lookup``
   columns and global row ids.  Default reducers: the paper's
-  3-objective (top1_err, energy_mj, area_mm2) joint front.  ``policy``
-  and ``resume_from`` as :func:`stream_explore`, under
-  :func:`co_explore_sweep_key`."""
-  _slice6_options("stream_co_explore", workers=workers, pool=pool)
+  3-objective (top1_err, energy_mj, area_mm2) joint front.  ``policy``,
+  ``resume_from``, ``workers`` and ``pool`` as :func:`stream_explore`,
+  under :func:`co_explore_sweep_key`."""
   if reducers is None:
     reducers = default_co_reducers()
   key = ""
@@ -737,5 +864,7 @@ def stream_co_explore(backend, space: DesignSpace, arch_accs,
   return run_stream(co_explore_tasks(backend, space, arch_accs,
                                      n_hw_per_type, seed, image_size,
                                      method, chunk_size, reducers), reducers,
+                    workers=default_workers(backend) if workers is None
+                    else workers,
                     policy=policy, resume_from=resume_from, journal_key=key,
-                    checkpoint_every=checkpoint_every)
+                    checkpoint_every=checkpoint_every, pool=pool)

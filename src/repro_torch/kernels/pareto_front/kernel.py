@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict
 
 import torch
@@ -23,6 +24,8 @@ PAIR_TILE = 256
 
 LAUNCHES: Dict[str, int] = {"block_dominance_counts": 0,
                             "dominance_counts": 0}
+# worker threads of a threaded stream launch concurrently
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -58,7 +61,8 @@ def _check_input(obj_t: torch.Tensor, multiple: int) -> None:
 def _launched(name: str, status: int) -> None:
   if status != 0:
     raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
-  LAUNCHES[name] += 1
+  with _COUNT_LOCK:
+    LAUNCHES[name] += 1
 
 
 def block_dominance_counts(obj_t: torch.Tensor, block: int) -> torch.Tensor:

@@ -1,3 +1,4 @@
-"""Training support of the port.  For now only the retry primitive of
-:mod:`repro_torch.train.fault_tolerance`, which the exploration
-resilience ladder is built on; the trainer comes with slice 7."""
+"""Training support of the port.  For now only
+:mod:`repro_torch.train.fault_tolerance`: the retry primitive the
+exploration resilience ladder is built on, and the straggler monitor the
+device fleet reads; the trainer comes with slice 7."""

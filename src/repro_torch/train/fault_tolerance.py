@@ -1,15 +1,65 @@
-"""Bounded retries on transient errors (the port of the retry half of
-``repro.train.fault_tolerance``: :class:`StepFailure` and
-:func:`retrying`, the single retry primitive the exploration resilience
-ladder builds its ``RetryPolicy`` on).
+"""Straggler detection and bounded retries on transient errors (the
+port of ``repro.train.fault_tolerance``'s :class:`StragglerMonitor`,
+which the device fleet's health registry reads, and of
+:class:`StepFailure` and :func:`retrying`, the single retry primitive
+the exploration resilience ladder builds its ``RetryPolicy`` on).
 
-The trainer half of the reference module (``StragglerMonitor``,
-``ElasticMeshPlanner``) comes with slice 7.
+The trainer's re-meshing half of the reference module (``MeshPlan``,
+``ElasticMeshPlanner``) comes with slice 7b.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+
+@dataclasses.dataclass
+class HostStats:
+  ewma: float = 0.0
+  var: float = 0.0
+  count: int = 0
+
+
+class StragglerMonitor:
+  """EWMA-based straggler detection over per-host step durations."""
+
+  def __init__(self, alpha: float = 0.2, z_threshold: float = 3.0,
+               min_samples: int = 5):
+    self.alpha = alpha
+    self.z = z_threshold
+    self.min_samples = min_samples
+    self.hosts: Dict[str, HostStats] = {}
+
+  def record(self, host: str, step_seconds: float) -> None:
+    st = self.hosts.setdefault(host, HostStats())
+    if st.count == 0:
+      st.ewma = step_seconds
+    delta = step_seconds - st.ewma
+    st.ewma += self.alpha * delta
+    st.var = (1 - self.alpha) * (st.var + self.alpha * delta * delta)
+    st.count += 1
+
+  def fleet_median(self) -> float:
+    vals = sorted(s.ewma for s in self.hosts.values() if s.count)
+    return vals[len(vals) // 2] if vals else 0.0
+
+  def stragglers(self) -> List[str]:
+    """Hosts whose EWMA step time exceeds fleet median by z * fleet std."""
+    med = self.fleet_median()
+    if med <= 0:
+      return []
+    devs = [abs(s.ewma - med) for s in self.hosts.values()
+            if s.count >= self.min_samples]
+    if not devs:
+      return []
+    mad = sorted(devs)[len(devs) // 2] or 1e-9
+    out = []
+    for h, s in self.hosts.items():
+      if s.count >= self.min_samples and (s.ewma - med) / (1.4826 * mad) \
+          > self.z:
+        out.append(h)
+    return sorted(out)
 
 
 class StepFailure(RuntimeError):

@@ -374,11 +374,21 @@ def test_session_auto_routes_like_the_reference(backend, arch_accs,
   assert_same_frames(streamed, want, "auto-streamed")
 
 
-def test_session_co_explore_refusals(backend, arch_accs):
+def test_session_co_explore_refusals(backend, arch_accs, tmp_path):
   session = P.ExplorationSession(backend, P.DesignSpace())
-  for kwargs in ({"workers": 2}, {"store": object()}, {"pool": object()}):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-      session.co_explore(arch_accs, stream=True, **kwargs)
+  # workers, store and pool (ported with slice 6) run, with the fronts
+  # of the stream without them
+  kw = dict(n_hw_per_type=N_HW, seed=3, image_size=IMAGE, stream=True,
+            chunk_size=97)
+  want = session.co_explore(arch_accs, workers=1, **kw)
+  for kwargs in ({"workers": 2}, {"store": P.ResultStore(tmp_path)},
+                 {"pool": P.DevicePool(devices=["cpu"] * 2)}):
+    got = session.co_explore(arch_accs, **kwargs, **kw)
+    assert_same_frames(got["pareto"], want["pareto"], str(kwargs))
+    # store and pool are refused outside the stream, as in the reference
+    if "workers" not in kwargs:
+      with pytest.raises(ValueError, match="stream=True"):
+        session.co_explore(arch_accs, **kwargs)
   with pytest.raises(ValueError, match="stream=True"):
     session.co_explore(arch_accs, reducers=PS.default_co_reducers())
   # policy and resume_from (ported with slice 5b) apply to the stream

@@ -1017,3 +1017,171 @@ def test_an_injected_hang_on_the_card_demotes_to_the_card_rung(cuda):
   with pytest.raises(ChunkError) as err:
     run(dead)
   assert err.value.chunk_index == 1
+
+
+# ---------------------------------------------------------------------------
+# the worker pool, the fleet, the store and the service on the card
+# ---------------------------------------------------------------------------
+
+def _slice6_reducers():
+  return {"pareto": ParetoAccumulator(),
+          "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
+                                        "area_mm2")),
+          "top": TopKAccumulator(9, by="energy_mj"),
+          "stats": StatsAccumulator("power_mw"),
+          "hist": HistogramAccumulator("area_mm2", 0.0, 200.0, bins=16)}
+
+
+def _assert_bit_identical(got, want):
+  for name in ("pareto", "pareto3", "top"):
+    for col in METRICS:
+      np.testing.assert_array_equal(got[name].column(col),
+                                    want[name].column(col), err_msg=name)
+  assert got["stats"] == want["stats"]
+  np.testing.assert_array_equal(got["hist"]["counts"],
+                                want["hist"]["counts"])
+
+
+@pytest.mark.parametrize("workers", [2, 4])
+def test_threaded_stream_on_the_card_equals_one_worker(cuda, workers):
+  """Each worker thread dispatches on its own current stream; the fold
+  stays in chunk-index order, so every reducer is the same bits, and K1
+  counts once a chunk."""
+  layers = get_network("resnet20")[:4]
+
+  def run(w):
+    kernel.reset_launch_counts()
+    res = stream_explore(TorchOracleBackend(device=cuda), DesignSpace(),
+                         layers, "net", n_per_type=3000, seed=6,
+                         chunk_size=1024, reducers=_slice6_reducers(),
+                         workers=w)
+    torch.cuda.synchronize()
+    return res, kernel.LAUNCHES["block_dominance_counts"]
+
+  (one, k1_one), (many, k1_many) = run(1), run(workers)
+  _assert_bit_identical(many, one)
+  assert k1_one == k1_many == int(one.meta["n_chunks"])
+
+
+def test_a_pool_of_the_card_pins_and_checks_on_the_cpu(cuda):
+  """A pool of the card: chunks pinned to ``cuda:0`` (K1 included), the
+  sentinel recomputing every chunk on the CPU with no mismatch, results
+  the same bits as the pool-less stream; a co-exploration's factorization
+  follows the pin."""
+  from repro_torch.explore import DevicePool
+  layers = get_network("resnet20")[:4]
+  backend = TorchOracleBackend(device=cuda)
+  kw = dict(n_per_type=2000, seed=8, chunk_size=1024)
+  want = stream_explore(backend, DesignSpace(), layers, "net",
+                        reducers=_slice6_reducers(), **kw)
+  pool = DevicePool(sdc_check_every=1)
+  assert pool.devices() == (torch.device("cuda", 0),)
+  kernel.reset_launch_counts()
+  got = stream_explore(backend, DesignSpace(), layers, "net",
+                       reducers=_slice6_reducers(), pool=pool, **kw)
+  torch.cuda.synchronize()
+  _assert_bit_identical(got, want)
+  assert got.meta["n_corruption_checks"] == got.meta["n_chunks"]
+  assert got.meta["n_corruptions_detected"] == 0.0
+  assert kernel.LAUNCHES["block_dominance_counts"] == got.meta["n_chunks"]
+
+  rng = np.random.RandomState(3)
+  archs = [ArchChoice(tuple((int(rng.choice(r)), int(rng.choice(c)))
+                            for r, c in SEARCH_SPACE)) for _ in range(6)]
+  arch_accs = list(zip(archs, rng.uniform(0.5, 0.95, len(archs))))
+
+  def co(**extra):
+    return stream_co_explore(
+        backend, DesignSpace(), arch_accs, n_hw_per_type=30, seed=3,
+        image_size=16, chunk_size=64,
+        reducers={"pareto": ParetoAccumulator(("top1_err", "energy_mj",
+                                               "area_mm2")),
+                  "pareto3": ParetoAccumulator(("latency_s", "energy_mj",
+                                                "area_mm2")),
+                  "top": TopKAccumulator(6, by="energy_mj")}, **extra)
+
+  solo, pooled = co(), co(pool=DevicePool(sdc_check_every=2))
+  for name in ("pareto", "pareto3", "top"):
+    for col in METRICS + ("arch_id",):
+      np.testing.assert_array_equal(pooled[name].column(col),
+                                    solo[name].column(col))
+  assert pooled.meta["n_corruptions_detected"] == 0.0
+
+
+def test_a_store_entry_from_the_card_serves_the_cpu(cuda, tmp_path):
+  from repro_torch.explore import ResultStore, cached_stream_explore
+  layers = get_network("resnet20")[:4]
+  kw = dict(n_per_type=1500, seed=2, chunk_size=1024)
+  card = cached_stream_explore(TorchOracleBackend(device=cuda),
+                               DesignSpace(), layers, "net",
+                               reducers=_slice6_reducers(),
+                               store=ResultStore(tmp_path), **kw)
+  hit = cached_stream_explore(TorchOracleBackend(device="cpu"),
+                              DesignSpace(), layers, "net",
+                              reducers=_slice6_reducers(),
+                              store=ResultStore(tmp_path), **kw)
+  cpu = stream_explore(TorchOracleBackend(device="cpu"), DesignSpace(),
+                       layers, "net", reducers=_slice6_reducers(), **kw)
+  assert hit.meta["store_hit"] == 1.0
+  _assert_bit_identical(hit, card)
+  for name in ("pareto", "pareto3", "top"):
+    for col in METRICS:
+      np.testing.assert_array_equal(hit[name].column(col),
+                                    cpu[name].column(col))
+
+
+def test_the_service_on_the_card_equals_solo_runs(cuda):
+  """Two sessions (one with a 3-D front: K1 under the service) and a
+  sick fused rung behind an open breaker, which sends chunks to the
+  card's own ``device`` rung (H16), all equal their solo streams."""
+  from repro_torch.explore import CircuitBreaker, ExplorationService
+  layers = get_network("resnet20")[:4]
+  kw = dict(n_per_type=2000, chunk_size=1024)
+
+  def solo(seed):
+    return stream_explore(TorchOracleBackend(device=cuda), DesignSpace(),
+                          layers, "net", seed=seed,
+                          reducers=_slice6_reducers(), **kw)
+
+  svc = ExplorationService(TorchOracleBackend(device=cuda), slots=2)
+  handles = {s: svc.submit_explore(DesignSpace(), layers, "net", seed=s,
+                                   reducers=_slice6_reducers(), **kw)
+             for s in (1, 2)}
+  kernel.reset_launch_counts()
+  svc.drain()
+  torch.cuda.synchronize()
+  assert kernel.LAUNCHES["block_dominance_counts"] == sum(
+      h.result().meta["n_chunks"] for h in handles.values())
+  for s, h in handles.items():
+    _assert_bit_identical(h.result(), solo(s))
+
+  inner = TorchOracleBackend(device=cuda)
+
+  class SickFused:
+    name = "sick-fused"
+    device = inner.device
+
+    def evaluate_table(self, *a, **k):
+      return inner.evaluate_table(*a, **k)
+
+    def fused_eval_pending(self, *a, **k):
+      raise RuntimeError("device runtime wedged")
+
+    def eval_pending(self, *a, **k):
+      return inner.eval_pending(*a, **k)
+
+  br = CircuitBreaker(threshold=2, cooldown=1000, jitter=0)
+  svc = ExplorationService(SickFused(), slots=1,
+                           retry=RetryPolicy(sleep=lambda s: None),
+                           breaker=br)
+  h = svc.submit_explore(DesignSpace(), layers, "net", seed=1,
+                         reducers=_slice6_reducers(), **kw)
+  svc.drain()
+  res = h.result()
+  assert res.meta["breaker_state"] == "open"
+  assert res.meta["n_breaker_short_circuits"] > 0
+  want = solo(1)
+  for name in ("pareto", "pareto3", "top"):
+    for col in METRICS:
+      np.testing.assert_array_equal(res[name].column(col),
+                                    want[name].column(col))

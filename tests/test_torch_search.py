@@ -402,22 +402,44 @@ def test_optimize_modes_and_refusals():
     for option in ("workers", "store", "pool")] + [
     (call, option) for call in ("stream_explore", "stream_co_explore")
     for option in ("workers", "pool")])
-def test_slice6_options_raise_until_ported(call, option):
+def test_slice6_options_raise_until_ported(call, option, tmp_path):
+  """The reference's thread-pool, store and fleet options (ported with
+  slice 6) run on each entry point and give the fronts and top-k of the
+  run without them; a stored result is then served as a store hit."""
   backend = P.TorchOracleBackend(device="cpu")
   session = P.ExplorationSession(backend)
   layers = get_network("resnet20")[:1]
   arch_accs = _bench_arch_accs(ArchChoice, 1)
+  cols = ("top1_err", "energy_mj", "area_mm2") if "co_explore" in call \
+      else ("perf_per_area", "energy_mj")
+
+  def reducers():
+    return {"pareto": P.ParetoAccumulator(cols),
+            "top": P.TopKAccumulator(7, by="energy_mj")}
+
   calls = {
       "explore": lambda **k: session.explore(layers, "net", stream=True,
-                                             **k),
-      "co_explore": lambda **k: session.co_explore(arch_accs, stream=True,
-                                                   **k),
+                                             reducers=reducers(), **k),
+      "co_explore": lambda **k: session.co_explore(
+          arch_accs, stream=True, reducers=reducers(), **k),
       "stream_explore": lambda **k: P.stream_explore(
-          backend, session.space, layers, **k),
+          backend, session.space, layers, reducers=reducers(), **k),
       "stream_co_explore": lambda **k: P.stream_co_explore(
-          backend, session.space, arch_accs, **k)}
-  with pytest.raises(NotImplementedError, match="slice 6"):
-    calls[call](**{option: 2})
+          backend, session.space, arch_accs, reducers=reducers(), **k)}
+  values = {"workers": lambda: 2,
+            "store": lambda: P.ResultStore(tmp_path),
+            "pool": lambda: P.DevicePool(devices=["cpu"] * 2)}
+  want = calls[call](workers=1)
+  runs = [calls[call](**{option: values[option]()})]
+  if option == "store":
+    runs.append(calls[call](store=values["store"]()))
+    assert runs[1].meta["store_hit"] == 1.0
+  for got in runs:
+    assert got.n_rows == want.n_rows
+    for name in ("pareto", "top"):
+      for col in METRICS:
+        np.testing.assert_array_equal(got[name].column(col),
+                                      want[name].column(col))
 
 
 def test_policy_and_resume_need_the_stream(tmp_path):

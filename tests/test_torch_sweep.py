@@ -315,3 +315,31 @@ def test_cpu_probe_reports_every_hazard():
                                    "F2/F6 oracle vs CPU", "F5 stable top-k",
                                    "F7 sized compaction"}
   assert report["raw_mismatches"]["F1 float / tensor"] > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_histogram_quantile_equals_the_reference(seed):
+  """G1: ``HistogramAccumulator.quantile`` over a grid of q (the clipped
+  ends included) equals the reference's on the same counts, and both are
+  NaN on an empty histogram."""
+  rng = np.random.RandomState(seed)
+  got = P.HistogramAccumulator("power_mw", 0.0, 50.0, bins=16)
+  want = R.HistogramAccumulator("power_mw", 0.0, 50.0, bins=16)
+  assert np.isnan(got.quantile(0.5)) and np.isnan(want.quantile(0.5))
+  counts = rng.randint(0, 40, 16).astype(np.int64)
+  counts[rng.randint(0, 16, 4)] = 0       # empty bins inside the range
+  got.counts[:] = counts
+  want.counts[:] = counts
+  for q in np.concatenate([np.linspace(-0.25, 1.25, 61), [0.0, 1.0]]):
+    assert got.quantile(q) == want.quantile(q), q
+
+
+@pytest.mark.parametrize("method", ["random", "grid"])
+def test_config_table_iterates_like_the_reference(method):
+  """G2: ``list(table)`` yields ``config_at(i)`` row for row, equal to
+  the reference's configs."""
+  got = list(P.DesignSpace().sample_table(20, seed=5, method=method))
+  want = list(R.DesignSpace().sample_table(20, seed=5, method=method))
+  assert len(got) == len(want) == 80
+  assert [dataclasses.astuple(c) for c in got] == \
+      [dataclasses.astuple(c) for c in want]
