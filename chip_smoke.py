@@ -39,7 +39,17 @@ through a ``DevicePool`` of the card (with the silent-corruption sentinel
 recomputing on the CPU, and a quarantined pool raising), a store entry
 written on the card and loaded by a CPU process, the sweep on four worker
 threads, and ``benchmarks/framework_perf.py``'s resilience benchmark at
-full scale against its record.  Then it serves
+full scale against its record.  The paper's model side follows:
+Table 2's QAT recipe (``benchmarks/accuracy_experiments.py``, ported as
+``repro_torch.train.qat``) trains
+resnet20 at the reference's sizes under each paper PE type, twice, and
+resnet20, resnet56 and the VGG supernet at the paper's widths and 32 px;
+figs 10-11 put those accuracies beside the polynomial models' figures,
+fig 12 co-explores architectures scored by the port's weight-sharing
+supernet (the reference's recipe, then 1,000 architectures of a 32-px
+supernet through the 10,000,000-pair stream), the card is held to the
+CPU from the same weights, and figs 5-9 and Table 3 are printed beside
+the reference's values.  Then it serves
 eight requests with a full-width qwen3-0.6b (bf16, int8 KV cache, random
 weights from seed 0) through ``ServeEngine``, twice, and holds a
 two-layer float32 copy of the model on the card to the same model on the
@@ -160,6 +170,87 @@ STORE_PARITY = dict(n_per_type=5000, seed=11, chunk=4096)
 WORKERS = 4
 RES_PERF = dict(n_archs=200, n_hw_per_type=500, chunk=65536)
 RES_PERF_RECORD = ROOT / "results" / "BENCH_resilience.json"
+
+# the paper's model side: benchmarks/accuracy_experiments.py's QAT recipe
+# (_train_qat, ported as repro_torch.train.qat.train_qat: CifarLike seed 0,
+# SGD lr 0.05 with 40 steps an epoch and drops at epochs 2 and 3, 120
+# steps of batch 64 at split_seed=step, 512 validation images at split
+# 10,000,019 as one batch); (a) at its own
+# sizes (resnet20 at width 8, 16 px), twice, beside its values on a host
+# CPU (JAX 0.9.0: python -m benchmarks.run --suite accuracy --only table2;
+# the port draws its own initial weights); (b) at the paper's widths and
+# image size: width 16, 32 px, resnet20, resnet56 and the VGG supernet at
+# max_arch(), the only changes from (a)
+QAT_REF_CPU = {"FP32": 0.941, "INT16": 0.938, "LightPE-1": 0.951,
+               "LightPE-2": 0.965}
+QAT_REF_TOL = 0.05
+QAT_PAPER = (("resnet20", 16), ("resnet56", 16), ("vgg", 16))
+QAT_PAPER_IMAGE = 32
+# the steps [accuracy-profile] traces: (network, PE type, width, px)
+QAT_PROFILE = (("resnet20", "FP32", 8, 16), ("resnet20", "LightPE-2", 8, 16),
+               ("resnet56", "LightPE-2", 16, 32), ("vgg", "LightPE-2", 16, 32))
+# figs 10-11 (designs a type) and fig 12: (a) the reference's recipe
+# (supernet, archs, validation images, HW designs a type), (b) the paper's
+# scale: the 32-px supernet at its defaults (batch 64, 300 steps), 1,000
+# archs on 512 images, [coexplore]'s stream (2,500 HW a type) at 32 px;
+# and the reference's values on a host CPU (benchmarks/accuracy_
+# experiments.py and benchmarks/paper_figures.py, JAX 0.9.0)
+FIG1011_PER_TYPE = 150
+FIG1011_REF_CPU = dict(
+    ppa={"FP32": 0.63, "INT16": 1.00, "LightPE-1": 2.80, "LightPE-2": 2.51},
+    energy={"FP32": 3.132, "INT16": 0.972, "LightPE-1": 0.262,
+            "LightPE-2": 0.186},
+    front_ppa="LightPE-1/LightPE-2", front_energy="LightPE-2")
+FIG12_REF = dict(supernet=dict(steps=80, batch=32, image_size=16),
+                 n_archs=12, n_val=256, n_hw_per_type=8)
+FIG12_REF_CPU = dict(pairs=384, front_energy="LightPE-1/LightPE-2",
+                     acc_range=(0.246, 0.555))
+FIG12_PAPER = dict(supernet=dict(image_size=32), n_archs=1000, n_val=512,
+                   n_hw_per_type=CO_HW_PER_TYPE, image_size=32)
+# [accuracy-parity]: the card against the CPU from the same weights and
+# batch: resnet20 at width 8 and the VGG supernet under a masked arch,
+# both at 16 px and batch 64; 10 QAT steps; 3 supernet steps
+ACC_PARITY_MASKED = ((1, 40), (2, 96), (1, 224), (3, 320), (2, 448))
+ACC_PARITY_STEPS = 10
+ACC_PARITY_SUPERNET_STEPS = 3
+# bounds, card vs CPU (H20; tests/test_torch_cnn.py holds the port to the
+# reference with the same numbers): (logits, loss) relative to the largest
+# |value|; a quantized type's at least twice the CPU's own largest move
+# under three one-ulp jitters of the weights; FP32 gradients per leaf; a
+# quantized conv's output and gradients from identical inputs; the QAT
+# losses a step; the supernet's losses
+ACC_BOUNDS = {"FP32": (1e-4, 1e-5), "INT16": (1e-3, 1e-4),
+              "LightPE-1": (2e-2, 2e-3), "LightPE-2": (2e-2, 2e-3)}
+ACC_FP32_GRADS = 1e-4
+ACC_LAYER = 1e-5
+ACC_STEPS_BOUND = {"FP32": 1e-4, "LightPE-2": 2e-2}
+ACC_SUPERNET_BOUND = 1e-4
+# [paper-figs]: the reference's benchmarks/paper_figures.py on a host CPU
+# (JAX 0.9.0): fig 5's best degrees and power MAPE/RMSPE a degree; figs
+# 6-8's power, area and latency MAPE (%) and power and latency R^2 a PE
+# type; fig 9's median and best perf/area and energy a network and type;
+# Table 3's clocks (MHz)
+PAPER_FIGS_REF_CPU = dict(
+    fig5=dict(best_power=3, best_area=3, curve={
+        1: (0.95, 1.27), 2: (0.34, 0.43), 3: (0.33, 0.41), 4: (0.34, 0.43),
+        5: (0.42, 0.57), 6: (0.60, 1.07), 7: (0.83, 1.61), 8: (1.29, 3.20)}),
+    fig6_8={"FP32": (0.61, 0.47, 24.15, 0.9992, 0.6685),
+            "INT16": (0.52, 0.53, 23.24, 0.9997, 0.6925),
+            "LightPE-1": (0.49, 0.55, 23.11, 0.9997, 0.6941),
+            "LightPE-2": (0.53, 0.58, 23.11, 0.9998, 0.6943)},
+    fig9={"vgg16": {"FP32": (0.14, 0.39, 13.020, 5.051),
+                    "INT16": (0.28, 1.00, 3.445, 1.000),
+                    "LightPE-1": (0.71, 2.13, 1.058, 0.359),
+                    "LightPE-2": (0.59, 2.11, 1.278, 0.275)},
+          "resnet20": {"FP32": (0.18, 0.63, 7.579, 3.132),
+                       "INT16": (0.32, 1.00, 2.161, 0.972),
+                       "LightPE-1": (0.93, 2.80, 0.565, 0.262),
+                       "LightPE-2": (0.73, 2.51, 0.692, 0.186)},
+          "resnet56": {"FP32": (0.19, 0.63, 7.072, 3.127),
+                       "INT16": (0.33, 1.00, 2.040, 0.939),
+                       "LightPE-1": (0.97, 2.84, 0.535, 0.249),
+                       "LightPE-2": (0.76, 2.62, 0.674, 0.178)}},
+    table3={"FP32": 275, "INT16": 284, "LightPE-1": 454, "LightPE-2": 434})
 
 # serving: the K6 prefill shape (one 512-token bucket of qwen3-0.6b), the
 # K5 decode shape (one slot's cache of 2,048 positions) and the traffic
@@ -1983,6 +2074,462 @@ def phase_resilience_perf():
 
 
 # ---------------------------------------------------------------------------
+# the paper's model side: QAT CNNs, the supernet, Table 2's accuracy,
+# figs 10-12 and the paper's remaining figures
+# ---------------------------------------------------------------------------
+
+def _events():
+  import torch
+  return (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+
+
+def phase_accuracy_profile(smi):
+  """Where a QAT step's time goes: one step's device operations and
+  device time (``torch.profiler``) against the step between events."""
+  import torch
+  from repro_torch.data import CifarLike, CifarLikeConfig
+  from repro_torch.train import qat
+  for kind, pe_type, width, image in QAT_PROFILE:
+    _, step = qat.qat_trainer(kind, pe_type, "cuda", width)
+    x, y = (torch.from_numpy(a).cuda() for a in CifarLike(CifarLikeConfig(
+        image_size=image)).sample(qat.RECIPE["batch"], split_seed=0))
+    name = f"{kind} width {width}, {image} px, {pe_type}, one step"
+    for _ in range(2):
+      step(x, y)
+    rows = []
+    timed_stage(rows, "step", lambda: step(x, y))
+    device_ms = _device_profile("accuracy", name, lambda: step(x, y))
+    _, host_ms, event_ms = rows[0]
+    log(f"[accuracy-profile] {name}: {host_ms:.2f} ms (host), "
+        f"{event_ms:.2f} ms (events); the card busy "
+        + (f"{device_ms / event_ms:.1%} of it" if device_ms else
+           "not measured") + f"; card: {smi}")
+
+
+def _qat_line(tag, r):
+  from repro_torch.train.qat import RECIPE
+  imgs = RECIPE["batch"] / (r["event_ms"] / 1e3)
+  return (f"{tag}: top-1 {r['acc']:.4f}, loss {r['losses'][0]:.4f} -> "
+          f"{r['losses'][-1]:.6f}; {r['host_ms']:.2f} ms a step (host), "
+          f"{r['event_ms']:.2f} ms (events), {imgs:.1f} images/s")
+
+
+def phase_accuracy(smi):
+  """Table 2's accuracy columns: (a) the reference's sizes under each
+  paper PE type, twice (deterministic cuDNN, TF32 off: identical runs,
+  H19), each accuracy within QAT_REF_TOL of the reference's CPU value;
+  (b) the paper's widths at 32 px."""
+  import math
+  from repro_torch.core.pe import PAPER_PE_TYPES
+  t_phase = time.perf_counter()
+  from repro_torch.train.qat import train_qat
+  runs = [{t: train_qat("resnet20", t, "cuda") for t in PAPER_PE_TYPES}
+          for _ in range(2)]
+  for t in PAPER_PE_TYPES:
+    a, b = runs[0][t], runs[1][t]
+    log(_qat_line(f"[accuracy] (a) resnet20 width 8, 16 px, {t}", a)
+        + f"; reference on a host CPU {QAT_REF_CPU[t]:.3f} (diff "
+        f"{a['acc'] - QAT_REF_CPU[t]:+.4f}); rerun top-1 {b['acc']:.4f}, "
+        f"final loss {b['losses'][-1]:.6f}, "
+        f"{'identical' if a['losses'] == b['losses'] else 'DIFFERENT'}")
+    if a["acc"] != b["acc"] or a["losses"] != b["losses"]:
+      raise AssertionError(f"[accuracy] {t}: a rerun differs")
+    if not abs(a["acc"] - QAT_REF_CPU[t]) <= QAT_REF_TOL:
+      raise AssertionError(f"[accuracy] {t}: top-1 {a['acc']:.4f} is more "
+                           f"than {QAT_REF_TOL} from the reference's "
+                           f"{QAT_REF_CPU[t]}")
+  log(f"[accuracy] (b) the paper's widths: width 16 (the VGG supernet at "
+      f"max_arch(), its own widths), {QAT_PAPER_IMAGE} px; nothing else "
+      "changed from (a)")
+  for kind, width in QAT_PAPER:
+    for t in PAPER_PE_TYPES:
+      r = train_qat(kind, t, "cuda", width=width, image=QAT_PAPER_IMAGE)
+      log(_qat_line(f"[accuracy] (b) {kind}"
+                    + (f" width {width}" if kind != "vgg" else " (VGG16 "
+                       "plan)") + f", {QAT_PAPER_IMAGE} px, {t}", r))
+      if not (all(math.isfinite(l) for l in r["losses"])
+              and 0.0 <= r["acc"] <= 1.0):
+        raise AssertionError(f"[accuracy] (b) {kind} {t}: not finite")
+  log(f"[accuracy] {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+  return {t: r["acc"] for t, r in runs[0].items()}
+
+
+def _poly_session():
+  from repro_torch.core.workloads import get_network
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   PolynomialBackend)
+  backend = PolynomialBackend.fit_or_load(
+      str(POLY_CACHE), layers=get_network("resnet20") + get_network("vgg16"),
+      **POLY_FIT)
+  return ExplorationSession(backend, DesignSpace())
+
+
+def phase_fig10_11(accs, sess):
+  """Figs 10-11: (a)'s accuracies against the best normalised perf/area
+  and energy of each PE type (the reference's second ``_train_qat`` call
+  is the same training as Table 2's, so its accuracies are reused), and
+  the two 2-D fronts through ``pareto_mask``."""
+  import numpy as np
+  from repro_torch.core.pe import PAPER_PE_TYPES
+  from repro_torch.core.workloads import get_network
+  from repro_torch.explore import pareto_mask
+  t0 = time.perf_counter()
+  frame = sess.explore(get_network("resnet20"), "resnet20",
+                       n_per_type=FIG1011_PER_TYPE)
+  ppa_n, en_n = frame.normalize(ref="best-int16")
+  pts = [(t, accs[t], float(ppa_n[frame.by_type(t)].max()),
+          float(en_n[frame.by_type(t)].min())) for t in PAPER_PE_TYPES]
+  err = np.asarray([1 - a for _, a, _, _ in pts])
+  fronts = {}
+  for name, col in (("ppa", [1.0 / p for _, _, p, _ in pts]),
+                    ("energy", [e for _, _, _, e in pts])):
+    mask = pareto_mask(np.stack([err, np.asarray(col)], 1))
+    fronts[name] = "/".join(pts[i][0] for i in range(len(pts)) if mask[i])
+  ref = FIG1011_REF_CPU
+  log(f"[fig10-11] resnet20, {len(frame)} designs ({FIG1011_PER_TYPE} a "
+      f"type) in {time.perf_counter() - t0:.3f} s: " + "; ".join(
+          f"{t} acc {a:.4f} perf/area {p:.2f}x (reference "
+          f"{ref['ppa'][t]:.2f}x) energy {e:.3f}x (reference "
+          f"{ref['energy'][t]:.3f}x)" for t, a, p, e in pts))
+  log(f"[fig10-11] front_ppa={fronts['ppa']} (reference "
+      f"{ref['front_ppa']}), front_energy={fronts['energy']} (reference "
+      f"{ref['front_energy']})")
+  return fronts
+
+
+def phase_fig12(smi, sess):
+  """Fig 12: co-exploration scored by the port's supernet. (a) the
+  reference's recipe through the polynomial session; (b) the 32-px
+  supernet, 1,000 archs, and [coexplore]'s 10,000,000-pair stream at 32
+  px through the exact oracle."""
+  import numpy as np
+  import torch
+  from repro_torch.core.supernet import Supernet, SupernetConfig
+  from repro_torch.explore import (DesignSpace, ExplorationSession,
+                                   TorchOracleBackend)
+
+  def supernet(cfg, n_archs, n_val, tag):
+    sn = Supernet(SupernetConfig(**cfg))
+    torch.cuda.synchronize()
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    losses = sn.train(log_every=0)
+    end.record()
+    torch.cuda.synchronize()
+    steps = len(losses)
+    train_ms = ((time.perf_counter() - t0) * 1e3 / steps,
+                start.elapsed_time(end) / steps)
+    start, end = _events()
+    t0 = time.perf_counter()
+    start.record()
+    arch_accs = sn.sample_and_evaluate(n_archs=n_archs, n_val=n_val)
+    end.record()
+    torch.cuda.synchronize()
+    eval_ms = ((time.perf_counter() - t0) * 1e3 / n_archs,
+               start.elapsed_time(end) / n_archs)
+    accs = [a for _, a in arch_accs]
+    log(f"[fig12] {tag} supernet {cfg}: {steps} steps, loss "
+        f"{losses[0]:.4f} -> {np.mean(losses[-10:]):.4f} (mean of the last "
+        f"10), {train_ms[0]:.2f} ms a step (host), {train_ms[1]:.2f} ms "
+        f"(events); {n_archs} archs on {n_val} images, {eval_ms[0]:.2f} ms "
+        f"an arch (host), {eval_ms[1]:.2f} ms (events); accuracy "
+        f"{min(accs):.3f}-{max(accs):.3f}")
+    if not (all(np.isfinite(losses)) and len(arch_accs) == n_archs):
+      raise AssertionError(f"[fig12] {tag}: non-finite losses")
+    return arch_accs
+
+  r = FIG12_REF
+  arch_accs = supernet(r["supernet"], r["n_archs"], r["n_val"], "(a)")
+  t0 = time.perf_counter()
+  frame = sess.co_explore(arch_accs, n_hw_per_type=r["n_hw_per_type"])
+  front = frame.pareto(cols=("top1_err", "energy_mj"))
+  types = "/".join(sorted(set(str(t) for t in frame.pe_type[front])))
+  accs = [a for _, a in arch_accs]
+  ref = FIG12_REF_CPU
+  log(f"[fig12] (a) co_explore (polynomial models) in "
+      f"{time.perf_counter() - t0:.3f} s: {len(frame)} pairs (reference "
+      f"{ref['pairs']}), front_energy_types={types} (reference "
+      f"{ref['front_energy']}), acc_range={min(accs):.3f}-{max(accs):.3f} "
+      f"(reference {ref['acc_range'][0]:.3f}-{ref['acc_range'][1]:.3f})")
+  if len(frame) != ref["pairs"]:
+    raise AssertionError(f"[fig12] (a) {len(frame)} pairs")
+
+  p = FIG12_PAPER
+  arch_accs = supernet(p["supernet"], p["n_archs"], p["n_val"], "(b)")
+  session = ExplorationSession(TorchOracleBackend(chunk_size=CO_CHUNK),
+                               DesignSpace())
+  torch.cuda.synchronize()
+  res = session.co_explore(arch_accs, n_hw_per_type=p["n_hw_per_type"],
+                           seed=CO_SEED, image_size=p["image_size"],
+                           stream=True, reducers=co_reducers(),
+                           chunk_size=CO_CHUNK)
+  torch.cuda.synchronize()
+  m, front = res.meta, res["pareto"]
+  types = sorted(set(front.pe_type.tolist()))
+  log(f"[fig12] (b) {res.n_rows} pairs ({p['n_archs']} supernet-scored "
+      f"archs x {4 * p['n_hw_per_type']} HW, {p['image_size']} px) in "
+      f"{int(m['n_chunks'])} blocks, {m['seconds']:.3f} s: "
+      f"{m['rows_per_sec']:.1f} pairs/s; joint front (top1_err, energy_mj, "
+      f"area_mm2) {len(front)} points, PE types {'/'.join(types)}, archs "
+      f"{len(set(front.extra['arch_id'].tolist()))}; card: {smi}")
+  if res.n_rows != p["n_archs"] * 4 * p["n_hw_per_type"] or not len(front):
+    raise AssertionError("[fig12] (b) wrong pair count or an empty front")
+
+
+def _rel(got, want) -> float:
+  got, want = got.detach().double().cpu(), want.detach().double().cpu()
+  return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _jittered(net, seed):
+  """A copy of ``net`` (on the CPU) with every weight moved by one ulp, up
+  or down at random."""
+  import copy
+  import torch
+  moved = copy.deepcopy(net)
+  gen = torch.Generator().manual_seed(seed)
+  with torch.no_grad():
+    for p in moved.parameters():
+      up = torch.rand(p.shape, generator=gen) < 0.5
+      p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+  return moved
+
+
+def _conv_layer(x, w, dy, pe_type, device):
+  """One quantized 3x3 stride-2 conv on ``device``, forward and backward
+  from ``x``, ``w`` and the output gradient ``dy``, under ``exact_f32``
+  as ``cnn.value_and_grad`` runs them: the output and the gradients of
+  ``x`` and ``w``."""
+  from repro_torch.core import cnn
+  xt = x.detach().to(device).requires_grad_()
+  wt = w.detach().to(device).requires_grad_()
+  with cnn.exact_f32():
+    o = cnn.conv2d(cnn._maybe_fq_act(xt, pe_type),
+                   cnn._maybe_fq(wt, pe_type), 2)
+    o.backward(dy.to(device))
+  return o, xt.grad, wt.grad
+
+
+def _tf32_backward_grads(net, loss_fn):
+  """The control of the FP32 gradient check (H19): ``loss_fn``'s forward
+  under ``exact_f32``, its backward with TF32 allowed, as a caller's
+  flags may leave it (cuDNN and cuBLAS read their flags when the backward
+  runs); every parameter's gradient."""
+  import torch
+  from repro_torch.core import cnn
+  for p in net.parameters():
+    p.grad = None
+  with cnn.exact_f32():
+    loss = loss_fn()
+  prev = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=True):
+      loss.backward()
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = prev
+  return {n: p.grad for n, p in net.named_parameters()}
+
+
+def phase_accuracy_parity():
+  """The card against the CPU from one set of weights and one batch
+  (H19-H20): logits and loss under each PE type, FP32 gradients per
+  leaf, a quantized conv's output and gradients from identical inputs,
+  one ``sgd_update`` bit for bit, 10 QAT steps, 3 supernet steps."""
+  import numpy as np
+  import torch
+  from repro_torch.core import cnn
+  from repro_torch.core.pe import PAPER_PE_TYPES
+  from repro_torch.core.supernet import Supernet, SupernetConfig
+  from repro_torch.data import CifarLike, CifarLikeConfig
+  from repro_torch.train import optimizer as opt
+  from repro_torch.train import qat
+  t_phase = time.perf_counter()
+  x, y = (torch.from_numpy(a) for a in CifarLike(CifarLikeConfig(
+      image_size=16)).sample(qat.RECIPE["batch"], split_seed=3))
+  masked = cnn.ArchChoice(ACC_PARITY_MASKED)
+  for kind in ("resnet20", "vgg"):
+    if kind == "vgg":
+      make = lambda d: cnn.init_vgg_supernet(0, device=d)
+      fwd = lambda net, pe, z: net(z, masked, pe)
+    else:
+      make = lambda d: cnn.init_resnet(0, 20, width=8, device=d)
+      fwd = lambda net, pe, z: net(z, pe)
+    cpu, gpu = make("cpu"), make("cuda")
+    for pe in PAPER_PE_TYPES:
+      with torch.no_grad():
+        want, got = fwd(cpu, pe, x), fwd(gpu, pe, x.cuda())
+        b_logits, b_loss = ACC_BOUNDS[pe]
+        noise = (0.0, 0.0)
+        if pe != "FP32":
+          for seed in range(3):
+            moved = fwd(_jittered(cpu, seed), pe, x)
+            noise = (max(noise[0], _rel(moved, want)),
+                     max(noise[1], _rel(cnn.xent(moved, y),
+                                        cnn.xent(want, y))))
+        b_logits, b_loss = max(b_logits, 2 * noise[0]), max(b_loss,
+                                                            2 * noise[1])
+        e_logits = _rel(got, want)
+        e_loss = _rel(cnn.xent(got, y.cuda()), cnn.xent(want, y))
+      line = (f"[accuracy-parity] {kind} {pe}: logits {e_logits:.3g} "
+              f"(bound {b_logits:.3g}), loss {e_loss:.3g} (bound "
+              f"{b_loss:.3g})")
+      if pe != "FP32":
+        line += (f"; the CPU's own move under a one-ulp weight jitter: "
+                 f"logits {noise[0]:.3g}, loss {noise[1]:.3g}")
+      if pe == "FP32":
+        _, gw = cnn.value_and_grad(cpu, lambda: cnn.xent(fwd(cpu, pe, x), y))
+        xg, yg = x.cuda(), y.cuda()
+        _, gg = cnn.value_and_grad(gpu, lambda: cnn.xent(fwd(gpu, pe, xg),
+                                                         yg))
+        skipped = sorted(n for n, w in gw.items() if w is None)
+        if sorted(n for n, g in gg.items() if g is None) != skipped:
+          raise AssertionError(f"[accuracy-parity] {kind}: the card and the "
+                               "CPU skip other repeats")
+        worst = max((_rel(gg[n], w), n) for n, w in gw.items()
+                    if w is not None and w.abs().max() > 0)
+        gt = _tf32_backward_grads(gpu, lambda: cnn.xent(fwd(gpu, pe, xg),
+                                                        yg))
+        control = max(_rel(gt[n], w) for n, w in gw.items()
+                      if w is not None and w.abs().max() > 0)
+        line += (f"; gradients per leaf worst {worst[0]:.3g} ({worst[1]}; "
+                 f"bound {ACC_FP32_GRADS:g}), {len(skipped)} leaves of "
+                 "skipped repeats without a gradient on both; the control, "
+                 f"the backward with TF32 allowed: worst {control:.3g} "
+                 "(must break the bound)")
+        if not (worst[0] <= ACC_FP32_GRADS < control):
+          raise AssertionError(line)
+      log(line)
+      if not (e_logits <= b_logits and e_loss <= b_loss):
+        raise AssertionError(line)
+  rng = np.random.RandomState(2)
+  xl = torch.from_numpy(np.maximum(rng.normal(
+      size=(qat.RECIPE["batch"], 16, 8, 8)), 0).astype(np.float32))
+  wl = torch.from_numpy(rng.normal(0, 0.1, (32, 16, 3, 3)).astype(np.float32))
+  dy = torch.from_numpy(rng.normal(size=(qat.RECIPE["batch"], 32, 4, 4))
+                        .astype(np.float32))
+  for pe in PAPER_PE_TYPES:
+    errs = [_rel(g, w) for w, g in zip(_conv_layer(xl, wl, dy, pe, "cpu"),
+                                       _conv_layer(xl, wl, dy, pe, "cuda"))]
+    log(f"[accuracy-parity] one quantized 3x3 stride-2 conv, {pe}, from "
+        f"identical inputs: output {errs[0]:.3g}, input gradient "
+        f"{errs[1]:.3g}, weight gradient {errs[2]:.3g} (bound {ACC_LAYER:g})")
+    if not max(errs) <= ACC_LAYER:
+      raise AssertionError(f"[accuracy-parity] quantized conv {pe}: {errs}")
+  net = cnn.init_resnet(0, 20, width=8, device="cpu")
+  _, grads = cnn.value_and_grad(net, lambda: cnn.xent(net(x, "LightPE-2"), y))
+  ocfg = qat.RECIPE_SGD
+  res = []
+  for dev in ("cpu", "cuda"):
+    p = {n: v.detach().to(dev).clone() for n, v in net.named_parameters()}
+    st = {"step": 79, "mom": {n: g.to(dev) * 0.5 for n, g in grads.items()}}
+    opt.sgd_update(ocfg, p, {n: g.to(dev) for n, g in grads.items()}, st)
+    res.append((p, st["mom"]))
+  same = all(torch.equal(g[n].cpu(), w[n]) for w, g in zip(*res)
+             for n in w)
+  log(f"[accuracy-parity] one sgd_update (step 80, lr "
+      f"{opt.sgd_lr_at(ocfg, 80)}), card vs CPU: parameters and momenta "
+      f"{'bit-equal' if same else 'DIFFERENT'}")
+  if not same:
+    raise AssertionError("[accuracy-parity] sgd_update differs")
+  for pe, bound in ACC_STEPS_BOUND.items():
+    a = qat.train_qat("resnet20", pe, "cpu", steps=ACC_PARITY_STEPS)
+    b = qat.train_qat("resnet20", pe, "cuda", steps=ACC_PARITY_STEPS)
+    worst = max(abs(g - w) / abs(w) for g, w in zip(b["losses"], a["losses"]))
+    log(f"[accuracy-parity] {ACC_PARITY_STEPS} QAT steps, resnet20 {pe}: "
+        f"losses card vs CPU worst {worst:.3g} (bound {bound:g}); last "
+        f"{b['losses'][-1]:.6f} vs {a['losses'][-1]:.6f}")
+    if not worst <= bound:
+      raise AssertionError(f"[accuracy-parity] QAT steps {pe}: {worst}")
+  cfg = SupernetConfig(steps=ACC_PARITY_SUPERNET_STEPS)
+  a = Supernet(cfg, device="cpu").train(log_every=0)
+  b = Supernet(cfg).train(log_every=0)
+  worst = max(abs(g - w) / abs(w) for g, w in zip(b, a))
+  log(f"[accuracy-parity] Supernet.train(steps={cfg.steps}) at "
+      f"{cfg.image_size} px, batch {cfg.batch}: losses card vs CPU worst "
+      f"{worst:.3g} (bound {ACC_SUPERNET_BOUND:g}); "
+      f"{time.perf_counter() - t_phase:.1f} s")
+  if not worst <= ACC_SUPERNET_BOUND:
+    raise AssertionError(f"[accuracy-parity] supernet: {worst}")
+
+
+def phase_paper_figs(sess):
+  """The paper's remaining figures through the port, beside the
+  reference's CPU values: fig 5 (degree selection), figs 6-8 (the
+  models' accuracy on held-out designs, evaluated on the card), fig 9
+  and Table 3."""
+  import numpy as np
+  from repro_torch.core import oracle, ppa
+  from repro_torch.core.dataflow import AcceleratorConfig
+  from repro_torch.core.pe import PAPER_PE_TYPES
+  from repro_torch.core.workloads import get_network
+  from repro_torch.explore import DesignSpace, PolynomialBackend, summary_stats
+  ref = PAPER_FIGS_REF_CPU
+  t0 = time.perf_counter()
+  cfgs = DesignSpace(pe_types=("INT16",)).sample_type("INT16", 400, seed=0)
+  x, p, a = ppa.power_area_dataset(cfgs)
+  best_p, scores_p = ppa.select_degree(x, p, degrees=range(1, 9))
+  best_a, _ = ppa.select_degree(x, a, degrees=range(1, 9))
+  log(f"[paper-figs] fig 5 ({time.perf_counter() - t0:.3f} s, host): best "
+      f"power degree {best_p}, area {best_a} (reference "
+      f"{ref['fig5']['best_power']}, {ref['fig5']['best_area']}; paper 5); "
+      "power MAPE/RMSPE a degree: " + ", ".join(
+          f"d{d} {scores_p[d][0]:.2f}/{scores_p[d][1]:.2f} (reference "
+          f"{ref['fig5']['curve'][d][0]:.2f}/{ref['fig5']['curve'][d][1]:.2f})"
+          for d in sorted(scores_p)))
+  layers = get_network("resnet20")
+  space = DesignSpace()
+  for t in PAPER_PE_TYPES:
+    t0 = time.perf_counter()
+    models = PolynomialBackend.fit(pe_types=(t,), degree=5, n_train=240,
+                                   layers=layers, seed=7).models[t]
+    test = space.sample_type(t, 120, seed=991)
+    xt, pt, at = ppa.power_area_dataset(test)
+    p_hat = models.predict_power_mw(test, "cuda")
+    a_hat = models.predict_area_mm2(test, "cuda")
+    lat_hat = models.predict_network_latency_s(test, layers, "cuda")
+    lat = np.asarray([oracle.characterize(c, layers).latency_s for c in test])
+    got = (ppa.mape(pt, p_hat), ppa.mape(at, a_hat), ppa.mape(lat, lat_hat),
+           ppa.r2(pt, p_hat),
+           ppa.r2(np.log(lat), np.log(np.maximum(lat_hat, 1e-12))))
+    r = ref["fig6_8"][t]
+    log(f"[paper-figs] figs 6-8 {t} ({time.perf_counter() - t0:.3f} s; fit "
+        f"on the host, 120 held-out designs predicted on the card): power "
+        f"MAPE {got[0]:.2f}% ({r[0]:.2f}%), area {got[1]:.2f}% ({r[1]:.2f}%),"
+        f" latency {got[2]:.2f}% ({r[2]:.2f}%), power R^2 {got[3]:.4f} "
+        f"({r[3]:.4f}), latency R^2 {got[4]:.4f} ({r[4]:.4f}) (reference "
+        "in parentheses)")
+    if not all(np.isfinite(got)):
+      raise AssertionError(f"[paper-figs] figs 6-8 {t}: not finite")
+  t0 = time.perf_counter()
+  for net in ("vgg16", "resnet20", "resnet56"):
+    frame = sess.explore(get_network(net), net, n_per_type=150)
+    ppa_n, en_n = frame.normalize(ref="best-int16")
+    rows = []
+    for t in PAPER_PE_TYPES:
+      s1 = summary_stats(ppa_n[frame.by_type(t)])
+      s2 = summary_stats(en_n[frame.by_type(t)])
+      r = ref["fig9"][net][t]
+      rows.append(f"{t} perf/area median {s1['median']:.2f} ({r[0]:.2f}) "
+                  f"max {s1['max']:.2f} ({r[1]:.2f}), energy median "
+                  f"{s2['median']:.3f} ({r[2]:.3f}) min {s2['min']:.3f} "
+                  f"({r[3]:.3f})")
+    log(f"[paper-figs] fig 9 {net}: " + "; ".join(rows))
+  log(f"[paper-figs] fig 9 in {time.perf_counter() - t0:.3f} s (reference in "
+      "parentheses)")
+  clocks = {t: oracle.clock_mhz(AcceleratorConfig(pe_type=t))
+            for t in PAPER_PE_TYPES}
+  log("[paper-figs] Table 3 clocks: " + ", ".join(
+      f"{t} {clocks[t]:.0f} MHz ({ref['table3'][t]})" for t in PAPER_PE_TYPES)
+      + " (reference in parentheses; paper 275/285/455/435)")
+  if {t: round(c) for t, c in clocks.items()} != ref["table3"]:
+    raise AssertionError(f"[paper-figs] Table 3 differs: {clocks}")
+
+
+# ---------------------------------------------------------------------------
 # serving: K6, K5, the engine, and the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -2910,6 +3457,22 @@ def main() -> int:
                           float(fleet["k1_err"]))
   log(f"[resilience-perf] [service] through [resilience-perf]: "
       f"{time.perf_counter() - t_service:.1f} s")
+  t_model = time.perf_counter()
+  _reset_kernel_counts()
+  accs = phase_accuracy(smi)
+  phase_accuracy_profile(smi)
+  model_sess = _poly_session()
+  phase_fig10_11(accs, model_sess)
+  phase_fig12(smi, model_sess)
+  phase_accuracy_parity()
+  phase_paper_figs(model_sess)
+  del model_sess
+  model_launches = _kernel_counts()
+  log(f"[paper-figs] [accuracy] through [paper-figs]: "
+      f"{time.perf_counter() - t_model:.1f} s; hand-kernel launches "
+      f"{model_launches} (QAT and the supernet run convolutions, batch "
+      "norm and fake quantization outside any of them; fig 12's joint "
+      "front is a staircase)")
   kernels.update(phase_attention_kernels())
   launches.update(phase_serve())
   phase_serve_parity()

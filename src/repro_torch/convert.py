@@ -1,7 +1,8 @@
 """Carry the reference's state into the port: design points, workloads,
-co-exploration's architectures and accuracies, model parameters and
-packed deploy codecs; and the port's model back into the reference's
-tree layout.
+co-exploration's architectures and accuracies, model parameters (the
+language models', and the CNNs' with their SGD momenta) and packed
+deploy codecs; and the port's model back into the reference's tree
+layout.
 
 The sweep's state is the design points (a ConfigTable's columns) and the
 workload's layers; co-exploration's adds (architecture, accuracy) pairs,
@@ -184,3 +185,38 @@ def packed_from_jax(packed: Mapping[str, Any]) -> Dict[str, Any]:
               "shape": tuple(int(d) for d in packed["shape"])}
     return {k: packed_from_jax(v) for k, v in packed.items()}
   return torch.from_numpy(np.array(packed, copy=True))
+
+
+def cnn_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The state dict (float32 CPU tensors) of the port's ``VGGSupernet`` or
+  ``ResNet`` from the reference's ``init_vgg_supernet`` or ``init_resnet``
+  tree as numpy arrays: nested keys and list indices join with dots
+  (``stages.0.1.w``, ``blocks.3.proj``, ``head``), conv weights turn from
+  HWIO to OIHW, and the ResNet's ``stage<i>: None`` layout markers are
+  dropped."""
+  state: Dict[str, torch.Tensor] = {}
+
+  def walk(node, prefix):
+    items = (node.items() if isinstance(node, Mapping)
+             else enumerate(node) if isinstance(node, (list, tuple))
+             else None)
+    if items is None:
+      a = np.array(node, dtype=np.float32, copy=True)
+      if a.ndim == 4:
+        a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+      state[prefix] = torch.from_numpy(a)
+      return
+    for k, v in items:
+      if v is not None:
+        walk(v, f"{prefix}.{k}" if prefix else str(k))
+
+  walk(tree, "")
+  return state
+
+
+def sgd_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+  """The port's ``sgd_init``-shaped state from the reference's
+  (``{"step", "mom"}``, the momentum tree as numpy arrays laid out as
+  :func:`cnn_params_from_jax` lays out the parameters)."""
+  return {"step": int(state["step"]),
+          "mom": cnn_params_from_jax(state["mom"])}

@@ -269,7 +269,7 @@ def lm_head_weight(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
 
 
 def train_loss(*args, **kwargs):
-  raise NotImplementedError("training comes with slice 7 of the port")
+  raise NotImplementedError("training comes with slice 7b of the port")
 
 
 # ---------------------------------------------------------------------------

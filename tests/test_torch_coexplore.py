@@ -18,6 +18,7 @@ from ``RandomState`` with fixed seeds, accuracies from ``uniform(0.5,
 import dataclasses
 import functools
 
+import jax
 import numpy as np
 import pytest
 
@@ -34,7 +35,8 @@ from repro.explore import streaming as RS
 
 import repro_torch.explore as P
 from repro_torch import convert
-from repro_torch.core import cnn, coexplore, oracle, supernet
+from repro_torch.core import cnn, coexplore, oracle, prng, supernet
+from repro_torch.core.seeding import derive_seed
 from repro_torch.core.dataflow import AcceleratorConfig as PortConfig
 from repro_torch.core.dataflow import LayerStack
 from repro_torch.core.table import JointTable
@@ -132,8 +134,9 @@ def test_search_space_is_a_copy():
   assert cnn.MAX_PLAN == ref_cnn.MAX_PLAN
   assert cnn.SPACE_SIZE == ref_cnn.SPACE_SIZE == supernet.space_size()
   assert cnn.max_arch().as_plan() == ref_cnn.max_arch().as_plan()
-  with pytest.raises(NotImplementedError, match="slice 7"):
-    cnn.sample_arch(0)
+  key = derive_seed("supernet-eval", 1, 0)
+  assert cnn.sample_arch(prng.PRNGKey(key)).stages == \
+      ref_cnn.sample_arch(jax.random.PRNGKey(key)).stages
 
 
 @pytest.mark.parametrize("image_size", [16, 32])

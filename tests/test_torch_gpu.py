@@ -3,8 +3,8 @@ torch version, and the device sweep, co-exploration (the joint oracle,
 the grouped prefilter, fused joint chunks), the polynomial PPA models,
 the serving engine (qwen3-0.6b and rwkv6-1.6b), the deploy codecs and
 guided search with its fault tolerance (journals that move between card
-and CPU, the watchdog on a CUDA handle) against the same code on the
-CPU.
+and CPU, the watchdog on a CUDA handle), and the QAT CNNs, their SGD
+step and the weight-sharing supernet against the same code on the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -1185,3 +1185,215 @@ def test_the_service_on_the_card_equals_solo_runs(cuda):
     for col in METRICS:
       np.testing.assert_array_equal(res[name].column(col),
                                     want[name].column(col))
+
+
+# ---------------------------------------------------------------------------
+# the QAT CNNs and the supernet, card vs CPU (bounds as in
+# tests/test_torch_cnn.py, H19-H20)
+# ---------------------------------------------------------------------------
+
+CNN_PE_TYPES = ("FP32", "INT16", "LightPE-1", "LightPE-2")
+CNN_BOUNDS = {"FP32": (1e-4, 1e-5), "INT16": (1e-3, 1e-4),
+              "LightPE-1": (2e-2, 2e-3), "LightPE-2": (2e-2, 2e-3)}
+CNN_FP32_GRADS = 1e-4
+CNN_LAYER = 1e-5
+CNN_MASKED = ArchChoice(((1, 40), (2, 96), (1, 224), (3, 320), (2, 448)))
+
+
+def _rel(got, want) -> float:
+  got, want = got.detach().double().cpu(), want.detach().double().cpu()
+  assert got.shape == want.shape
+  return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _cnn_pair(kind, cuda):
+  """The same random-init network on the CPU and on the card, a batch,
+  and a forward taking (net, images, pe_type)."""
+  from repro_torch.core import cnn
+  from repro_torch.data import CifarLike, CifarLikeConfig
+  if kind == "vgg":
+    cpu = cnn.init_vgg_supernet(0, device="cpu")
+    gpu = cnn.init_vgg_supernet(0, device=cuda)
+    size, n = 8, 8
+    fwd = lambda net, x, pe: net(x, CNN_MASKED, pe)
+  else:
+    cpu = cnn.init_resnet(0, 20, width=8, device="cpu")
+    gpu = cnn.init_resnet(0, 20, width=8, device=cuda)
+    size, n = 16, 16
+    fwd = lambda net, x, pe: net(x, pe)
+  x, y = CifarLike(CifarLikeConfig(image_size=size)).sample(n, 3)
+  return cpu, gpu, torch.from_numpy(x), torch.from_numpy(y), fwd
+
+
+@pytest.mark.parametrize("pe_type", CNN_PE_TYPES)
+@pytest.mark.parametrize("kind", ["resnet20", "vgg"])
+def test_cnn_logits_card_vs_cpu(cuda, kind, pe_type):
+  """Logits and loss within the CPU tests' bounds; a quantized type's
+  bound is at least twice the CPU's own largest move under three one-ulp
+  jitters of the weights."""
+  from repro_torch.core import cnn
+  cpu, gpu, x, y, fwd = _cnn_pair(kind, cuda)
+  assert all(torch.equal(a, b.cpu()) for a, b in
+             zip(cpu.state_dict().values(), gpu.state_dict().values()))
+  with torch.no_grad():
+    want = fwd(cpu, x, pe_type)
+    got = fwd(gpu, x.to(cuda), pe_type)
+    b_logits, b_loss = CNN_BOUNDS[pe_type]
+    loss = cnn.xent(want, y)
+    if pe_type != "FP32":
+      for seed in range(3):
+        gen = torch.Generator().manual_seed(seed)
+        moved = _cnn_pair(kind, cuda)[0]
+        for p in moved.parameters():
+          up = torch.rand(p.shape, generator=gen) < 0.5
+          p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+        m = fwd(moved, x, pe_type)
+        b_logits = max(b_logits, 2 * _rel(m, want))
+        b_loss = max(b_loss, 2 * _rel(cnn.xent(m, y), loss))
+  assert _rel(got, want) <= b_logits
+  assert _rel(cnn.xent(got, y.to(cuda)), loss) <= b_loss
+
+
+def _tf32_allowed():
+  """cuDNN's and cuBLAS's flags as a caller may leave them: TF32 on."""
+  import contextlib
+  stack = contextlib.ExitStack()
+  stack.enter_context(torch.backends.cudnn.flags(
+      enabled=True, benchmark=False, deterministic=False, allow_tf32=True))
+  prev = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
+  return stack
+
+
+def _fp32_grads(net, x, y, fwd, tf32=False):
+  """Every leaf's FP32 gradient through ``cnn.value_and_grad``, or, for
+  the control, the same forward with the backward run outside its guard
+  under TF32 (cuDNN reads its flags when the backward runs)."""
+  from repro_torch.core import cnn
+  loss_fn = lambda: cnn.xent(fwd(net, x, "FP32"), y)
+  if not tf32:
+    return cnn.value_and_grad(net, loss_fn)[1]
+  for p in net.parameters():
+    p.grad = None
+  with cnn.exact_f32():
+    loss = loss_fn()
+  with _tf32_allowed():
+    loss.backward()
+  return {n: p.grad for n, p in net.named_parameters()}
+
+
+def _worst_leaf(got, want):
+  worst = 0.0
+  for name, w in want.items():
+    if w is None or not w.abs().max() > 0:
+      assert got[name] is None or not got[name].abs().max() > 0, name
+      continue
+    worst = max(worst, _rel(got[name], w))
+  return worst
+
+
+@pytest.mark.parametrize("kind", ["resnet20", "vgg"])
+def test_cnn_fp32_grads_card_vs_cpu(cuda, kind):
+  cpu, gpu, x, y, fwd = _cnn_pair(kind, cuda)
+  want = _fp32_grads(cpu, x, y, fwd)
+  got = _fp32_grads(gpu, x.to(cuda), y.to(cuda), fwd)
+  assert _worst_leaf(got, want) <= CNN_FP32_GRADS
+
+
+@pytest.mark.parametrize("kind", ["resnet20", "vgg"])
+def test_cnn_fp32_grads_bound_sees_a_tf32_backward(cuda, kind):
+  """The control of the test above (H19): the same backward with TF32
+  allowed must break its bound."""
+  cpu, gpu, x, y, fwd = _cnn_pair(kind, cuda)
+  want = _fp32_grads(cpu, x, y, fwd)
+  got = _fp32_grads(gpu, x.to(cuda), y.to(cuda), fwd, tf32=True)
+  assert _worst_leaf(got, want) > CNN_FP32_GRADS
+
+
+def _conv_layer(pe_type, dev):
+  """One quantized 3x3 stride-2 conv forward and backward from fixed
+  inputs, under ``exact_f32`` as ``cnn.value_and_grad`` runs them: its
+  output and the gradients of its input and weight."""
+  from repro_torch.core import cnn
+  rng = np.random.RandomState(2)
+  x = torch.from_numpy(np.maximum(rng.normal(size=(4, 16, 8, 8)), 0)
+                       .astype(np.float32)).to(dev).requires_grad_()
+  w = torch.from_numpy(rng.normal(0, 0.1, (16, 16, 3, 3)).astype(
+      np.float32)).to(dev).requires_grad_()
+  dy = torch.from_numpy(rng.normal(size=(4, 16, 4, 4)).astype(np.float32))
+  with cnn.exact_f32():
+    y = cnn.conv2d(cnn._maybe_fq_act(x, pe_type), cnn._maybe_fq(w, pe_type),
+                   stride=2)
+    y.backward(dy.to(dev))
+  return y, x.grad, w.grad
+
+
+@pytest.mark.parametrize("pe_type", CNN_PE_TYPES)
+def test_quantized_conv_grads_card_vs_cpu(cuda, pe_type):
+  for want, got in zip(_conv_layer(pe_type, "cpu"),
+                       _conv_layer(pe_type, cuda)):
+    assert _rel(got, want) <= CNN_LAYER
+
+
+def test_sgd_update_card_vs_cpu_bit_equal(cuda):
+  from repro_torch.train import optimizer as opt
+  rng = np.random.RandomState(0)
+  cfg = opt.SGDConfig(lr=0.05, steps_per_epoch=40, drops=(2, 3))
+  shapes = {"w": (16, 8, 3, 3), "s": (16,), "head": (64, 10)}
+  arrays = [{k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+             for k, s in shapes.items()} for _ in range(3)]
+  result = []
+  for dev in ("cpu", cuda):
+    p, g, m = ({k: v.to(dev).clone() for k, v in a.items()} for a in arrays)
+    state = {"step": 99, "mom": m}
+    opt.sgd_update(cfg, p, g, state)
+    result.append((p, state["mom"]))
+  for want, got in zip(*result):
+    for k in shapes:
+      assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("pe_type", ["FP32", "LightPE-2"])
+def test_qat_training_reruns_identical_on_card(cuda, pe_type):
+  """H19: deterministic cuDNN, TF32 off: two runs give the same bits."""
+  from repro_torch.core import cnn
+  from repro_torch.data import CifarLike, CifarLikeConfig
+  from repro_torch.train import optimizer as opt
+  data = CifarLike(CifarLikeConfig(image_size=16))
+  runs = []
+  for _ in range(2):
+    net = cnn.init_resnet(0, 20, width=8, device=cuda)
+    params = dict(net.named_parameters())
+    cfg = opt.SGDConfig(lr=0.05, steps_per_epoch=40, drops=(2, 3))
+    state = opt.sgd_init(params)
+    losses = []
+    for step in range(5):
+      x, y = (torch.from_numpy(a).to(cuda)
+              for a in data.sample(64, split_seed=step))
+      loss, grads = cnn.value_and_grad(
+          net, lambda: cnn.xent(net(x, pe_type), y))
+      opt.sgd_update(cfg, params, grads, state)
+      losses.append(float(loss))
+    runs.append((losses, {k: v.detach().cpu() for k, v in params.items()}))
+  assert runs[0][0] == runs[1][0]
+  for k, v in runs[0][1].items():
+    assert torch.equal(v, runs[1][1][k]), k
+
+
+def test_supernet_card_vs_cpu(cuda):
+  """The first step's loss (the same weights) within the FP32 loss bound;
+  the later steps within 1e-3: on the CPU, moving every conv output by
+  5e-7 of itself at random (the convs' measured rounding error against
+  float64 on either device) moves this 3-step trajectory's losses by up
+  to 1.6e-4."""
+  from repro_torch.core.supernet import Supernet, SupernetConfig
+  cfg = SupernetConfig(steps=3, batch=8, image_size=8)
+  cpu, gpu = Supernet(cfg, device="cpu"), Supernet(cfg, device=cuda)
+  assert gpu.params.head.device.type == cuda.type
+  want, got = cpu.train(log_every=0), gpu.train(log_every=0)
+  errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+  assert errs[0] <= 1e-5 and max(errs) <= 1e-3, (got, want)
+  a, b = (s.sample_and_evaluate(n_archs=4, n_val=64) for s in (cpu, gpu))
+  assert [x.stages for x, _ in a] == [x.stages for x, _ in b]
+  assert max(abs(p - q) for (_, p), (_, q) in zip(a, b)) <= 2 / 64, (a, b)

@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 @pytest.mark.parametrize("module", [
     "core/seeding.py", "train/__init__.py", "train/fault_tolerance.py",
-    "explore/resilience.py", "explore/search.py"])
+    "explore/resilience.py", "explore/search.py", "core/prng.py",
+    "core/cnn.py", "core/supernet.py", "data/synthetic.py",
+    "train/optimizer.py", "train/qat.py"])
 def test_the_scan_covers_the_guided_search_slice(module):
   assert REPO / "src" / "repro_torch" / module in PORT_FILES
 
