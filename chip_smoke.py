@@ -61,7 +61,15 @@ full-width, 28-layer qwen3-0.6b (bf16, seed 0) is packed with
 ``quant.pack_params`` under each PE type and every packed matmul leaf of
 every layer runs through K3 or K4 at a decode and a prefill shape, and a
 two-layer float32 copy is packed on the card and on the CPU and held
-byte for byte.  Any failure raises, so the
+byte for byte.  Training follows: K6's backward kernel is held against
+its plain version at the training shape and its edges, full-width
+qwen3-0.6b (bf16 compute, f32 master weights) trains through
+``python -m repro_torch.launch.train``'s ``main`` for the launcher's 200
+steps of 8 x 512 tokens and 5 steps each with int8 optimizer states,
+LightPE-2 QAT and two microbatches, a two-layer float32 copy is held
+card against CPU (loss, gradients, one AdamW step), and a restart from a
+checkpoint is held bit for bit against an uninterrupted run.  Any failure
+raises, so the
 exit code is non-zero; without a CUDA device, or without the package
 beside it, the script stops before printing any result.  The last line of its output is one JSON object
 naming the device.
@@ -69,6 +77,7 @@ naming the device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -265,6 +274,27 @@ SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_ENGINE = dict(batch_slots=4, max_len=2048, prompt_bucket=512)
 PARITY_LAYERS = 2
+# training: K6's backward at the training shape (B = 8 sequences of 512
+# tokens of qwen3-0.6b) in bf16 and f32, a window, ragged S and D = 64
+# with G = 2; the launcher's run at full width; 5 steps of each variant;
+# card vs CPU at 2 layers; a restart at 4 layers from a checkpoint every
+# 3 steps
+K6_BWD_CASES = ((8, 512, 16, 8, 128, "bfloat16", 0),
+                (8, 512, 16, 8, 128, "float32", 0),
+                (8, 512, 16, 8, 128, "bfloat16", 128),
+                (2, 63, 16, 8, 128, "bfloat16", 0),
+                (2, 65, 16, 8, 128, "bfloat16", 0),
+                (2, 513, 16, 8, 128, "bfloat16", 0),
+                (2, 300, 8, 4, 64, "bfloat16", 0),
+                (2, 300, 8, 4, 64, "float32", 0))
+# 200 steps, the launcher's default: in 40 the reference's recipe (lr
+# 3e-3, 20 warm-up steps, cosine decay) does not get a loss below the
+# uniform guess at a 151,936-token vocab (PERF.md section 6)
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "200", "--batch", "8",
+              "--seq", "512"]
+TRAIN_VARIANT_STEPS = 5
+TRAIN_PARITY_BATCH = (2, 128)
+TRAIN_RESUME = dict(n_layers=4, steps=12, ckpt_every=3, batch=8, seq=512)
 # K7 at the rwkv6-1.6b prefill shape (one 512-token bucket), a ragged T,
 # and a T of more chunks than K7's cluster has blocks (4 chunks a block)
 K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
@@ -2915,6 +2945,8 @@ def serve_twice(tag, cfg, want):
 
 PROFILE_GROUPS = (("K5", ("qda_kernel",)),
                   ("K6", ("flash_bf16_kernel", "flash_f32_kernel")),
+                  ("K6-bwd", ("bwd_delta_kernel", "bwd_dkdv_kernel",
+                              "bwd_dq_kernel")),
                   ("K7", ("wkv6",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")))
@@ -3070,6 +3102,427 @@ def serve_parity(tag, cfg, what, tol):
   if max(errs) > tol or not all(same) or runs["cuda"] != runs["cpu"]:
     raise AssertionError("the card and the CPU disagree on serving")
   return max(errs)
+
+
+# ---------------------------------------------------------------------------
+# training: K6's backward, qwen3-0.6b trained at full width through the
+# launcher, the card against the CPU, a restart from a checkpoint
+# ---------------------------------------------------------------------------
+
+def _k6_bwd_bound(dtype, s: int, g: int) -> float:
+  """The backward kernel's tolerance against its plain version, relative to
+  each gradient's largest |value|, written before its first run: f32
+  inputs 1e-5 (every product and sum is f32 in both, in other orders);
+  bf16 inputs add the final bf16 rounding of dq, dk and dv, 2^-8 (bf16's
+  unit roundoff), to f32 sums of at most S x G terms at 2^-24 each."""
+  import torch
+  if dtype == torch.float32:
+    return 1e-5
+  return 2.0 ** -8 + s * g * 2.0 ** -24
+
+
+def phase_k6_backward():
+  """K6's backward kernel against its plain version (``ref.py``'s dense
+  formulas from the same lse) at the training shape and its edges, with
+  its time, bound, plain time, SDPA's backward as the yardstick, and a
+  rerun that must give the same bits."""
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+  from repro_torch.kernels.flash_attention import kernel as fa_kernel
+  from repro_torch.kernels.flash_attention import ops as fa
+  rng = np.random.RandomState(23)
+  result = None
+  for b, s, h, hkv, d, dt_name, window in K6_BWD_CASES:
+    dtype = getattr(torch, dt_name)
+    scale = 1.0 / d ** 0.5
+    q = _randn(rng, (b, s, h, d), dtype)
+    kv = _randn(rng, (b, s, 2, hkv, d), dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model's
+    dout = _randn(rng, (b, s, h, d), torch.float32)
+    out, lse = fa_kernel.flash_attention(q, k, v, scale, True, window,
+                                         return_lse=True)
+    got = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse, scale,
+                                        True, window)
+    again = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse, scale,
+                                          True, window)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, dout, lse, True,
+                                            window)
+    lse_err = float((lse - fa.flash_attention_lse_reference(
+        q, k, True, window)).abs().max())
+    # the serving call (no lse) gives the same output bits
+    same_out = torch.equal(out, fa_kernel.flash_attention(q, k, v, scale,
+                                                          True, window))
+    torch.cuda.synchronize()
+    tol = _k6_bwd_bound(dtype, s, h // hkv)
+    errs = [float((x.float() - y).abs().max() / y.abs().max())
+            for x, y in zip(got, want)]
+    abs_err = max(float((x.float() - y).abs().max())
+                  for x, y in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    tag = (f"B={b} S={s} H={h} Hkv={hkv} D={d} {dt_name} causal"
+           + (f" window {window}" if window else ""))
+    line = (f"[K6-bwd] {tag}: dq, dk, dv max |diff| / max |value| "
+            f"{', '.join(f'{e:.3g}' for e in errs)} (tolerance {tol:.3g}); "
+            f"lse max |diff| {lse_err:.3g}; output with lse "
+            f"{'bit-identical to' if same_out else 'DIFFERENT from'} "
+            f"without; rerun {'bit-identical' if same else 'DIFFERENT'}")
+    if max(errs) > tol or not (same and same_out) or not lse_err <= 1e-4:
+      log(line)
+      raise AssertionError(f"K6's backward fails at {tag}")
+    if (b, s) != (8, 512):
+      log(line)
+      continue
+    ms = cuda_ms(lambda: fa_kernel.flash_attention_bwd(
+        q, k, v, out, dout, lse, scale, True, window), inner=3)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, dout, lse, True, window), inner=1)
+    es = q.element_size()
+    n_bytes = (2 * b * s * h * d * es + 4 * b * s * hkv * d * es
+               + 2 * b * s * h * d * 4 + b * h * s * 4)
+    n_ops = 2.5 * 4 * _live_pairs(s, True, window) * b * h * d
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
+    lib_ms = None
+    if not window:
+      qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                    for x in (q, k, v))
+      dt_ = dout.transpose(1, 2).to(dtype)
+
+      def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+      def sdpa_forward():
+        with torch.no_grad():
+          return sdpa()
+      # both as graph replays: between events the host's autograd calls
+      # leave the card idle (0.195-0.457 ms in two runs)
+      lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                    dt_), inner=3)
+                - cuda_ms(sdpa_forward, inner=3))
+    fwd_ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, scale, True,
+                                                      window))
+    fwd_lse_ms = cuda_ms(lambda: fa_kernel.flash_attention(
+        q, k, v, scale, True, window, return_lse=True))
+    log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+        f"{n_ops / 1e9:.3f} GFLOP at 2.5x the forward's), library "
+        + (f"(scaled_dot_product_attention forward + backward minus "
+           f"forward) {lib_ms:.4f} ms" if lib_ms is not None
+           else "not timed (window)")
+        + f"; the forward K6 at this shape {fwd_ms:.4f} ms without lse, "
+        f"{fwd_lse_ms:.4f} ms with it")
+    if dtype == torch.bfloat16 and not window:
+      result = dict(
+          name="flash_attention_bwd (K6 backward)", route="cuda",
+          source="src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu",
+          replaces="src/repro/models/attention.py:44 (XLA's gradient of "
+                   "the chunked attention; no Pallas kernel has a "
+                   "backward)",
+          on_main_path=True, max_abs_err=abs_err, ms=ms,
+          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+          library_ms=lib_ms)
+  return {"flash_attention_bwd": result}
+
+
+def _nonzero_grad_leaves(model, tcfg, params, batch):
+  """Each trainable leaf's gradient on one batch, layer by layer: the
+  names whose gradient is all zero (H21: attention's projections must
+  learn through K6's backward)."""
+  from repro_torch.train import train_step as ts_lib
+  named = dict(params.named_parameters())
+  _, _, grads = ts_lib.value_and_grad(model, tcfg, named, batch)
+  return [n for n, g in zip(named, grads) if not bool(g.abs().max() > 0)]
+
+
+def _unigram_entropy(cfg) -> float:
+  """Entropy (nats) of the launcher's token stream's stationary
+  distribution: the best loss of a model that predicts each token's
+  frequency and nothing of its predecessor."""
+  import numpy as np
+  from repro_torch.data.synthetic import MarkovTokenStream, TokenStreamConfig
+  stream = MarkovTokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size,
+                                               branching=6))
+  v = cfg.vocab_size
+  pi = np.full(v, 1.0 / v)
+  flow = stream.weights[None, :]
+  for _ in range(200):
+    new = np.zeros(v)
+    np.add.at(new, stream.successors.ravel(), (pi[:, None] * flow).ravel())
+    pi = new
+  nz = pi[pi > 0]
+  return float(-(nz * np.log(nz)).sum())
+
+
+def _train_batch(cfg, b, s, step=0):
+  import torch
+  from repro_torch.data.synthetic import MarkovTokenStream, TokenStreamConfig
+  toks, labels = MarkovTokenStream(TokenStreamConfig(
+      vocab_size=cfg.vocab_size, branching=6)).sample_batch(b, s, step)
+  return {"tokens": torch.from_numpy(toks).cuda(),
+          "labels": torch.from_numpy(labels).cuda()}
+
+
+def phase_train(smi):
+  """The main path of training: ``python -m repro_torch.launch.train`` at
+  full width (qwen3-0.6b, 28 layers, bf16 compute, f32 master weights), 40
+  steps of 8 x 512 tokens, run through its ``main(argv)``; then 5 steps
+  each of int8 optimizer states, LightPE-2 QAT and 2 microbatches."""
+  import dataclasses
+  import shutil
+  import tempfile
+  import torch
+  from repro_torch.launch import train as launch_train
+  from repro_torch.train import train_step as ts_lib
+  (ROOT / "build").mkdir(exist_ok=True)
+  ckpt = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+  rows = []
+  real_step = ts_lib.train_step
+  ts_lib.train_step = _timed(real_step, rows)
+  torch.cuda.reset_peak_memory_stats()
+  _reset_kernel_counts()
+  t0 = time.perf_counter()
+  try:
+    trainer = launch_train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt])
+  finally:
+    ts_lib.train_step = real_step
+  wall = time.perf_counter() - t0
+  counts = _kernel_counts()
+  peak = torch.cuda.max_memory_allocated()
+  cfg = trainer.model.cfg
+  steps = len(trainer.history)
+  losses = [r["loss"] for r in trainer.history]
+  b, s = int(TRAIN_ARGV[5]), int(TRAIN_ARGV[7])
+  host = statistics.median(r[0] for r in rows[1:])
+  ev = statistics.median(r[1] for r in rows[1:])
+  tok_s = b * s / (ev / 1e3)
+  mfu = cfg.train_flops_per_token() * tok_s / PEAK_BF16_PER_S
+  n_params = sum(p.numel() for p in trainer.state["params"].parameters())
+  log(f"[train] {cfg.name}: {_describe(cfg)}, d_ff {cfg.d_ff}, tied "
+      f"embeddings, {n_params:,} parameters (param_count "
+      f"{cfg.param_count():,}), f32 master weights, bf16 compute, remat; "
+      f"{steps} steps of {b} x {s} tokens in {wall:.1f} s (set-up "
+      "included)")
+  log(f"[train] losses {losses[0]:.4f} -> {losses[-1]:.4f}: first 5 "
+      f"{[round(x, 4) for x in losses[:5]]}, last 5 "
+      f"{[round(x, 4) for x in losses[-5:]]}")
+  log(f"[train] step (median of steps 2-{steps}): host {host:.2f} ms, "
+      f"events {ev:.2f} ms (first step {rows[0][0]:.1f} ms host); "
+      f"{tok_s:,.1f} tokens/s; model FLOPs "
+      f"{cfg.train_flops_per_token() / 1e9:.3f} GFLOP/token x tokens/s = "
+      f"{mfu:.2%} of the bf16 dense peak (989 TFLOP/s); peak memory "
+      f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches {counts}; "
+      f"card: {smi}")
+  want = {"flash_attention": 2 * cfg.n_layers * steps,
+          "flash_attention_bwd": cfg.n_layers * steps}
+  if any(counts[k] != n for k, n in want.items()) or any(
+      n for k, n in counts.items() if k not in want):
+    raise AssertionError(f"expected K6 launches {want} (forward and its "
+                         f"recompute, and the backward, a layer a step) and "
+                         f"no other kernel, got {counts}")
+  if not all(x == x and abs(x) < float("inf") for x in losses):
+    raise AssertionError(f"a loss is not finite: {losses}")
+  first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+  uniform, floor = math.log(cfg.vocab_size), _unigram_entropy(cfg)
+  log(f"[train] losses every 10 steps {[round(x, 3) for x in losses[::10]]}"
+      f"; mean of the first 5 {first:.4f}, of the last 5 {last:.4f} (fell "
+      f"by {first - last:.4f}; tests/test_train.py asks 0.3 of its small "
+      f"model); the uniform guess ln {cfg.vocab_size} = {uniform:.4f}, the "
+      f"stream's unigram entropy {floor:.4f} (the floor without learning "
+      "its 151,936 x 6 transitions)")
+  if not last < min(first, uniform):
+    raise AssertionError(f"the last 5 losses ({last:.4f}) are not below the "
+                         f"first 5 ({first:.4f}) and the uniform guess "
+                         f"({uniform:.4f}): the model did not learn the "
+                         "tokens' frequencies")
+  batch = _train_batch(cfg, b, s, step=1000)
+  zero = _nonzero_grad_leaves(trainer.model, trainer.tcfg,
+                              trainer.state["params"], batch)
+  log(f"[train] every one of the "
+      f"{len(list(trainer.state['params'].parameters()))} trainable leaves "
+      "gets a nonzero gradient" if not zero else f"ZERO GRADIENTS: {zero}")
+  if zero:
+    raise AssertionError(f"leaves without a gradient: {zero}")
+  stage = []
+  timed_stage(stage, "step", lambda: trainer.run(1))
+  device_ms = _device_profile("train", "one full-width step",
+                              lambda: trainer.run(1))
+  log(f"[train-profile] one step: {stage[0][1]:.2f} ms (host), "
+      f"{stage[0][2]:.2f} ms (events); the card busy "
+      + (f"{device_ms / stage[0][2]:.1%} of it" if device_ms else
+         "not measured"))
+  del trainer
+  torch.cuda.empty_cache()
+
+  base = launch_train.recipe(TRAIN_VARIANT_STEPS)
+  variants = (
+      ("int8 optimizer states", dataclasses.replace(
+          base, optimizer=dataclasses.replace(base.optimizer,
+                                              quantize_state=True))),
+      ("LightPE-2 QAT", launch_train.recipe(TRAIN_VARIANT_STEPS,
+                                            "LightPE-2")),
+      ("2 microbatches", dataclasses.replace(base, microbatches=2)))
+  for name, tcfg in variants:
+    torch.cuda.reset_peak_memory_stats()
+    trainer = launch_train.make_trainer(cfg, tcfg, TRAIN_VARIANT_STEPS, b,
+                                        s, ckpt)
+    hist = trainer.run()
+    opt = trainer.state["opt"]
+    state_bytes = sum(t.numel() * t.element_size()
+                      for key in ("m", "v") for leaf in opt[key].values()
+                      for t in (leaf.values() if isinstance(leaf, dict)
+                                else [leaf]))
+    f32_bytes = 2 * 4 * n_params
+    extra = (f"; optimizer state {state_bytes / 1e9:.3f} GB against "
+             f"{f32_bytes / 1e9:.3f} GB in f32 ({f32_bytes / state_bytes:.2f}"
+             "x less; the reference claims ~3.5x)"
+             if tcfg.optimizer.quantize_state else "")
+    losses = [r["loss"] for r in hist]
+    log(f"[train] {name}: {len(hist)} steps, losses "
+        f"{[round(x, 4) for x in losses]}, host ms a step "
+        f"{statistics.median(r['sec'] for r in hist[1:]) * 1e3:.2f} "
+        f"(median of steps 2-{len(hist)}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+      raise AssertionError(f"{name}: a loss is not finite: {losses}")
+    del trainer, opt
+    torch.cuda.empty_cache()
+  shutil.rmtree(ckpt, ignore_errors=True)
+  return counts
+
+
+def phase_train_parity():
+  """qwen3-0.6b at full width, 2 layers, f32, TF32 off: the train loss,
+  every gradient and one AdamW step (f32 and int8 states) on the card
+  against the CPU from the same weights and batch."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.core.cnn import exact_f32
+  from repro_torch.models import build_model
+  from repro_torch.train import optimizer as opt_lib
+  from repro_torch.train import train_step as ts_lib
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32",
+                            n_layers=PARITY_LAYERS)
+  tcfg = ts_lib.TrainConfig()
+  gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
+  gpu_params = gpu_model.init(0, param_dtype="float32")
+  cpu_params = cpu_model.from_state(
+      {k: v.cpu() for k, v in gpu_params.state_dict().items()},
+      param_dtype="float32")
+  batch = _train_batch(cfg, *TRAIN_PARITY_BATCH)
+  cpu_batch = {k: v.cpu() for k, v in batch.items()}
+  with exact_f32():
+    loss_g, _, grads_g = ts_lib.value_and_grad(
+        gpu_model, tcfg, dict(gpu_params.named_parameters()), batch)
+    loss_c, _, grads_c = ts_lib.value_and_grad(
+        cpu_model, tcfg, dict(cpu_params.named_parameters()), cpu_batch)
+  names = [n for n, _ in gpu_params.named_parameters()]
+  loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+  grad_errs = {n: float((g.cpu() - c).abs().max() / c.abs().max())
+               for n, g, c in zip(names, grads_g, grads_c)}
+  worst = max(grad_errs, key=grad_errs.get)
+  zero = [n for n, g in zip(names, grads_g) if not bool(g.abs().max() > 0)]
+  log(f"[train-parity] {cfg.name} at full width, float32, "
+      f"{cfg.n_layers} layers, TF32 off, batch {TRAIN_PARITY_BATCH}: "
+      f"loss card {float(loss_g):.7f} vs CPU {float(loss_c):.7f}, relative "
+      f"{loss_err:.3g} (tolerance 1e-5); {len(names)} gradient leaves, "
+      f"worst {worst} at {grad_errs[worst]:.3g} of its max |value| "
+      f"(tolerance 1e-4); leaves with an all-zero gradient on the card: "
+      f"{zero or 'none'}")
+  if loss_err > 1e-5 or grad_errs[worst] > 1e-4 or zero:
+    raise AssertionError("the card and the CPU disagree on training")
+  # one AdamW step on each device from the same parameters, moments and
+  # gradients (the CPU's): f32 moments, then int8 ones
+  for quantize in (False, True):
+    ocfg = opt_lib.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=40,
+                               quantize_state=quantize)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+      params = {n: p.detach().to(dev).clone()
+                for n, p in cpu_params.named_parameters()}
+      state = opt_lib.adamw_init(ocfg, params)
+      state["step"] = 20
+      grads = {n: g.to(dev) for n, g in zip(names, grads_c)}
+      _, state, metrics = opt_lib.adamw_update(ocfg, params, grads, state)
+      sides[dev] = (params, state, metrics)
+    (pg, sg, mg), (pc, sc, mc) = sides["cuda"], sides["cpu"]
+    gn_ulps = abs(int(np.float32(float(mg["grad_norm"])).view(np.int32))
+                  - int(np.float32(float(mc["grad_norm"])).view(np.int32)))
+    same_p = all(torch.equal(pg[n].cpu(), pc[n]) for n in names)
+
+    def leaves(st):
+      return [t for key in ("m", "v") for leaf in st[key].values()
+              for t in (leaf.values() if isinstance(leaf, dict) else [leaf])]
+    same_s = all(torch.equal(a.cpu(), b)
+                 for a, b in zip(leaves(sg), leaves(sc)))
+    log(f"[train-parity] one adamw_update, {'int8' if quantize else 'f32'} "
+        f"states, the CPU's gradients on both: global_norm card "
+        f"{float(mg['grad_norm']):.9g} vs CPU {float(mc['grad_norm']):.9g} "
+        f"({gn_ulps} ulp), lr_at {mg['lr']:.9g} vs {mc['lr']:.9g}; "
+        f"parameters {'bit-equal' if same_p else 'DIFFERENT'}, "
+        f"{'codes and scales' if quantize else 'moments'} "
+        f"{'bit-equal' if same_s else 'DIFFERENT'}")
+    if gn_ulps > 1 or mg["lr"] != mc["lr"] or not (same_p and same_s):
+      raise AssertionError("AdamW differs between the card and the CPU")
+
+
+def phase_train_resume():
+  """A restart on the card: a Trainer with a checkpoint every 3 steps runs
+  6 steps, a fresh one restores it and runs 6 more; its losses and
+  parameters must equal 12 uninterrupted steps' bit for bit."""
+  import dataclasses
+  import shutil
+  import tempfile
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.launch import train as launch_train
+  r = TRAIN_RESUME
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=r["n_layers"])
+  tcfg = launch_train.recipe(r["steps"])
+  root = tempfile.mkdtemp(prefix="resume_", dir=ROOT / "build")
+
+  def trainer(path, ckpt_every):
+    t = launch_train.make_trainer(cfg, tcfg, r["steps"], r["batch"],
+                                  r["seq"], os.path.join(root, path))
+    t.cfg.ckpt_every = ckpt_every
+    return t
+  t0 = time.perf_counter()
+  whole = trainer("whole", 0)
+  whole.run(r["steps"])
+  want_losses = [x["loss"] for x in whole.history]
+  want = [p.detach().clone() for p in whole.state["params"].parameters()]
+  del whole
+  half = r["steps"] // 2
+  first = trainer("split", r["ckpt_every"])
+  first.run(half)
+  del first
+  t1 = time.perf_counter()
+  again = trainer("split", r["ckpt_every"])
+  restored = again.maybe_restore()
+  t_restore = time.perf_counter() - t1
+  again.run(r["steps"] - half)
+  got_losses = [x["loss"] for x in again.history]
+  same_p = all(torch.equal(p, q) for p, q in
+               zip(again.state["params"].parameters(), want))
+  size = sum(os.path.getsize(os.path.join(root, "split", f))
+             for f in os.listdir(os.path.join(root, "split")))
+  log(f"[train-resume] {cfg.name} at full width, {cfg.n_layers} layers: "
+      f"{r['steps']} uninterrupted steps against {half} steps, a checkpoint "
+      f"every {r['ckpt_every']}, then a fresh Trainer restored from step "
+      f"{again.step - (r['steps'] - half)} (data cursor at "
+      f"{again.cursor.step - (r['steps'] - half)}) in {t_restore:.2f} s "
+      f"and {r['steps'] - half} more steps: losses "
+      f"{'bit-identical' if got_losses == want_losses[half:] else 'DIFFERENT'}"
+      f" {[round(x, 5) for x in got_losses]}, parameters "
+      f"{'bit-identical' if same_p else 'DIFFERENT'}; checkpoints on disk "
+      f"{size / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} s")
+  shutil.rmtree(root, ignore_errors=True)
+  if not restored or got_losses != want_losses[half:] or not same_p:
+    raise AssertionError("a restart does not resume bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -3479,6 +3932,16 @@ def main() -> int:
   kernels.update(phase_wkv_kernel())
   launches.update(phase_serve_rwkv())
   phase_serve_rwkv_parity()
+  t_train = time.perf_counter()
+  kernels.update(phase_k6_backward())
+  train_launches = phase_train(smi)
+  launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+  kernels["flash_attention"]["launches_train"] = \
+      train_launches["flash_attention"]
+  phase_train_parity()
+  phase_train_resume()
+  log(f"[train-resume] [K6-bwd] through [train-resume]: "
+      f"{time.perf_counter() - t_train:.1f} s")
   kernels.update(phase_codec_kernels())
   launches.update(phase_codecs())
   phase_codecs_parity()
@@ -3486,7 +3949,9 @@ def main() -> int:
     entry["launches"] = launches[name]
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
       "its plain version on the card, with its launches during its path's "
-      "run (K1, K2: the sweep; K5, K6: the first serve run; K7: the first "
+      "run (K1, K2: the sweep; K5, K6: the first serve run; K6's "
+      "backward: the [train] run, where K6 launched "
+      f"{kernels['flash_attention']['launches_train']} times; K7: the first "
       "serve-rwkv run; K3, K4: the codecs run); on the co-exploration "
       f"path K1 launched {co_parity['k1_launches']} times in "
       f"[coexplore-parity] ({co_parity['n_chunks']} blocks), no kernel in "

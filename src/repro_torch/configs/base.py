@@ -1,8 +1,10 @@
 """Model configuration schema and registry (the port's copy of
 ``repro.configs.base``, with only the architectures the port serves).
 
-Field names, defaults and the derived properties are the reference's, so
-a configuration compares field by field with its original.
+Field names, defaults, the derived properties and the parameter and FLOP
+accounting are the reference's, so a configuration compares field by
+field with its original, and any of the reference's configurations,
+rebuilt here field by field, counts the same parameters.
 """
 from __future__ import annotations
 
@@ -84,6 +86,10 @@ class ModelConfig:
     m = VOCAB_PAD_MULTIPLE
     return -(-self.vocab_size // m) * m
 
+  @property
+  def d_inner(self) -> int:
+    return self.mamba_expand * self.d_model
+
   def layer_kinds(self) -> List[str]:
     """Per-layer kind within one block (the repeating pattern)."""
     if self.family == "ssm":
@@ -103,6 +109,59 @@ class ModelConfig:
   @property
   def n_blocks(self) -> int:
     return self.n_layers // len(self.layer_kinds())
+
+  # ---- parameter / FLOP accounting ---------------------------------------
+  def param_count(self, active_only: bool = False) -> int:
+    """Analytic parameter count; active_only counts top-k experts only."""
+    d, dff = self.d_model, self.d_ff
+    n = 0
+    emb = self.padded_vocab * d
+    n += emb if self.tie_embeddings else 2 * emb
+    if self.pos_embed == "learned":
+      n += self.max_position * d
+    dt_rank = max(d // 16, 1)
+    for kind, is_moe in self.block_pattern():
+      per = 0
+      if kind == "attn":
+        per += d * self.n_heads * self.head_dim          # q
+        per += 2 * d * self.n_kv_heads * self.head_dim   # kv
+        per += self.n_heads * self.head_dim * d          # o
+      elif kind == "mamba":
+        di = self.d_inner
+        per += d * 2 * di                                # in_proj (x, z)
+        per += di * self.mamba_d_conv                    # depthwise conv
+        per += di * (dt_rank + 2 * self.mamba_d_state)   # x_proj
+        per += dt_rank * di                              # dt_proj
+        per += di * self.mamba_d_state                   # A_log
+        per += di * d                                    # out_proj
+      elif kind == "rwkv":
+        per += 5 * d * d                  # r, k, v, gate, out (time mix)
+        per += 2 * d * dt_rank            # data-dependent decay lora
+      ff_mats = 3 if self.mlp_variant == "swiglu" else 2
+      if is_moe:
+        e = self.n_experts if not active_only else self.n_experts_active
+        per += e * ff_mats * d * self.d_ff_expert
+        if self.n_shared_experts:
+          per += ff_mats * d * self.d_ff_shared
+        per += d * self.n_experts         # router
+      elif kind == "rwkv":
+        per += 2 * d * dff + d * d        # channel mix: k, v + receptance
+      else:
+        per += ff_mats * d * dff
+      per *= self.n_blocks
+      n += per
+    if self.family == "encdec":
+      # encoder blocks (self-attn + mlp) and decoder cross-attention
+      enc = self.n_encoder_layers * (
+          4 * d * self.n_heads * self.head_dim
+          + (3 if self.mlp_variant == "swiglu" else 2) * d * dff)
+      cross = self.n_layers * 4 * d * self.n_heads * self.head_dim
+      n += enc + cross
+    return n
+
+  def train_flops_per_token(self) -> float:
+    """MODEL_FLOPS = 6 * N(active) per token (fwd+bwd)."""
+    return 6.0 * self.param_count(active_only=True)
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

@@ -1,8 +1,8 @@
 """Carry the reference's state into the port: design points, workloads,
 co-exploration's architectures and accuracies, model parameters (the
-language models', and the CNNs' with their SGD momenta) and packed
-deploy codecs; and the port's model back into the reference's tree
-layout.
+language models', with their AdamW moments, and the CNNs', with their SGD
+momenta) and packed deploy codecs; and the port's model and training
+state back into the reference's tree layout.
 
 The sweep's state is the design points (a ConfigTable's columns) and the
 workload's layers; co-exploration's adds (architecture, accuracy) pairs,
@@ -13,11 +13,14 @@ package's objects hands over ``{name: getattr(table, name)}``,
 ``dataclasses.astuple(layer)`` or ``jax.tree_util.tree_map(np.asarray,
 params)`` without this module importing it.  ``params_to_tree`` turns the
 port's model into that same tree (its leaves stacked on ``n_blocks``), the
-layout ``quant.pack_params`` walks.
+layout ``quant.pack_params`` walks; ``train_state_to_tree`` and
+``load_train_state`` do the same for a trainer's state, the layout of the
+reference's checkpoints.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import (Any, Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -26,10 +29,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cnn import ArchChoice
 from repro_torch.core.dataflow import ConvLayer
 from repro_torch.core.table import COLUMNS, ConfigTable
+from repro_torch.models import transformer
 from repro_torch.models.common import model_dtype
 from repro_torch.models.ssm import FLOAT32_LEAVES
-
-_NORM_LEAVES = ("scale", "bias")
 
 
 def table_from_columns(cols: Mapping[str, np.ndarray],
@@ -65,68 +67,51 @@ def arch_accs_from_plain(stages_list: Iterable[Sequence[Sequence[int]]],
           for stages, a in zip(stages_list, accs)]
 
 
-# (module path in the port, path in a reference block's layer, is a
-# matmul weight) for the attention-and-dense-MLP layer; the norms' leaves
-# (scale, and bias for layernorm) are taken as the reference has them
-_ATTN_LEAVES = (
-    ("mix.wq", ("mix", "wq"), True),
-    ("mix.wkv", ("mix", "wkv"), True),
-    ("mix.wo", ("mix", "wo"), True),
-    ("mix.q_norm", ("mix", "q_norm"), False),
-    ("mix.k_norm", ("mix", "k_norm"), False),
-    ("ffn.wi", ("ffn", "wi"), True),
-    ("ffn.wg", ("ffn", "wg"), True),
-    ("ffn.wo", ("ffn", "wo"), True),
-)
-
-# the same for the rwkv layer: every leaf of the reference's ``init_rwkv``
-_RWKV_LEAVES = tuple(
-    (f"mix.{name}", ("mix", name), name not in FLOAT32_LEAVES)
-    for name in ("mix", "wr", "wk", "wv", "wg", "wo", "w0", "w_lora_a",
-                 "w_lora_b", "u", "ln_x", "cmix", "cm_wr", "cm_wk", "cm_wv"))
+# leaves that stay float32 in every model: the norms' scales and biases
+# (in ``*_norm`` groups), qk-norm and rwkv's lerps, decay base, bonus and
+# group-norm scale
+_F32_LEAVES = frozenset(("q_norm", "k_norm") + FLOAT32_LEAVES)
 
 
-def params_from_jax(cfg: ModelConfig,
-                    params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _stays_f32(name: str) -> bool:
+  """Whether the state-dict leaf ``name`` keeps float32 whatever the
+  model dtype (the rest are matmul weights, the embedding and the head)."""
+  parts = name.split(".")
+  return (len(parts) > 1 and parts[-2].endswith("norm")) or \
+      parts[-1] in _F32_LEAVES
+
+
+def params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
   """The port's ``Transformer`` state dict (CPU tensors) from the
-  reference's parameter tree as numpy arrays, ``blocks`` leaves stacked on
-  a leading ``n_blocks`` axis.
+  reference's parameter tree as numpy arrays (or bfloat16 tensors, as a
+  checkpoint restores them), ``blocks`` leaves stacked on a leading
+  ``n_blocks`` axis.
 
-  Matmul weights, the embedding and the LM head are cast once to the model
-  dtype (the reference casts its float32 copies at every use: the same
-  rounding); norm scales and biases and rwkv's lerps, decay base, bonus
-  and group-norm scale stay float32.
+  Matmul weights, the embedding and the LM head are cast once to
+  ``dtype``: by default the model dtype, for serving (the reference casts
+  its float32 copies at every use: the same rounding); float32 (or
+  bfloat16) for a trainable model.  Norm scales and biases and rwkv's
+  lerps, decay base, bonus and group-norm scale stay float32.
   """
   if cfg.family == "encdec":
     raise NotImplementedError("encoder-decoder models come with slice 8 of "
                               "the port")
-  dt = model_dtype(cfg)
+  for kind, is_moe in cfg.block_pattern():
+    if kind == "mamba" or is_moe:
+      raise NotImplementedError(f"{'MoE' if is_moe else kind} layers "
+                                "come with slice 8 of the port")
+  dt = model_dtype(cfg) if dtype is None else dtype
 
   def tensor(a, cast: bool) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    t = (a.float() if isinstance(a, torch.Tensor) else
+         torch.from_numpy(np.array(a, dtype=np.float32, copy=True)))
     return t.to(dt) if cast else t
 
-  state = {"embed": tensor(params["embed"], True)}
-  for leaf, a in params["final_norm"].items():
-    state[f"final_norm.{leaf}"] = tensor(a, False)
-  if not cfg.tie_embeddings:
-    state["lm_head"] = tensor(params["lm_head"], True)
-  pattern = cfg.block_pattern()
-  for b in range(cfg.n_blocks):
-    for i, (kind, is_moe) in enumerate(pattern):
-      if kind == "mamba" or is_moe:
-        raise NotImplementedError(f"{'MoE' if is_moe else kind} layers "
-                                  "come with slice 8 of the port")
-      sub = params["blocks"][f"sub{i}"]
-      layer = b * len(pattern) + i
-      for norm in ("mix_norm", "ffn_norm"):
-        for leaf, a in sub[norm].items():
-          state[f"layers.{layer}.{norm}.{leaf}"] = tensor(a[b], False)
-      leaves = _RWKV_LEAVES if kind == "rwkv" else _ATTN_LEAVES
-      for name, (group, leaf), cast in leaves:
-        if leaf in sub[group]:
-          state[f"layers.{layer}.{name}"] = tensor(sub[group][leaf][b], cast)
-  return state
+  flat = transformer.flatten(
+      transformer.unstack_blocks(cfg, params, unstack=list))
+  return {name: tensor(a, not _stays_f32(name)) for name, a in flat.items()}
 
 
 def params_to_tree(cfg: ModelConfig, params: torch.nn.Module
@@ -136,32 +121,76 @@ def params_to_tree(cfg: ModelConfig, params: torch.nn.Module
   and the like is stacked back onto ``blocks/sub{i}/mix/wq`` of shape
   ``(n_blocks, d_in, d_out)``; tensors keep the model's dtypes and device
   (the stacks are new tensors, the rest are the model's own)."""
-  state = params.state_dict()
-  tree: Dict[str, Any] = {
-      "embed": state["embed"],
-      "final_norm": {leaf: state[f"final_norm.{leaf}"]
-                     for leaf in _NORM_LEAVES
-                     if f"final_norm.{leaf}" in state}}
-  if not cfg.tie_embeddings:
-    tree["lm_head"] = state["lm_head"]
-  pattern = cfg.block_pattern()
-  blocks = {}
-  for i, (kind, _) in enumerate(pattern):
-    layers = [b * len(pattern) + i for b in range(cfg.n_blocks)]
+  return transformer.stack_blocks(cfg, transformer.nest(params.state_dict()))
 
-    def stack(name):
-      return torch.stack([state[f"layers.{l}.{name}"] for l in layers])
-    sub: Dict[str, Dict[str, torch.Tensor]] = {}
-    for norm in ("mix_norm", "ffn_norm"):
-      sub[norm] = {leaf: stack(f"{norm}.{leaf}") for leaf in _NORM_LEAVES
-                   if f"layers.{layers[0]}.{norm}.{leaf}" in state}
-    leaves = _RWKV_LEAVES if kind == "rwkv" else _ATTN_LEAVES
-    for name, (group, leaf), _ in leaves:
-      if f"layers.{layers[0]}.{name}" in state:
-        sub.setdefault(group, {})[leaf] = stack(name)
-    blocks[f"sub{i}"] = sub
-  tree["blocks"] = blocks
-  return tree
+
+def _is_q8(node) -> bool:
+  """An int8 AdamW moment: ``{"codes", "scale"}``."""
+  return isinstance(node, Mapping) and set(node) == {"codes", "scale"}
+
+
+def adamw_state_from_jax(cfg: ModelConfig, state: Mapping[str, Any]
+                         ) -> Dict[str, Any]:
+  """The port's AdamW state (``{"step", "m", "v"}``, moments keyed by the
+  ``Transformer``'s parameter names, CPU tensors) from the reference's
+  ``adamw_init``/``adamw_update`` state as numpy arrays: float32 moments,
+  or int8 ``{"codes", "scale"}`` ones, their ``blocks`` leaves stacked on
+  ``n_blocks``."""
+  def moments(tree):
+    flat = transformer.flatten(
+        transformer.unstack_blocks(cfg, tree, unstack=list), is_leaf=_is_q8)
+    return {name: ({"codes": torch.from_numpy(np.array(a["codes"],
+                                                       dtype=np.int8)),
+                    "scale": torch.from_numpy(np.array(a["scale"],
+                                                       dtype=np.float32))}
+                   if _is_q8(a) else
+                   torch.from_numpy(np.array(a, dtype=np.float32)))
+            for name, a in flat.items()}
+  return {"step": int(state["step"]), "m": moments(state["m"]),
+          "v": moments(state["v"])}
+
+
+def train_state_to_tree(cfg: ModelConfig, state: Mapping[str, Any]
+                        ) -> Dict[str, Any]:
+  """A trainer's state (``{"params": Transformer, "opt": AdamW state}``)
+  as the reference's: ``{"params", "opt": {"step", "m", "v"}}`` with the
+  ``blocks`` leaves stacked on ``n_blocks`` (new tensors on the model's
+  device; the step an int32 numpy scalar)."""
+  def tree(named):
+    return transformer.stack_blocks(cfg, transformer.nest(named))
+  params = {n: p.detach() for n, p in state["params"].named_parameters()}
+  opt = state["opt"]
+  return {"params": tree(params),
+          "opt": {"step": np.asarray(opt["step"], dtype=np.int32),
+                  "m": tree(opt["m"]), "v": tree(opt["v"])}}
+
+
+@torch.no_grad()
+def load_train_state(cfg: ModelConfig, tree: Mapping[str, Any],
+                     state: Dict[str, Any]) -> None:
+  """Copy a reference-shaped train state (as :func:`train_state_to_tree`
+  writes it, or the reference's own checkpoint) into ``state`` in place,
+  each leaf cast to the live leaf's dtype and device.  Raises when a leaf
+  is missing or the moments' form (float32 or int8) differs."""
+  state["params"].load_state_dict(
+      params_from_jax(cfg, tree["params"], dtype=torch.float32))
+  opt = adamw_state_from_jax(cfg, tree["opt"])
+  for key in ("m", "v"):
+    live, new = state["opt"][key], opt[key]
+    if set(live) != set(new):
+      raise ValueError(f"the checkpoint's {key} has other leaves than the "
+                       "model")
+    for name, dst in live.items():
+      src = new[name]
+      if isinstance(dst, dict) != isinstance(src, dict):
+        raise ValueError(f"{key}/{name}: the checkpoint's moments and the "
+                         "optimizer's differ in form (float32 or int8)")
+      if isinstance(dst, dict):
+        dst["codes"].copy_(src["codes"])
+        dst["scale"].copy_(src["scale"])
+      else:
+        dst.copy_(src)
+  state["opt"]["step"] = opt["step"]
 
 
 _PACKED_KEYS = {"codes", "scale", "fmt", "shape"}

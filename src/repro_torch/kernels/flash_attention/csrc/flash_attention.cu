@@ -86,6 +86,7 @@ struct Params {
   const void* k;
   const void* v;
   float* out;
+  float* lse;   // (b, h, s) row log-sum-exp for the backward, or null
   int64_t s, h, hkv;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -257,6 +258,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(Params p) {
     float* row = p.out + ((b * p.s + qpos) * p.h + head) * D;
 #pragma unroll
     for (int j = 0; j < C; ++j) row[tx + 16 * j] = acc[i][j] / denom;
+    if (p.lse && tx == 0)
+      p.lse[(b * p.h + head) * p.s + qpos] =
+          (m[i] > kNegInf / 2 ? m[i] : 0.f) + logf(denom);
   }
 }
 
@@ -642,6 +646,9 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
     for (int n = 0; n < kND; ++n)
       *reinterpret_cast<float2*>(row + n * 8 + 2 * t) =
           make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    if (p.lse && t == 0)
+      p.lse[(b * p.h + head) * p.s + qpos] =
+          (m[r] > kNegInf / 2 ? m[r] : 0.f) + logf(denom);
   }
 }
 
@@ -678,13 +685,424 @@ int dispatch(const Params& p, int64_t bh, int64_t d, int is_bf16,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward: FlashAttention-2's, as f32 FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// The reference trains attention through its plain-JAX chunked softmax,
+// differentiated by XLA; no Pallas kernel has a backward.  Here the
+// backward of K6 is three kernels that recompute P from the forward's lse
+// instead of storing it:
+//
+//  * bwd_delta_kernel: D_i = sum_d dO_id O_id, one warp a row;
+//  * bwd_dkdv_kernel: one block per (batch, KV head, 64-key tile) loops
+//    over the live 64-query tiles of every query head of its group and
+//    keeps dK and dV for its keys in registers:
+//      P = exp(S * scale - lse), dV += P^T dO, dS = P (dO V^T - D),
+//      dK += dS^T Q (times scale at the end);
+//  * bwd_dq_kernel: one block per (batch, query head, 64-query tile)
+//    loops over the live key tiles: dQ += dS K (times scale).
+//
+// No atomics: every output element is summed by one thread in a fixed
+// order, so a rerun gives the same bits.  Tiles wholly outside the causal
+// or window band are skipped as the forward skips them.
+//
+// Numerics: bf16 inputs are widened exactly to f32 in shared memory, and
+// every product and sum is f32, so the only bf16 rounding is the final
+// store of dq, dk and dv.  The exponentials are expf (not __expf): the
+// f32 case is held to 1e-5 of each output's largest magnitude.
+//
+// Bound on this card: at the training shape (B = 8, S = 512, H = 16,
+// Hkv = 8, D = 128, bf16, causal) the backward does 2.5x the forward's
+// 8.6 GFLOP; at the bf16 tensor-core rate that is 22 us, against 46 us
+// to move q, k, v, o, dO, lse, dq, dk and dv.  This design recomputes S
+// and dP^T twice (once per kernel) on the CUDA cores at the f32 rate, so
+// it is bound by its arithmetic far above either figure; moving the five
+// products onto the tensor cores (mma.sync or wgmma, as the forward) is
+// the next step.
+
+constexpr int kBwdThreads = 256;  // 16 x 16, as the f32 forward
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* o;      // (b, s, h, d) f32, contiguous
+  const float* dout;   // (b, s, h, d) f32, contiguous
+  const float* lse;    // (b, h, s)
+  float* delta;        // (b, h, s), written by bwd_delta_kernel
+  void* dq;            // (b, s, h, d) of the input type, contiguous
+  void* dk;            // (b, s, hkv, d)
+  void* dv;            // (b, s, hkv, d)
+  int64_t s, h, hkv;
+  int64_t q_sb, q_ss, q_sh;
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  float sm_scale;
+  int causal;
+  int64_t window;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ bool bwd_tile_live(const BwdParams& p,
+                                              int64_t q_lo, int64_t k_lo) {
+  bool live = true;
+  if (p.causal) live = k_lo <= q_lo + kBQ - 1;
+  if (p.window) live = live && (k_lo + kBK - 1 > q_lo - p.window);
+  return live;
+}
+
+__device__ __forceinline__ bool bwd_pair_ok(const BwdParams& p, int64_t qpos,
+                                            int64_t kpos) {
+  bool ok = qpos < p.s && kpos < p.s;
+  if (p.causal) ok = ok && qpos >= kpos;
+  if (p.window) ok = ok && kpos > qpos - p.window;
+  return ok;
+}
+
+// A 64-row tile of a (B, S, heads, D) tensor of type T, rows [lo, lo + 64)
+// from base (batch and head applied), widened into f32 rows of D + 1.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* base,
+                                              int64_t stride_s, int64_t lo,
+                                              int64_t s) {
+  for (int i = threadIdx.x; i < 64 * D; i += kBwdThreads) {
+    const int r = i / D, c = i % D;
+    const int64_t pos = lo + r;
+    dst[r * (D + 1) + c] = pos < s ? to_f32(base[pos * stride_s + c]) : 0.f;
+  }
+}
+
+// D_i = dO_i . O_i for every (b, i, head) row, one warp a row.
+__global__ void __launch_bounds__(kBwdThreads)
+    bwd_delta_kernel(BwdParams p, int64_t rows, int d) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32)
+                      + threadIdx.x / 32;
+  if (row >= rows) return;  // the whole warp leaves together
+  const int lane = threadIdx.x % 32;
+  const float* o = p.o + row * d;
+  const float* g = p.dout + row * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(o[c], g[c], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t b = row / (p.s * p.h);
+    const int64_t i = (row / p.h) % p.s;
+    const int64_t head = row % p.h;
+    p.delta[(b * p.h + head) * p.s + i] = acc;
+  }
+}
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // four 64 x (D + 1) tiles, two 64 x 65 score tiles, lse and D of 64 rows
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * (64 + 1) + 2 * 64);
+}
+
+// Grid (key tiles, B * Hkv).  Thread (ty, tx) owns keys 4 ty .. 4 ty + 3
+// of the tile and, of their dK and dV rows, the columns tx + 16 j.  Scores
+// are kept transposed (keys x queries) so that each thread's P^T and dS^T
+// rows are the keys it accumulates.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads) bwd_dkdv_kernel(BwdParams p) {
+  constexpr int C = D / 16;
+  extern __shared__ float smem_bwd[];
+  float* ks = smem_bwd;                 // 64 x (D + 1)
+  float* vs = ks + 64 * (D + 1);        // 64 x (D + 1)
+  float* qs = vs + 64 * (D + 1);        // 64 x (D + 1)
+  float* dos = qs + 64 * (D + 1);       // 64 x (D + 1)
+  float* pt = dos + 64 * (D + 1);       // P^T, 64 keys x 65
+  float* dst = pt + 64 * 65;            // dS^T, 64 keys x 65
+  float* lse_s = dst + 64 * 65;         // 64
+  float* del_s = lse_s + 64;            // 64
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int64_t bk = blockIdx.y;
+  const int64_t b = bk / p.hkv;
+  const int64_t kv_head = bk % p.hkv;
+  const int64_t group = p.h / p.hkv;
+  const int64_t k_lo = static_cast<int64_t>(blockIdx.x) * kBK;
+
+  load_rows_f32<T, D>(ks, static_cast<const T*>(p.k) + b * p.k_sb
+                              + kv_head * p.k_sh, p.k_ss, k_lo, p.s);
+  load_rows_f32<T, D>(vs, static_cast<const T*>(p.v) + b * p.v_sb
+                              + kv_head * p.v_sh, p.v_ss, k_lo, p.s);
+
+  float dk[4][C], dv[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int64_t n_qt = (p.s + kBQ - 1) / kBQ;
+  for (int64_t g = 0; g < group; ++g) {
+    const int64_t head = kv_head * group + g;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + head * p.q_sh;
+    const float* dog = p.dout + (b * p.s * p.h + head) * D;
+    const float* lg = p.lse + (b * p.h + head) * p.s;
+    const float* dg = p.delta + (b * p.h + head) * p.s;
+    for (int64_t qt = 0; qt < n_qt; ++qt) {
+      const int64_t q_lo = qt * kBQ;
+      if (!bwd_tile_live(p, q_lo, k_lo)) continue;  // uniform in the block
+      __syncthreads();  // the previous tile's Q, dO, P^T, dS^T are consumed
+      load_rows_f32<T, D>(qs, qg, p.q_ss, q_lo, p.s);
+      load_rows_f32<float, D>(dos, dog, p.h * D, q_lo, p.s);
+      if (tid < 64) {
+        const int64_t pos = q_lo + tid;
+        lse_s[tid] = pos < p.s ? lg[pos] : 0.f;
+        del_s[tid] = pos < p.s ? dg[pos] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T: keys 4 ty + i, queries tx + 16 j
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int c = 0; c < D; ++c) {
+        float kv_[4], vv[4], qv[4], dov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv_[i] = ks[(ty * 4 + i) * (D + 1) + c];
+          vv[i] = vs[(ty * 4 + i) * (D + 1) + c];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = qs[(tx + 16 * j) * (D + 1) + c];
+          dov[j] = dos[(tx + 16 * j) * (D + 1) + c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = fmaf(kv_[i], qv[j], sc[i][j]);
+            dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t kpos = k_lo + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = tx + 16 * j;
+          const float pr = bwd_pair_ok(p, q_lo + qi, kpos)
+                               ? expf(sc[i][j] * p.sm_scale - lse_s[qi])
+                               : 0.f;
+          pt[(ty * 4 + i) * 65 + qi] = pr;
+          dst[(ty * 4 + i) * 65 + qi] = pr * (dp[i][j] - del_s[qi]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 queries
+      for (int qi = 0; qi < kBQ; ++qi) {
+        float pv[4], sv[4], dov[C], qv[C];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = pt[(ty * 4 + i) * 65 + qi];
+          sv[i] = dst[(ty * 4 + i) * 65 + qi];
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          dov[j] = dos[qi * (D + 1) + tx + 16 * j];
+          qv[j] = qs[qi * (D + 1) + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            dv[i][j] = fmaf(pv[i], dov[j], dv[i][j]);
+            dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t kpos = k_lo + ty * 4 + i;
+    if (kpos >= p.s) continue;
+    T* dkr = static_cast<T*>(p.dk) + ((b * p.s + kpos) * p.hkv + kv_head) * D;
+    T* dvr = static_cast<T*>(p.dv) + ((b * p.s + kpos) * p.hkv + kv_head) * D;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      store(dkr + tx + 16 * j, dk[i][j] * p.sm_scale);
+      store(dvr + tx + 16 * j, dv[i][j]);
+    }
+  }
+}
+
+// Grid (query tiles, B * H).  Thread (ty, tx) owns queries 4 ty .. 4 ty + 3
+// and, of their dQ rows, the columns tx + 16 j.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads) bwd_dq_kernel(BwdParams p) {
+  constexpr int C = D / 16;
+  extern __shared__ float smem_bwd[];
+  float* qs = smem_bwd;                 // 64 x (D + 1)
+  float* dos = qs + 64 * (D + 1);       // 64 x (D + 1)
+  float* ks = dos + 64 * (D + 1);       // 64 x (D + 1)
+  float* vs = ks + 64 * (D + 1);        // 64 x (D + 1)
+  float* dss = vs + 64 * (D + 1);       // dS, 64 queries x 65
+  float* lse_s = dss + 2 * 64 * 65;     // 64 (one score tile left unused)
+  float* del_s = lse_s + 64;            // 64
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int64_t bh = blockIdx.y;
+  const int64_t b = bh / p.h;
+  const int64_t head = bh % p.h;
+  const int64_t kv_head = head / (p.h / p.hkv);
+  const int64_t q_lo = static_cast<int64_t>(blockIdx.x) * kBQ;
+
+  load_rows_f32<T, D>(qs, static_cast<const T*>(p.q) + b * p.q_sb
+                              + head * p.q_sh, p.q_ss, q_lo, p.s);
+  load_rows_f32<float, D>(dos, p.dout + (b * p.s * p.h + head) * D,
+                          p.h * D, q_lo, p.s);
+  if (tid < 64) {
+    const int64_t pos = q_lo + tid;
+    lse_s[tid] = pos < p.s ? p.lse[(b * p.h + head) * p.s + pos] : 0.f;
+    del_s[tid] = pos < p.s ? p.delta[(b * p.h + head) * p.s + pos] : 0.f;
+  }
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kv_head * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kv_head * p.v_sh;
+
+  float dq[4][C];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) dq[i][j] = 0.f;
+
+  const int64_t n_kt = (p.s + kBK - 1) / kBK;
+  for (int64_t kt = 0; kt < n_kt; ++kt) {
+    const int64_t k_lo = kt * kBK;
+    if (!bwd_tile_live(p, q_lo, k_lo)) continue;  // uniform in the block
+    __syncthreads();  // Q, dO are in place; the previous K, V, dS consumed
+    load_rows_f32<T, D>(ks, kg, p.k_ss, k_lo, p.s);
+    load_rows_f32<T, D>(vs, vg, p.v_ss, k_lo, p.s);
+    __syncthreads();
+
+    // S and dP: queries 4 ty + i, keys tx + 16 j
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int c = 0; c < D; ++c) {
+      float qv[4], dov[4], kv_[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(ty * 4 + i) * (D + 1) + c];
+        dov[i] = dos[(ty * 4 + i) * (D + 1) + c];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv_[j] = ks[(tx + 16 * j) * (D + 1) + c];
+        vv[j] = vs[(tx + 16 * j) * (D + 1) + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i], kv_[j], sc[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ki = tx + 16 * j;
+        const float pr = bwd_pair_ok(p, q_lo + qi, k_lo + ki)
+                             ? expf(sc[i][j] * p.sm_scale - lse_s[qi])
+                             : 0.f;
+        dss[qi * 65 + ki] = pr * (dp[i][j] - del_s[qi]);
+      }
+    }
+    __syncthreads();
+
+    for (int ki = 0; ki < kBK; ++ki) {
+      float sv[4], kv_[C];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dss[(ty * 4 + i) * 65 + ki];
+#pragma unroll
+      for (int j = 0; j < C; ++j) kv_[j] = ks[ki * (D + 1) + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) dq[i][j] = fmaf(sv[i], kv_[j], dq[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t qpos = q_lo + ty * 4 + i;
+    if (qpos >= p.s) continue;
+    T* row = static_cast<T*>(p.dq) + ((b * p.s + qpos) * p.h + head) * D;
+#pragma unroll
+    for (int j = 0; j < C; ++j) store(row + tx + 16 * j, dq[i][j] * p.sm_scale);
+  }
+}
+
+template <typename T, int D>
+int launch_bwd(const BwdParams& p, int64_t b, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t rows = b * p.s * p.h;
+  const int64_t warps = kBwdThreads / 32;
+  bwd_delta_kernel<<<static_cast<unsigned>((rows + warps - 1) / warps),
+                     kBwdThreads, 0, stream>>>(p, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned n_tiles = static_cast<unsigned>((p.s + 63) / 64);
+  bwd_dkdv_kernel<T, D><<<dim3(n_tiles, static_cast<unsigned>(b * p.hkv)),
+                          kBwdThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_kernel<T, D><<<dim3(n_tiles, static_cast<unsigned>(b * p.h)),
+                        kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const BwdParams& p, int64_t b, int64_t d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_bwd<T, 16>(p, b, s);
+    case 32: return launch_bwd<T, 32>(p, b, s);
+    case 64: return launch_bwd<T, 64>(p, b, s);
+    case 128: return launch_bwd<T, 128>(p, b, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (b, s, h, d), k/v (b, s, hkv, d) of float32 (is_bf16 = 0) or bf16
 // (is_bf16 = 1), each with the given batch/sequence/head strides in
-// elements and a contiguous last dim; out (b, s, h, d) contiguous f32.
+// elements and a contiguous last dim; out (b, s, h, d) contiguous f32;
+// lse, when not null, (b, h, s) contiguous f32: each row's log-sum-exp of
+// its scaled scores, m + log(l), which the backward reads.
 // d in {16, 32, 64, 128}, h % hkv == 0.  window 0 means full attention.
 // bf16 bases must be 16-byte aligned and their strides multiples of 8.
 int fa_forward(const void* q, const void* k, const void* v, float* out,
@@ -693,13 +1111,37 @@ int fa_forward(const void* q, const void* k, const void* v, float* out,
                int64_t k_sb, int64_t k_ss, int64_t k_sh,
                int64_t v_sb, int64_t v_ss, int64_t v_sh,
                float sm_scale, int causal, int64_t window, int is_bf16,
-               void* stream) {
+               float* lse, void* stream) {
   if (hkv <= 0 || h % hkv != 0 || window < 0) return cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return cudaSuccess;
-  const Params p{q, k, v, out, s, h, hkv,
+  const Params p{q, k, v, out, lse, s, h, hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  sm_scale, causal, window};
   return dispatch(p, b * h, d, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of fa_forward: q, k, v as fa_forward takes them; o and dout
+// (b, s, h, d) contiguous f32 (the forward's output and its gradient); lse
+// (b, h, s) from fa_forward; delta (b, h, s) f32 scratch; dq (b, s, h, d)
+// and dk, dv (b, s, hkv, d) contiguous, of the input type.  Launches three
+// kernels on the stream.
+int fa_backward(const void* q, const void* k, const void* v, const float* o,
+                const float* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv,
+                int64_t b, int64_t s, int64_t h, int64_t hkv, int64_t d,
+                int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                float sm_scale, int causal, int64_t window, int is_bf16,
+                void* stream) {
+  if (hkv <= 0 || h % hkv != 0 || window < 0) return cudaErrorInvalidValue;
+  if (b == 0 || s == 0 || h == 0) return cudaSuccess;
+  const BwdParams p{q, k, v, o, dout, lse, delta, dq, dk, dv, s, h, hkv,
+                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                    sm_scale, causal, window};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? dispatch_bwd<__nv_bfloat16>(p, b, d, st)
+                 : dispatch_bwd<float>(p, b, d, st);
 }
 
 }  // extern "C"

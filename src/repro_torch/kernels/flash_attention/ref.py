@@ -1,5 +1,6 @@
-"""Plain torch version of the prefill flash-attention kernel (the port of
-``repro.kernels.flash_attention.ref``): dense masked softmax attention.
+"""Plain torch versions of the flash-attention kernels (the port of
+``repro.kernels.flash_attention.ref``): dense masked softmax attention,
+each row's log-sum-exp, and the backward from that log-sum-exp.
 
 It runs wherever its input lives; the wrapper in ``ops.py`` uses it for
 CPU tensors only.
@@ -11,22 +12,65 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        sm_scale: float, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
-  """q/k/v (BH, S, D) -> (BH, S, D) float32."""
-  s = q.shape[1]
-  scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
-  qpos = torch.arange(s, device=q.device)[:, None]
-  kpos = torch.arange(s, device=q.device)[None, :]
-  mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
+  """(S, S) bool, True where query i attends to key j."""
+  qpos = torch.arange(s, device=device)[:, None]
+  kpos = torch.arange(s, device=device)[None, :]
+  mask = torch.ones((s, s), dtype=torch.bool, device=device)
   if causal:
     mask = mask & (qpos >= kpos)
   if window:
     mask = mask & (kpos > qpos - window)
-  scores = torch.where(mask[None], scores, NEG_INF)
+  return mask
+
+
+def _scores(q, k, sm_scale, causal, window):
+  scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+  mask = _mask(q.shape[1], causal, window, q.device)
+  return torch.where(mask[None], scores, NEG_INF), mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sm_scale: float, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+  """q/k/v (BH, S, D) -> (BH, S, D) float32."""
+  scores, _ = _scores(q, k, sm_scale, causal, window)
   p = torch.softmax(scores, dim=-1)
   return torch.einsum("bqk,bkd->bqd", p, v.float())
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            sm_scale: float, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+  """Each row's log-sum-exp of its scaled, masked scores: q/k (BH, S, D)
+  -> (BH, S) float32 (the forward kernel's ``lse``)."""
+  scores, _ = _scores(q, k, sm_scale, causal, window)
+  return torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor,
+                            sm_scale: float, causal: bool = True,
+                            window: int = 0):
+  """The backward kernel's formulas, dense: q/k/v/o/do (BH, S, D) and lse
+  (BH, S) -> dq, dk, dv (BH, S, D) float32.
+
+      P = exp(S * scale - lse) (0 where masked),  dV = P^T dO,
+      D = rowsum(dO * O),  dS = P (dO V^T - D),
+      dQ = scale dS K,  dK = scale dS^T Q
+  """
+  qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+  scores, mask = _scores(q, k, sm_scale, causal, window)
+  p = torch.where(mask[None], torch.exp(scores - lse.float()[..., None]),
+                  0.0)
+  dv = torch.einsum("bqk,bqd->bkd", p, dof)
+  dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+  delta = (dof * o.float()).sum(-1, keepdim=True)
+  ds = p * (dp - delta)
+  dq = torch.einsum("bqk,bkd->bqd", ds, kf) * sm_scale
+  dk = torch.einsum("bqk,bqd->bkd", ds, qf) * sm_scale
+  return dq, dk, dv
 
 
 def flash_attention_bf16_order(q: torch.Tensor, k: torch.Tensor,

@@ -2,6 +2,8 @@
 ``repro.models.ffn.init_mlp`` / ``apply_mlp``).  MoE comes with slice 8."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -11,16 +13,27 @@ from repro_torch.models.common import (Device, dense_init, frozen,
                                        model_dtype)
 
 
-class MLP(nn.Module):
-  """SwiGLU: ``(silu(x @ wg) * (x @ wi)) @ wo``.  Weights are (d_in, d_out),
-  the reference's layout, stored in the model dtype."""
+def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+           wo: torch.Tensor) -> torch.Tensor:
+  """``(silu(x @ wg) * (x @ wi)) @ wo``, each weight cast to x's dtype at
+  use (a no-op for weights already stored in it)."""
+  dt = x.dtype
+  h = x @ wi.to(dt)
+  g = x @ wg.to(dt)
+  return (F.silu(g) * h) @ wo.to(dt)
 
-  def __init__(self, cfg: ModelConfig, d_ff: int, device: Device = None):
+
+class MLP(nn.Module):
+  """SwiGLU.  Weights are (d_in, d_out), the reference's layout, stored in
+  the model dtype, or in ``dtype`` when given (a trainable model's)."""
+
+  def __init__(self, cfg: ModelConfig, d_ff: int, device: Device = None,
+               dtype: Optional[torch.dtype] = None):
     super().__init__()
     if cfg.mlp_variant != "swiglu":
       raise NotImplementedError(
           f"mlp_variant {cfg.mlp_variant!r} comes with slice 8 of the port")
-    d, dt = cfg.d_model, model_dtype(cfg)
+    d, dt = cfg.d_model, dtype or model_dtype(cfg)
     self.wi = frozen(torch.empty((d, d_ff), dtype=dt, device=device))
     self.wg = frozen(torch.empty((d, d_ff), dtype=dt, device=device))
     self.wo = frozen(torch.empty((d_ff, d), dtype=dt, device=device))
@@ -34,6 +47,4 @@ class MLP(nn.Module):
     return self
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    h = x @ self.wi
-    g = x @ self.wg
-    return (F.silu(g) * h) @ self.wo
+    return swiglu(x, self.wi, self.wg, self.wo)

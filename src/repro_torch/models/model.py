@@ -2,8 +2,9 @@
 for the decoder family, attention (qwen3-0.6b) and RWKV-6 (rwkv6-1.6b)
 layers (the port of ``repro.models.model``).
 
-  init(seed)                        -> params (a Transformer module)
-  from_state(state)                 -> params from a state dict
+  init(seed[, param_dtype])         -> params (a Transformer module)
+  from_state(state[, param_dtype])  -> params from a state dict
+  train_loss(params, batch, remat)  -> (loss, metrics)
   init_cache(batch, max_len)        -> decode cache
   prefill(params, tokens, max_len)  -> (last logits, cache)
   decode_step(params, tok, cache)   -> (logits, cache)
@@ -11,10 +12,14 @@ layers (the port of ``repro.models.model``).
 A Model lives on one device: CUDA unless the caller passes
 ``device="cpu"``; it raises when CUDA is asked for and there is none.
 Prefill and decode run eagerly under ``torch.inference_mode()``.
+``param_dtype`` ("float32" or "bfloat16") makes trainable parameters;
+``train_loss`` takes them (or :func:`transformer.param_tree`'s tree of
+them, fake-quantized for QAT) and records the autograd graph.  Training
+rwkv6 comes with slice 7c.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Union
 
 import torch
 
@@ -29,20 +34,30 @@ class Model:
     self.cfg = cfg
     self.device = resolve_device(device, "build_model")
 
-  def init(self, seed: int = 0) -> transformer.Transformer:
-    """Random parameters on the model's device from ``seed``."""
-    return transformer.init_params(self.cfg, seed, self.device)
+  def init(self, seed: int = 0, param_dtype: Optional[str] = None
+           ) -> transformer.Transformer:
+    """Random parameters on the model's device from ``seed``: a serving
+    model, or a trainable one in ``param_dtype``."""
+    return transformer.init_params(self.cfg, seed, self.device, param_dtype)
 
-  def from_state(self, state: Mapping[str, torch.Tensor]
+  def from_state(self, state: Mapping[str, torch.Tensor],
+                 param_dtype: Optional[str] = None
                  ) -> transformer.Transformer:
     """Parameters on the model's device from a state dict (for example
-    ``convert.params_from_jax``'s)."""
-    params = transformer.Transformer(self.cfg, self.device)
+    ``convert.params_from_jax``'s), trainable when ``param_dtype`` is
+    given."""
+    params = transformer.Transformer(self.cfg, self.device, param_dtype)
     params.load_state_dict(dict(state))
     return params
 
-  def train_loss(self, *args, **kwargs):
-    return transformer.train_loss(*args, **kwargs)
+  def train_loss(self, params: Union[transformer.Transformer,
+                                     transformer.Tree],
+                 batch: Mapping[str, torch.Tensor], remat: bool = True):
+    """(xent + 0.01 aux, {"xent", "aux", "tokens"}) of a batch of tokens
+    and labels (B, S) on the model's device."""
+    if isinstance(params, transformer.Transformer):
+      params = transformer.param_tree(params)
+    return transformer.train_loss(params, batch, self.cfg, remat=remat)
 
   @torch.inference_mode()
   def init_cache(self, batch: int, max_len: int) -> transformer.Cache:

@@ -1,15 +1,14 @@
-"""Straggler detection and bounded retries on transient errors (the
-port of ``repro.train.fault_tolerance``'s :class:`StragglerMonitor`,
-which the device fleet's health registry reads, and of
-:class:`StepFailure` and :func:`retrying`, the single retry primitive
-the exploration resilience ladder builds its ``RetryPolicy`` on).
-
-The trainer's re-meshing half of the reference module (``MeshPlan``,
-``ElasticMeshPlanner``) comes with slice 7b.
+"""Fault tolerance (the port of ``repro.train.fault_tolerance``):
+:class:`StragglerMonitor`, which the trainer feeds and the device fleet's
+health registry reads; :class:`ElasticMeshPlanner`, which re-factorizes a
+(data, model) mesh after failures; and :class:`StepFailure` and
+:func:`retrying`, the single retry primitive of the trainer's steps and
+of the exploration resilience ladder's ``RetryPolicy``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -60,6 +59,46 @@ class StragglerMonitor:
           > self.z:
         out.append(h)
     return sorted(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+  data: int
+  model: int
+  pods: int
+  microbatch_scale: int   # grad-accum multiplier to keep the global batch
+
+  @property
+  def devices(self) -> int:
+    return self.pods * self.data * self.model
+
+
+class ElasticMeshPlanner:
+  """Re-factorize the mesh after failures.
+
+  Policy: keep the TP ("model") degree, shrink DP to the largest size that
+  fits the healthy-device count and divides the global batch, and scale
+  gradient accumulation so the global batch is unchanged.
+  """
+
+  def __init__(self, model_parallel: int, global_batch: int,
+               batch_per_dp: int):
+    self.model_parallel = model_parallel
+    self.global_batch = global_batch
+    self.batch_per_dp = batch_per_dp
+
+  def plan(self, healthy_devices: int,
+           pods: int = 1) -> Optional[MeshPlan]:
+    per_pod = healthy_devices // pods
+    dp = per_pod // self.model_parallel
+    if dp < 1:
+      return None
+    while dp > 1 and (self.global_batch % (dp * pods)) != 0:
+      dp -= 1
+    orig_dp = self.global_batch // self.batch_per_dp
+    scale = max(1, int(math.ceil(orig_dp / (dp * pods))))
+    return MeshPlan(data=dp, model=self.model_parallel, pods=pods,
+                    microbatch_scale=scale)
 
 
 class StepFailure(RuntimeError):

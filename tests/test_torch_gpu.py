@@ -4,7 +4,8 @@ the grouped prefilter, fused joint chunks), the polynomial PPA models,
 the serving engine (qwen3-0.6b and rwkv6-1.6b), the deploy codecs and
 guided search with its fault tolerance (journals that move between card
 and CPU, the watchdog on a CUDA handle), and the QAT CNNs, their SGD
-step and the weight-sharing supernet against the same code on the CPU.
+step and the weight-sharing supernet against the same code on the CPU;
+K6's backward kernel against its plain version, and autograd through K6.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -332,6 +333,90 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
   torch.cuda.synchronize()
   assert got.dtype == torch.float32 and got.shape == (b, s, h, d)
   assert _rel_err(got, want) < 1e-4
+
+
+# K6's backward: the kernels against the plain backward on the same q, k,
+# v, output, output gradient and lse.  Everything inside is float32, so
+# float32 inputs are held to 1e-5 of each gradient's largest |value|;
+# bf16 inputs add the final bf16 rounding of dq, dk and dv (unit roundoff
+# 2^-8) and f32 sums of at most S * G terms, each 2^-24 (a larger bound).
+FLASH_BWD_CASES = [(2, 512, 16, 8, 128, True, 0),
+                   (1, 512, 16, 8, 128, True, 128),
+                   (1, 63, 16, 8, 128, True, 0), (1, 65, 16, 8, 128, True, 0),
+                   (1, 513, 16, 8, 128, True, 0), (2, 200, 8, 4, 64, True, 0),
+                   (1, 300, 8, 4, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
+                   (1, 70, 8, 1, 16, True, 24)]
+
+
+def _bwd_bound(dtype, s, g):
+  return 1e-5 if dtype == torch.float32 else 2.0 ** -8 + s * g * 2.0 ** -24
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(cuda, case, dtype):
+  b, s, h, hkv, d, causal, window = case
+  rng = np.random.RandomState(s + h + 1)
+  q = _normal(rng, (b, s, h, d), cuda, dtype)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, dtype)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  dout = _normal(rng, (b, s, h, d), cuda)
+  out, lse = fa_kernel.flash_attention(q, k, v, 1.0 / d ** 0.5, causal,
+                                       window, return_lse=True)
+  want_lse = fa.flash_attention_lse_reference(q, k, causal, window)
+  assert _rel_err(lse, want_lse) < 1e-5
+  fa_kernel.reset_launch_counts()
+  got = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse, 1.0 / d ** 0.5,
+                                      causal, window)
+  assert fa_kernel.LAUNCHES["flash_attention_bwd"] == 1
+  want = fa.flash_attention_bwd_reference(q, k, v, out, dout, lse, causal,
+                                          window)
+  torch.cuda.synchronize()
+  for name, x, y in zip(("dq", "dk", "dv"), got, want):
+    assert x.dtype == dtype and x.shape == y.shape, name
+    assert _rel_err(x.float(), y) < _bwd_bound(dtype, s, h // hkv), name
+
+
+def test_flash_backward_kernel_is_deterministic(cuda):
+  rng = np.random.RandomState(23)
+  b, s, h, hkv, d = 2, 513, 16, 8, 128
+  q = _normal(rng, (b, s, h, d), cuda, torch.bfloat16)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, torch.bfloat16)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  dout = _normal(rng, (b, s, h, d), cuda)
+  out, lse = fa_kernel.flash_attention(q, k, v, 1.0 / d ** 0.5,
+                                       return_lse=True)
+  first = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse,
+                                        1.0 / d ** 0.5)
+  again = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse,
+                                        1.0 / d ** 0.5)
+  for x, y in zip(first, again):
+    assert torch.equal(x, y)
+
+
+def test_flash_attention_gradient_goes_through_the_kernels(cuda):
+  """Autograd through ``ops.flash_attention`` on the card launches K6 with
+  its lse and K6's backward, and equals autograd through the plain
+  version; without a gradient, the output is the serving kernel's, bit
+  for bit."""
+  rng = np.random.RandomState(5)
+  b, s, h, hkv, d = 1, 130, 8, 4, 64
+  q = _normal(rng, (b, s, h, d), cuda).requires_grad_()
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda).requires_grad_()
+  dout = _normal(rng, (b, s, h, d), cuda)
+  fa_kernel.reset_launch_counts()
+  out = fa.flash_attention(q, kv[:, :, 0], kv[:, :, 1])
+  got = torch.autograd.grad(out, (q, kv), dout)
+  assert fa_kernel.LAUNCHES == {"flash_attention": 1,
+                                "flash_attention_bwd": 1}
+  ref_out = fa.flash_attention_reference(q, kv[:, :, 0], kv[:, :, 1])
+  want = torch.autograd.grad(ref_out, (q, kv), dout)
+  for x, y in zip(got, want):
+    assert _rel_err(x, y) < 1e-5
+  with torch.no_grad():
+    plain = fa_kernel.flash_attention(q, kv[:, :, 0], kv[:, :, 1],
+                                      1.0 / d ** 0.5)
+  assert torch.equal(out.detach(), plain)
 
 
 # (b, h, hkv, s, d, lengths): lengths 1, mid and S of the serving cache and
