@@ -287,6 +287,12 @@ K6_BWD_CASES = ((8, 512, 16, 8, 128, "bfloat16", 0),
                 (2, 513, 16, 8, 128, "bfloat16", 0),
                 (2, 300, 8, 4, 64, "bfloat16", 0),
                 (2, 300, 8, 4, 64, "float32", 0))
+# the bf16 backward's earlier design, f32 FMAs on the CUDA cores, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): its time at
+# B = 8, S = 512, and its device time in one profiled [train] step of
+# 241.36 ms
+K6_BWD_CUDA_CORE = {"ms": 2.1993, "train_ms": 61.64,
+                    "train_device_ms": 241.36}
 # 200 steps, the launcher's default: in 40 the reference's recipe (lr
 # 3e-3, 20 warm-up steps, cosine decay) does not get a loss below the
 # uniform guess at a 151,936-token vocab (PERF.md section 6)
@@ -2945,18 +2951,20 @@ def serve_twice(tag, cfg, want):
 
 PROFILE_GROUPS = (("K5", ("qda_kernel",)),
                   ("K6", ("flash_bf16_kernel", "flash_f32_kernel")),
-                  ("K6-bwd", ("bwd_delta_kernel", "bwd_dkdv_kernel",
-                              "bwd_dq_kernel")),
+                  ("K6-bwd", ("bwd_delta_kernel", "bwd_dkdv_bf16_kernel",
+                              "bwd_dq_bf16_kernel", "bwd_dkdv_f32_kernel",
+                              "bwd_dq_f32_kernel")),
                   ("K7", ("wkv6",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")))
 PROFILE_TOP = 8   # kernels listed by name, the most device time first
 
 
-def _device_profile(tag, name, fn):
+def _device_profile(tag, name, fn, by_group=None):
   """Device work of one ``fn()`` call by kernel group, from
-  ``torch.profiler``: operation count and summed device time per group.
-  Prints "not measured" when the profiler records no device time."""
+  ``torch.profiler``: operation count and summed device time per group,
+  also left in ``by_group`` (ms) when given.  Prints "not measured" when
+  the profiler records no device time."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -2981,6 +2989,8 @@ def _device_profile(tag, name, fn):
     return
   total_n = sum(n for n, _ in groups.values())
   total_us = sum(us for _, us in groups.values())
+  if by_group is not None:
+    by_group.update({g: us / 1e3 for g, (_, us) in groups.items()})
   parts = "; ".join(f"{g} {n} ops {us / 1e3:.3f} ms ({us / total_us:.1%})"
                     for g, (n, us) in sorted(groups.items(),
                                              key=lambda kv: -kv[1][1]))
@@ -3124,8 +3134,10 @@ def _k6_bwd_bound(dtype, s: int, g: int) -> float:
 def phase_k6_backward():
   """K6's backward kernel against its plain version (``ref.py``'s dense
   formulas from the same lse) at the training shape and its edges, with
-  its time, bound, plain time, SDPA's backward as the yardstick, and a
-  rerun that must give the same bits."""
+  its time (also with a bf16-exact dO, the training path's), bound, plain
+  time, SDPA's backward as the yardstick, each kernel's device time,
+  ptxas' registers and spills, and a rerun that must give the same
+  bits."""
   import numpy as np
   import torch
   import torch.nn.functional as F
@@ -3201,18 +3213,43 @@ def phase_k6_backward():
       lib_ms = (cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
                                                     dt_), inner=3)
                 - cuda_ms(sdpa_forward, inner=3))
+    exact = ""
+    if dtype == torch.bfloat16:
+      _device_profile("K6-bwd", f"one backward, {tag}",
+                      lambda: fa_kernel.flash_attention_bwd(
+                          q, k, v, out, dout, lse, scale, True, window))
+      # the training path's dO is bf16-exact (the model casts K6's output
+      # to bf16): its lo part is zero
+      dout16 = dout.bfloat16().float()
+      got16 = fa_kernel.flash_attention_bwd(q, k, v, out, dout16, lse, scale,
+                                            True, window)
+      want16 = fa.flash_attention_bwd_reference(q, k, v, out, dout16, lse,
+                                                True, window)
+      errs16 = [float((x.float() - y).abs().max() / y.abs().max())
+                for x, y in zip(got16, want16)]
+      ms16 = cuda_ms(lambda: fa_kernel.flash_attention_bwd(
+          q, k, v, out, dout16, lse, scale, True, window), inner=3)
+      exact = (f"; with a bf16-exact dO (the training path's) "
+               f"{ms16:.4f} ms, dq, dk, dv max |diff| / max |value| "
+               f"{', '.join(f'{e:.3g}' for e in errs16)}")
+      if max(errs16) > tol:
+        log(line + exact)
+        raise AssertionError(f"K6's backward fails at {tag} with a "
+                             "bf16-exact dO")
     fwd_ms = cuda_ms(lambda: fa_kernel.flash_attention(q, k, v, scale, True,
                                                       window))
     fwd_lse_ms = cuda_ms(lambda: fa_kernel.flash_attention(
         q, k, v, scale, True, window, return_lse=True))
-    log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    was = (f" (the CUDA-core design: {K6_BWD_CUDA_CORE['ms']} ms)"
+           if dtype == torch.bfloat16 and not window else "")
+    log(f"{line}; kernel {ms:.4f} ms{was}, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
         f"{n_ops / 1e9:.3f} GFLOP at 2.5x the forward's), library "
         + (f"(scaled_dot_product_attention forward + backward minus "
            f"forward) {lib_ms:.4f} ms" if lib_ms is not None
            else "not timed (window)")
         + f"; the forward K6 at this shape {fwd_ms:.4f} ms without lse, "
-        f"{fwd_lse_ms:.4f} ms with it")
+        f"{fwd_lse_ms:.4f} ms with it{exact}")
     if dtype == torch.bfloat16 and not window:
       result = dict(
           name="flash_attention_bwd (K6 backward)", route="cuda",
@@ -3224,6 +3261,14 @@ def phase_k6_backward():
           on_main_path=True, max_abs_err=abs_err, ms=ms,
           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
           library_ms=lib_ms)
+  from repro_torch import _build
+  for name, report in sorted(_build.ptxas_report("flash_attention").items()):
+    short = re.search(r"\d+(bwd_\w+_kernel)(?:ILi(\d+)E)?", name)
+    if short:
+      kernel = short.group(1) + (f"<{short.group(2)}>" if short.group(2)
+                                 else "")
+      log(f"[K6-bwd] ptxas: {kernel}: {report.get('registers')} registers "
+          f"a thread, {report.get('spill_bytes')} bytes of spill stores")
   return {"flash_attention_bwd": result}
 
 
@@ -3347,12 +3392,18 @@ def phase_train(smi):
     raise AssertionError(f"leaves without a gradient: {zero}")
   stage = []
   timed_stage(stage, "step", lambda: trainer.run(1))
+  by_group = {}
   device_ms = _device_profile("train", "one full-width step",
-                              lambda: trainer.run(1))
+                              lambda: trainer.run(1), by_group)
   log(f"[train-profile] one step: {stage[0][1]:.2f} ms (host), "
       f"{stage[0][2]:.2f} ms (events); the card busy "
       + (f"{device_ms / stage[0][2]:.1%} of it" if device_ms else
-         "not measured"))
+         "not measured")
+      + "; K6's backward "
+      + (f"{by_group['K6-bwd']:.3f} ms of device time" if "K6-bwd" in by_group
+         else "not measured")
+      + f" (the CUDA-core design: {K6_BWD_CUDA_CORE['train_ms']} ms, of "
+      f"{K6_BWD_CUDA_CORE['train_device_ms']} ms of device time)")
   del trainer
   torch.cuda.empty_cache()
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -80,27 +79,9 @@ def child(src: str) -> None:
       "k5_host_us_per_call": statistics.median(k5_host) * 1e6,
       "launches": launches,
       "tokens": [[int(x) for x in out[u]] for u in sorted(out)],
-      "ptxas": ptxas_summary(_build.build_log("flash_attention")
-                             + _build.build_log("quant_decode_attn")),
+      "ptxas": {**_build.ptxas_report("flash_attention"),
+                **_build.ptxas_report("quant_decode_attn")},
       "device": torch.cuda.get_device_name(0)}))
-
-
-def ptxas_summary(log: str) -> dict:
-  """Registers and spill bytes of each kernel in a ptxas -v report."""
-  found, name = {}, None
-  for line in log.splitlines():
-    m = re.search(r"Compiling entry function '(\S+)'", line)
-    if m:
-      name = m.group(1)
-      found[name] = {}
-      continue
-    m = re.search(r"(\d+) bytes spill stores", line)
-    if m and name:
-      found[name]["spill_bytes"] = int(m.group(1))
-    m = re.search(r"Used (\d+) registers", line)
-    if m and name:
-      found[name]["registers"] = int(m.group(1))
-  return found
 
 
 def run(src: str) -> dict:

@@ -92,6 +92,26 @@ def build_log(name: str) -> str:
   return log.read_text() if log.exists() else ""
 
 
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+  """Registers and spill-store bytes of each kernel of ``csrc/<name>.cu``,
+  by mangled name, from ptxas' report of its build."""
+  found: Dict[str, Dict[str, int]] = {}
+  kernel = None
+  for line in build_log(name).splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      kernel = m.group(1)
+      found[kernel] = {}
+      continue
+    m = re.search(r"(\d+) bytes spill stores", line)
+    if m and kernel:
+      found[kernel]["spill_bytes"] = int(m.group(1))
+    m = re.search(r"Used (\d+) registers", line)
+    if m and kernel:
+      found[kernel]["registers"] = int(m.group(1))
+  return found
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
   """The shared library built from ``csrc/<name>.cu``, built if needed."""

@@ -10,7 +10,9 @@ arrive by 16-byte asynchronous copies, so bf16 bases must be 16-byte
 aligned and their batch, sequence and head strides multiples of 8
 elements (the model's q, k and the ``kv[:, :, 1]`` view of v are).
 The backward takes the same q, k, v, the forward's f32 output, its
-gradient and the lse, and returns dq, dk and dv in the inputs' dtype.
+gradient and the lse, and returns dq, dk and dv in the inputs' dtype;
+for bf16 inputs it runs on the tensor cores too, and allocates the
+gradient's bf16 hi and lo parts as scratch beside the f32 ``delta``.
 ``LAUNCHES`` counts each wrapper's launches, so a run that zeroes it
 before driving the model can show that prefill and training went
 through them.
@@ -45,7 +47,7 @@ def _lib() -> ctypes.CDLL:
                              + [ctypes.c_float, ctypes.c_int, i64,
                                 ctypes.c_int, p, p])
   lib.fa_forward.restype = ctypes.c_int
-  lib.fa_backward.argtypes = ([p] * 10 + [i64] * 14
+  lib.fa_backward.argtypes = ([p] * 11 + [i64] * 14
                               + [ctypes.c_float, ctypes.c_int, i64,
                                  ctypes.c_int, p])
   lib.fa_backward.restype = ctypes.c_int
@@ -134,6 +136,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ("lse", lse, (b, h, s))):
     _checks.expect(t, name, (torch.float32,), shape, q.device)
   delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+  dout_split = None
+  if q.dtype == torch.bfloat16:
+    # dout's bf16 hi and lo parts, which the tensor cores read; the
+    # pre-pass reads out and dout 16 bytes at a time
+    dout_split = torch.empty((2, b, s, h, d), dtype=torch.bfloat16,
+                             device=q.device)
+    if dout.data_ptr() % 16:
+      dout = dout.clone()
+    if out.data_ptr() % 16:
+      out = out.clone()
   dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
   dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
   dv = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
@@ -141,8 +153,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream().cuda_stream
     status = _lib().fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d, *_strides(q, k, v),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if dout_split is None else dout_split.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d,
+        *_strides(q, k, v),
         float(sm_scale), int(bool(causal)), int(window),
         int(q.dtype == torch.bfloat16), stream)
   if status != 0:

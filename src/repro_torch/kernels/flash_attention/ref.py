@@ -126,3 +126,85 @@ def flash_attention_bf16_order(q: torch.Tensor, k: torch.Tensor,
     a1 = torch.where(m1 > NEG_INF / 2, torch.exp(m1 - m_safe), 0.0)
     l, acc, m = l * a0 + l1 * a1, acc * a0 + acc1 * a1, m_new
   return acc / torch.clamp_min(l, 1e-30)
+
+
+def flash_attention_bwd_bf16_order(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor, lse: torch.Tensor,
+                                   sm_scale: float, causal: bool,
+                                   window: int, step: int):
+  """The bf16 backward kernels' arithmetic in plain torch: q (B, S, H, D)
+  and k, v (B, S, Hkv, D) bf16, o and do (B, S, H, D) f32, lse (B, H, S)
+  -> dq (B, S, H, D) and dk, dv (B, S, Hkv, D) bf16.
+
+  dO enters as hi = bf16(dO) plus lo = bf16(dO - hi), and so do P and dS,
+  each product of bf16 terms summed in f32; of P^T dO the products hi hi,
+  hi lo and lo hi are taken, lo lo is dropped.  dK and dV take the queries
+  and dQ the keys ``step`` at a time, as the kernels' stages do, each
+  stage's products 16 rows deep (the tensor cores' depth) added in turn in
+  f32 (dK and dV per query head, then summed over the group); the results
+  are rounded to bf16 once.  Nothing
+  on the main path calls it: it shows on the CPU that this arithmetic
+  keeps the kernels within their tolerance of ``flash_attention_bwd_ref``.
+  """
+  b, s, h, d = q.shape
+  grp = h // k.shape[2]
+  dev = q.device
+
+  def heads_first(x):  # (B, S, heads, D) -> (B, H, S, D), f32, kv repeated
+    x = x.float().permute(0, 2, 1, 3)
+    return torch.repeat_interleave(x, h // x.shape[1], dim=1)
+
+  def split(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+  qf, kf, vf = heads_first(q), heads_first(k), heads_first(v)
+  doh, dol = split(heads_first(do))
+  delta = (heads_first(do) * heads_first(o)).sum(-1)       # (B, H, S)
+  lse = lse.float()
+  pos = torch.arange(s, device=dev)
+
+  def p_ds(rows, cols):
+    """P and dS of the queries ``rows`` against the keys ``cols``."""
+    ok = torch.ones((len(pos[rows]), len(pos[cols])), dtype=torch.bool,
+                    device=dev)
+    qpos, kpos = pos[rows][:, None], pos[cols][None, :]
+    if causal:
+      ok = ok & (qpos >= kpos)
+    if window:
+      ok = ok & (kpos > qpos - window)
+    kt, vt = kf[:, :, cols].transpose(-1, -2), vf[:, :, cols].transpose(-1, -2)
+    sc = qf[:, :, rows] @ kt * sm_scale
+    p = torch.where(ok, torch.exp(sc - lse[:, :, rows, None]), 0.0)
+    dp = doh[:, :, rows] @ vt + dol[:, :, rows] @ vt
+    return p, p * (dp - delta[:, :, rows, None])
+
+  everything = slice(0, s)
+  dk = torch.zeros((b, h, s, d), device=dev)
+  dv = torch.zeros((b, h, s, d), device=dev)
+  for q0 in range(0, s, step):
+    p, ds = p_ds(slice(q0, q0 + step), everything)
+    for c0 in range(0, p.shape[2], 16):
+      rows = slice(q0 + c0, q0 + c0 + 16)
+      ph, pl = split(p[:, :, c0:c0 + 16].transpose(-1, -2))
+      sh, sl = split(ds[:, :, c0:c0 + 16].transpose(-1, -2))
+      dv = dv + ph @ doh[:, :, rows]
+      dk = dk + sh @ qf[:, :, rows]
+      dv = dv + ph @ dol[:, :, rows]
+      dk = dk + sl @ qf[:, :, rows]
+      dv = dv + pl @ doh[:, :, rows]
+  dq = torch.zeros((b, h, s, d), device=dev)
+  for k0 in range(0, s, step):
+    _, ds = p_ds(everything, slice(k0, k0 + step))
+    for c0 in range(0, ds.shape[3], 16):
+      cols = slice(k0 + c0, k0 + c0 + 16)
+      sh, sl = split(ds[:, :, :, c0:c0 + 16])
+      dq = dq + sh @ kf[:, :, cols]
+      dq = dq + sl @ kf[:, :, cols]
+
+  def back(x, heads):  # (B, H, S, D) f32 -> (B, S, heads, D) bf16
+    x = x.reshape(b, heads, h // heads, s, d).sum(2)
+    return x.permute(0, 2, 1, 3).to(torch.bfloat16)
+  hkv = h // grp
+  return back(dq * sm_scale, h), back(dk * sm_scale, hkv), back(dv, hkv)

@@ -11,6 +11,7 @@ Tolerances: 2e-5 of the largest |output| for the kernels (as
 float32 sums taken in another order), 2e-4 for the model paths (the
 reference's own bound between its kernel and its model attention).
 """
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +34,9 @@ from repro_torch.kernels.quant_decode_attn import ops as qda
 from repro_torch.kernels.quant_decode_attn import ref as qda_ref
 from repro_torch.models import attention
 from test_torch_gpu import DECODE_CASES as CARD_DECODE_CASES
+from test_torch_gpu import FLASH_BWD_CASES as CARD_FLASH_BWD_CASES
 from test_torch_gpu import FLASH_CASES as CARD_FLASH_CASES
+from test_torch_gpu import _bwd_bound
 
 
 def rel_err(got, want) -> float:
@@ -223,6 +226,57 @@ def test_flash_bf16_kernel_order_stays_within_tolerance(case):
   ).reshape(b, h, s, d).permute(0, 2, 1, 3)
   assert g >= 1 and got.shape == want.shape
   assert rel_err(got.numpy(), want.numpy()) < 1e-4
+
+
+def _chip_smoke_k6_bwd_cases():
+  """``chip_smoke.py``'s bf16 ``[K6-bwd]`` shapes, as (b, s, h, hkv, d,
+  causal, window)."""
+  spec = importlib.util.spec_from_file_location(
+      "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+  smoke = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(smoke)
+  return [(b, s, h, hkv, d, True, window)
+          for b, s, h, hkv, d, dt, window in smoke.K6_BWD_CASES
+          if dt == "bfloat16"]
+
+
+def _dout(rng, shape, kind):
+  """The output gradient: f32 normal; bf16-exact, as on the training path
+  (the model casts K6's output to bf16); or rows scaled over 1e-3..1e3."""
+  x = torch.from_numpy(normal(rng, shape))
+  if kind == "bf16":
+    return x.bfloat16().float()
+  if kind == "wide":
+    rows = torch.from_numpy(10.0 ** rng.uniform(-3, 3, shape[:-1] + (1,)))
+    return x * rows.float()
+  return x
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "wide"])
+@pytest.mark.parametrize("case", sorted(set(
+    CARD_FLASH_BWD_CASES + _chip_smoke_k6_bwd_cases())), ids=str)
+def test_flash_bwd_bf16_kernel_order_stays_within_tolerance(case, kind):
+  """K6's bf16 backward arithmetic (dO, P and dS as bf16 hi + lo, lo lo of
+  P^T dO dropped, f32 sums in the kernels' steps, one bf16 rounding) is
+  within the card tests' bound of the plain backward on the same bf16
+  inputs, for the shapes of the card tests and ``chip_smoke.py``."""
+  b, s, h, hkv, d, causal, window = case
+  rng = np.random.RandomState(s + h + d + window)
+  q = torch.from_numpy(normal(rng, (b, s, h, d))).bfloat16()
+  k = torch.from_numpy(normal(rng, (b, s, hkv, d))).bfloat16()
+  v = torch.from_numpy(normal(rng, (b, s, hkv, d))).bfloat16()
+  dout = _dout(rng, (b, s, h, d), kind)
+  out = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+  lse = fa.flash_attention_lse_reference(q, k, causal=causal, window=window)
+  want = fa.flash_attention_bwd_reference(q, k, v, out, dout, lse, causal,
+                                          window)
+  got = fa_ref.flash_attention_bwd_bf16_order(
+      q, k, v, out, dout, lse, 1.0 / d ** 0.5, causal, window,
+      step=csrc_constant(fa_kernel, "kBwdStep"))
+  for name, x, y in zip(("dq", "dk", "dv"), got, want):
+    assert x.dtype == torch.bfloat16 and x.shape == y.shape, name
+    assert rel_err(x.float().numpy(), y.numpy()) < _bwd_bound(
+        torch.bfloat16, s, h // hkv), name
 
 
 @pytest.mark.parametrize("case", DECODE_CASES + CARD_DECODE_CASES + [

@@ -340,12 +340,17 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
 # float32 inputs are held to 1e-5 of each gradient's largest |value|;
 # bf16 inputs add the final bf16 rounding of dq, dk and dv (unit roundoff
 # 2^-8) and f32 sums of at most S * G terms, each 2^-24 (a larger bound).
+# The shapes: the training shape, windowed, ragged S, the 64-row tile edges
+# (the bf16 kernels' 32-row steps inside them), D = 128 at G = 1, 2 and 8,
+# D = 64 with G = 2, non-causal, every head dim; S = 1 below.
 FLASH_BWD_CASES = [(2, 512, 16, 8, 128, True, 0),
                    (1, 512, 16, 8, 128, True, 128),
                    (1, 63, 16, 8, 128, True, 0), (1, 65, 16, 8, 128, True, 0),
                    (1, 513, 16, 8, 128, True, 0), (2, 200, 8, 4, 64, True, 0),
                    (1, 300, 8, 4, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
-                   (1, 70, 8, 1, 16, True, 24)]
+                   (1, 70, 8, 1, 16, True, 24),
+                   (1, 64, 16, 8, 128, True, 0), (1, 128, 16, 8, 128, True, 0),
+                   (1, 256, 8, 8, 128, True, 0), (1, 256, 16, 2, 128, True, 0)]
 
 
 def _bwd_bound(dtype, s, g):
@@ -375,6 +380,122 @@ def test_flash_backward_kernel_matches_plain_version(cuda, case, dtype):
   for name, x, y in zip(("dq", "dk", "dv"), got, want):
     assert x.dtype == dtype and x.shape == y.shape, name
     assert _rel_err(x.float(), y) < _bwd_bound(dtype, s, h // hkv), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_at_one_position(cuda, dtype):
+  """S = 1: each query attends to its own key alone, so P = 1, dS = dP - D
+  is 0 up to rounding, dq = dk = 0 and dv is dO summed over the group.
+  dv is held to the bound; dq and dk, relative errors of a zero, to the
+  bound times the scale of their terms, max |dO| max |V| max |K or Q|."""
+  b, s, h, hkv, d = 2, 1, 16, 8, 128
+  rng = np.random.RandomState(7)
+  q = _normal(rng, (b, s, h, d), cuda, dtype)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, dtype)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  dout = _normal(rng, (b, s, h, d), cuda)
+  out, lse = fa_kernel.flash_attention(q, k, v, 1.0 / d ** 0.5,
+                                       return_lse=True)
+  dq, dk, dv = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse,
+                                             1.0 / d ** 0.5)
+  want = fa.flash_attention_bwd_reference(q, k, v, out, dout, lse)
+  torch.cuda.synchronize()
+  bound = _bwd_bound(dtype, s, h // hkv)
+  assert _rel_err(dv.float(), want[2]) < bound
+  terms = float(dout.abs().max() * v.float().abs().max())
+  assert float(dq.float().abs().max()) < bound * terms * float(
+      k.float().abs().max())
+  assert float(dk.float().abs().max()) < bound * terms * float(
+      q.float().abs().max())
+
+
+def _bwd_dout(rng, shape, device, kind):
+  """The output gradient: bf16-exact, as on the training path (the model
+  casts K6's output to bf16), or rows scaled over 1e-3..1e3."""
+  x = _normal(rng, shape, device)
+  if kind == "bf16":
+    return x.bfloat16().float()
+  rows = 10.0 ** rng.uniform(-3, 3, shape[:-1] + (1,))
+  return x * torch.from_numpy(rows.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("case", [(2, 512, 16, 8, 128, True, 0),
+                                  (1, 65, 16, 8, 128, True, 0),
+                                  (1, 70, 8, 1, 16, True, 24)], ids=str)
+@pytest.mark.parametrize("kind", ["bf16", "wide"])
+def test_flash_backward_bf16_kernel_takes_any_output_gradient(cuda, case,
+                                                              kind):
+  """The bf16 kernels read dO as bf16 hi + lo: a bf16-exact dO (lo = 0) and
+  one whose rows span six decades stay within the same bound."""
+  b, s, h, hkv, d, causal, window = case
+  rng = np.random.RandomState(s + h + 2)
+  q = _normal(rng, (b, s, h, d), cuda, torch.bfloat16)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, torch.bfloat16)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  dout = _bwd_dout(rng, (b, s, h, d), cuda, kind)
+  out, lse = fa_kernel.flash_attention(q, k, v, 1.0 / d ** 0.5, causal,
+                                       window, return_lse=True)
+  got = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse, 1.0 / d ** 0.5,
+                                      causal, window)
+  want = fa.flash_attention_bwd_reference(q, k, v, out, dout, lse, causal,
+                                          window)
+  torch.cuda.synchronize()
+  for name, x, y in zip(("dq", "dk", "dv"), got, want):
+    assert _rel_err(x.float(), y) < _bwd_bound(torch.bfloat16, s,
+                                               h // hkv), name
+
+
+def test_flash_backward_bf16_takes_an_unaligned_dout(cuda):
+  """The bf16 pre-pass reads dout 16 bytes at a time: a contiguous dout
+  that starts 4 bytes off that alignment gives the aligned copy's bits."""
+  rng = np.random.RandomState(11)
+  b, s, h, hkv, d = 1, 65, 8, 4, 64
+  q = _normal(rng, (b, s, h, d), cuda, torch.bfloat16)
+  kv = _normal(rng, (b, s, 2, hkv, d), cuda, torch.bfloat16)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  flat = _normal(rng, (b * s * h * d + 1,), cuda)
+  dout = flat[1:].view(b, s, h, d)
+  assert dout.data_ptr() % 16 and dout.is_contiguous()
+  out, lse = fa_kernel.flash_attention(q, k, v, 1.0 / d ** 0.5,
+                                       return_lse=True)
+  got = fa_kernel.flash_attention_bwd(q, k, v, out, dout, lse, 1.0 / d ** 0.5)
+  want = fa_kernel.flash_attention_bwd(q, k, v, out, dout.clone(), lse,
+                                       1.0 / d ** 0.5)
+  for x, y in zip(got, want):
+    assert torch.equal(x, y)
+
+
+# SHA-256 of the f32 backward's dq, dk and dv bytes from
+# f32_bwd_digest(), taken from the CUDA-core kernels as they were before
+# the bf16 backward moved to the tensor cores (H100, sm_90a): the f32 path
+# must keep those bits.
+F32_BWD_DIGEST = ("1326767b155101addafec7903b9391ee"
+                  "f7181d27b1c8ec901aa93ac943b708f4")
+
+
+def f32_bwd_digest(device) -> str:
+  """SHA-256 of K6's f32 backward (dq, dk, dv) on seeded inputs: causal
+  G = 2 at D = 64, ragged S; and a window with G = 8 at D = 16."""
+  import hashlib
+  digest = hashlib.sha256()
+  for b, s, h, hkv, d, window in ((1, 130, 8, 4, 64, 0),
+                                  (1, 70, 8, 1, 16, 24)):
+    rng = np.random.RandomState(s + d)
+    q = _normal(rng, (b, s, h, d), device)
+    kv = _normal(rng, (b, s, 2, hkv, d), device)
+    dout = _normal(rng, (b, s, h, d), device)
+    out, lse = fa_kernel.flash_attention(q, kv[:, :, 0], kv[:, :, 1],
+                                         1.0 / d ** 0.5, True, window,
+                                         return_lse=True)
+    for x in fa_kernel.flash_attention_bwd(q, kv[:, :, 0], kv[:, :, 1], out,
+                                           dout, lse, 1.0 / d ** 0.5, True,
+                                           window):
+      digest.update(x.cpu().numpy().tobytes())
+  return digest.hexdigest()
+
+
+def test_flash_backward_f32_kernels_keep_their_bits(cuda):
+  assert f32_bwd_digest(cuda) == F32_BWD_DIGEST
 
 
 def test_flash_backward_kernel_is_deterministic(cuda):
