@@ -4016,6 +4016,7 @@ def main() -> int:
   log(smi)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      # repro: ignore[ROB003] the device line reports torch's own count
       "count": torch.cuda.device_count()}}))
   return 0
 

@@ -297,7 +297,7 @@ def _quotient(a: Feature, b: Feature) -> Feature:
   """``a / b``: Python's division of two floats, :func:`exact.div` once a
   tensor is involved."""
   if isinstance(a, float) and isinstance(b, float):
-    return a / b
+    return a / b  # repro: ignore[EXA005] two Python floats: host division
   return div(a, b)
 
 

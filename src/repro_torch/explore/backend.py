@@ -429,6 +429,7 @@ class PolynomialBackend:
           if str(data["meta/fit_key"]) == want:
             return cls._from_npz(data, path, device)
       # a corrupt, stale or foreign cache file: refit and overwrite below
+      # repro: ignore[ROB001] the refit below is the handling
       except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
         pass
     backend = cls.fit(pe_types, degree, n_train, layers, seed, device)

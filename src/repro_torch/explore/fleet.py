@@ -93,6 +93,7 @@ def visible_devices() -> Tuple[torch.device, ...]:
   port: every other module reaches devices through here or a
   :class:`DevicePool`.  Raises when there is no card (it never offers the
   CPU instead)."""
+  # repro: ignore[ROB004] no CUDA counts zero cards, and `if not n` raises
   n = torch.cuda.device_count() if torch.cuda.is_available() else 0
   if not n:
     raise RuntimeError("no CUDA device is visible; build a DevicePool with "

@@ -194,7 +194,7 @@ def adamw_leaf_update(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor,
   mh = exact.div(m_new, float(bc1))
   vh = exact.div(v_new, float(bc2))
   pf = p.float()
-  delta = mh / (_sqrt(vh) + cfg.eps) + pf * cfg.weight_decay
+  delta = exact.div(mh, _sqrt(vh) + cfg.eps) + pf * cfg.weight_decay
   p.copy_((pf - delta * float(lr)).to(p.dtype))
   if cfg.quantize_state:
     for state, new in ((m, m_new), (v, v_new)):
