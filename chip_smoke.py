@@ -38,8 +38,9 @@ and a session whose 3-D front launches K1; the 1,000,000-design sweep
 through a ``DevicePool`` of the card (with the silent-corruption sentinel
 recomputing on the CPU, and a quarantined pool raising), a store entry
 written on the card and loaded by a CPU process, the sweep on four worker
-threads, and ``benchmarks/framework_perf.py``'s resilience benchmark at
-full scale against its record.  The paper's model side follows:
+threads (and traced at one and four), and
+``benchmarks/framework_perf.py``'s resilience benchmark at full scale
+against its record.  The paper's model side follows:
 Table 2's QAT recipe (``benchmarks/accuracy_experiments.py``, ported as
 ``repro_torch.train.qat``) trains
 resnet20 at the reference's sizes under each paper PE type, twice, and
@@ -68,8 +69,12 @@ qwen3-0.6b (bf16 compute, f32 master weights) trains through
 steps of 8 x 512 tokens and 5 steps each with int8 optimizer states,
 LightPE-2 QAT and two microbatches, a two-layer float32 copy is held
 card against CPU (loss, gradients, one AdamW step), and a restart from a
-checkpoint is held bit for bit against an uninterrupted run.  Any failure
-raises, so the
+checkpoint is held bit for bit against an uninterrupted run.  rwkv6
+training follows: K7's backward kernel against its plain version at the
+training shape and its edges, full-width rwkv6-1.6b trained through the
+launcher's ``main`` for 200 steps of 8 x 512 tokens and 5 under
+LightPE-2 QAT, and its two-layer float32 copy held card against CPU.
+Any failure raises, so the
 exit code is non-zero; without a CUDA device, or without the package
 beside it, the script stops before printing any result.  The last line of its output is one JSON object
 naming the device.
@@ -177,6 +182,10 @@ SERVICE_K1 = dict(n_per_type=25_000, seed=5, chunk=RES_CHUNK)
 FLEET_SDC_EVERY = 4
 STORE_PARITY = dict(n_per_type=5000, seed=11, chunk=4096)
 WORKERS = 4
+# [workers-trace] profiles half of [sweep]'s designs (8 chunks, twice
+# the 4 workers' window): the profiler's post-processing grows with the
+# launches it records
+TRACE_PER_TYPE = SWEEP_PER_TYPE // 2
 RES_PERF = dict(n_archs=200, n_hw_per_type=500, chunk=65536)
 RES_PERF_RECORD = ROOT / "results" / "BENCH_resilience.json"
 
@@ -300,7 +309,31 @@ TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "200", "--batch", "8",
               "--seq", "512"]
 TRAIN_VARIANT_STEPS = 5
 TRAIN_PARITY_BATCH = (2, 128)
+# [train-rwkv-parity]'s bound on each gradient leaf, of its largest
+# |value|.  An rwkv6 gradient is ill-conditioned where qwen3's is not: the
+# per-head group norm divides a WKV output by its RMS, which is small for
+# a head whose first token's bonus r_0 . (u k_0) nearly cancels, and so it
+# amplifies the card's K7 forward rounding (within 1e-4 of the plain
+# version's output) into the gradients upstream of it.  The card read
+# 7.04e-4 of u's max from the plain CPU (H100 80GB HBM3, 700 W); the bound
+# is about 4 x that, far below the O(1) a wrong kernel gives.
+RWKV_PARITY_GRAD_TOL = 3e-3
 TRAIN_RESUME = dict(n_layers=4, steps=12, ckpt_every=3, batch=8, seq=512)
+# K7's backward: (B, T, H, D, chunk, dtype, s0 and ds_final, w down to
+# 1e-30): the rwkv6-1.6b training shape in bf16 and f32, a ragged T with a
+# state and its gradient, T = 2,048, head dims 32 and 16, and w at the
+# floor
+K7_BWD_CASES = ((8, 512, 32, 64, 64, "bfloat16", False, False),
+                (8, 512, 32, 64, 64, "float32", False, False),
+                (2, 300, 32, 64, 64, "bfloat16", True, False),
+                (2, 2048, 32, 64, 64, "bfloat16", True, False),
+                (2, 300, 8, 32, 32, "bfloat16", True, False),
+                (2, 300, 8, 16, 16, "float32", True, False),
+                (2, 300, 32, 64, 64, "bfloat16", True, True))
+# rwkv6-1.6b's training run: the launcher's default recipe (200 steps) at
+# batches of 8 x 512, then 5 steps under LightPE-2 QAT
+TRAIN_RWKV_ARGV = ["--arch", "rwkv6-1.6b", "--steps", "200", "--batch", "8",
+                   "--seq", "512"]
 # K7 at the rwkv6-1.6b prefill shape (one 512-token bucket), a ragged T,
 # and a T of more chunks than K7's cluster has blocks (4 chunks a block)
 K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
@@ -2034,6 +2067,95 @@ def phase_workers(layers, sweep):
   return times
 
 
+# CUDA runtime calls by what they are: waits on the card, copies, the
+# allocators, launches ([workers-trace])
+RUNTIME_KINDS = (("sync", ("Synchronize", "cudaStreamWaitEvent")),
+                 ("copy", ("cudaMemcpy",)),
+                 ("alloc", ("cudaMalloc", "cudaFree", "cudaHostAlloc",
+                            "cudaFreeHost", "cudaHostRegister")),
+                 ("launch", ("cudaLaunchKernel",)))
+
+
+def phase_workers_trace(layers):
+  """[workers]'s slowdown traced, nothing changed: [sweep]'s stream (half
+  its designs) at 1 and at ``WORKERS`` workers, each chunk task's
+  dispatch timed on its thread (wall and the thread's own CPU time), the
+  main thread's resolve and fold timed, and the run profiled: the CUDA
+  runtime's calls (waits, copies, allocations, launches; CUPTI sees them
+  on every thread) and the card's busy time.  A thread blocked on the GIL
+  or a lock spends wall time and no CPU time; one in a synchronize or a
+  copy shows in the runtime's calls."""
+  import threading
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from repro_torch.explore import (DesignSpace, TorchOracleBackend,
+                                   stream_explore)
+  from repro_torch.explore import resilience, streaming
+  real_call, real_fold = resilience.ChunkTask.__call__, streaming.fold_chunk
+  medians = {}
+  for workers in (1, WORKERS):
+    spans, folds = [], []
+    lock = threading.Lock()
+
+    def call(task):
+      t0, c0 = time.perf_counter(), time.thread_time()
+      out = real_call(task)
+      with lock:
+        spans.append(((time.perf_counter() - t0) * 1e3,
+                      (time.thread_time() - c0) * 1e3))
+      return out
+
+    def fold(*args):
+      t0 = time.perf_counter()
+      real_fold(*args)
+      folds.append((time.perf_counter() - t0) * 1e3)
+
+    resilience.ChunkTask.__call__, streaming.fold_chunk = call, fold
+    torch.cuda.synchronize()
+    try:
+      with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream_explore(TorchOracleBackend(chunk_size=SWEEP_CHUNK),
+                       DesignSpace(), layers, "resnet20",
+                       n_per_type=TRACE_PER_TYPE, reducers=sweep_reducers(),
+                       chunk_size=SWEEP_CHUNK, workers=workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+      resilience.ChunkTask.__call__, streaming.fold_chunk = real_call, \
+          real_fold
+    runtime, device_us = {}, 0.0
+    for e in prof.key_averages():
+      if e.device_type == torch.autograd.DeviceType.CUDA:
+        device_us += e.self_device_time_total
+        continue
+      kind = next((k for k, words in RUNTIME_KINDS
+                   if any(w in e.key for w in words)), None)
+      if kind is not None:
+        n, us = runtime.get(kind, (0, 0.0))
+        runtime[kind] = (n + e.count, us + e.self_cpu_time_total)
+    task_wall = statistics.median(w for w, _ in spans)
+    task_cpu = statistics.median(c for _, c in spans)
+    medians[workers] = (task_wall, task_cpu)
+    log(f"[workers-trace] workers={workers}: {len(spans)} chunks in "
+        f"{wall:.3f} s (profiled); a chunk's dispatch on its thread: wall "
+        f"median {task_wall:.1f} ms, its thread's CPU time median "
+        f"{task_cpu:.1f} ms ({task_cpu / task_wall:.0%}); over the chunks "
+        f"{sum(w for w, _ in spans) / 1e3:.3f} s of thread wall time, "
+        f"{sum(c for _, c in spans) / 1e3:.3f} s of CPU time; the main "
+        f"thread's resolve + fold {sum(folds) / 1e3:.3f} s (median "
+        f"{statistics.median(folds):.1f} ms a chunk); CUDA runtime calls "
+        + ", ".join(f"{k} {n} calls {us / 1e3:.1f} ms"
+                    for k, (n, us) in sorted(runtime.items()))
+        + f"; the card busy {device_us / 1e3:.1f} ms "
+        f"({device_us / 1e6 / wall:.1%} of the run)")
+  (w1, c1), (wn, cn) = medians[1], medians[WORKERS]
+  log(f"[workers-trace] at {WORKERS} workers a chunk's dispatch takes "
+      f"{wn / w1:.2f}x the wall time and {cn / c1:.2f}x the CPU time it "
+      "takes at 1 (medians)")
+
+
 def phase_resilience_perf():
   """``benchmarks/framework_perf.py::resilience_perf`` at full scale on
   the card (its record results/BENCH_resilience.json): 200 archs x 500
@@ -2954,27 +3076,49 @@ PROFILE_GROUPS = (("K5", ("qda_kernel",)),
                   ("K6-bwd", ("bwd_delta_kernel", "bwd_dkdv_bf16_kernel",
                               "bwd_dq_bf16_kernel", "bwd_dkdv_f32_kernel",
                               "bwd_dq_f32_kernel")),
+                  ("K7-bwd", ("wkv6_bwd",)),
                   ("K7", ("wkv6",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                               "nvjet")))
 PROFILE_TOP = 8   # kernels listed by name, the most device time first
+# spin kernels that open every profile window, left out of its sums
+# (_device_profile).  On an H100 one whole run saw the profiler lose 21 to
+# 62 of 128, more the later the profile, and another all of 256 at an
+# [accuracy-profile] window; with 1,024 three whole runs measured every
+# profile
+PROFILE_LEAD = 1024
 
 
 def _device_profile(tag, name, fn, by_group=None):
   """Device work of one ``fn()`` call by kernel group, from
   ``torch.profiler``: operation count and summed device time per group,
   also left in ``by_group`` (ms) when given.  Prints "not measured" when
-  the profiler records no device time."""
+  the profiler records no device time.
+
+  Late in a long process the profiler loses the first device events of a
+  session (a fresh process keeps them): a standalone backward call, two
+  or three kernels, printed "not measured" there, and a full-width rwkv6
+  step lost its first K7.  So ``PROFILE_LEAD`` spin kernels open the
+  window and take the loss, and the count of them recorded says how many
+  were lost.  The loss is a prefix of the session, so while one spin
+  kernel is recorded every event of ``fn`` is; if none is, ``fn``'s
+  events may be incomplete, and this prints "not measured" with the
+  reason."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_LEAD):
+      torch.cuda._sleep(1)
     fn()
     torch.cuda.synchronize()
-  groups, kernels = {}, []
+  groups, kernels, spins = {}, [], 0
   for e in prof.key_averages():
     if e.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    if "spin_kernel" in e.key:
+      spins += e.count
       continue
     if e.self_device_time_total <= 0:
       continue
@@ -2983,9 +3127,13 @@ def _device_profile(tag, name, fn, by_group=None):
     n, us = groups.get(key, (0, 0.0))
     groups[key] = (n + e.count, us + e.self_device_time_total)
     kernels.append((e.self_device_time_total, e.count, e.key))
-  if not groups:
-    log(f"[{tag}-profile] {name}: not measured (the profiler recorded no "
-        "device time)")
+  lost = (f" (the profiler lost {PROFILE_LEAD - spins} of the "
+          f"{PROFILE_LEAD} lead kernels)" if spins < PROFILE_LEAD else "")
+  if not groups or spins == 0:
+    why = ("recorded no device time" if not groups else
+           f"lost all {PROFILE_LEAD} lead kernels, so maybe some of the "
+           "call's")
+    log(f"[{tag}-profile] {name}: not measured (the profiler {why})")
     return
   total_n = sum(n for n, _ in groups.values())
   total_us = sum(us for _, us in groups.values())
@@ -2995,7 +3143,7 @@ def _device_profile(tag, name, fn, by_group=None):
                     for g, (n, us) in sorted(groups.items(),
                                              key=lambda kv: -kv[1][1]))
   log(f"[{tag}-profile] {name}: {total_n} device operations, "
-      f"{total_us / 1e3:.3f} ms of device time: {parts}")
+      f"{total_us / 1e3:.3f} ms of device time: {parts}{lost}")
   for us, n, key in sorted(kernels, reverse=True)[:PROFILE_TOP]:
     log(f"[{tag}-profile]   {us / 1e3:.3f} ms in {n} x {key[:90]}")
   return total_us / 1e3
@@ -3444,10 +3592,13 @@ def phase_train(smi):
   return counts
 
 
-def phase_train_parity():
-  """qwen3-0.6b at full width, 2 layers, f32, TF32 off: the train loss,
+def phase_train_parity(arch="qwen3-0.6b", tag="train-parity"):
+  """``arch`` at full width, 2 layers, f32, TF32 off: the train loss,
   every gradient and one AdamW step (f32 and int8 states) on the card
-  against the CPU from the same weights and batch."""
+  against the CPU from the same weights and batch.
+
+  Each gradient leaf is held to 1e-4 of its largest |value| for qwen3,
+  and to ``RWKV_PARITY_GRAD_TOL`` for rwkv6 (see there)."""
   import dataclasses
   import numpy as np
   import torch
@@ -3456,7 +3607,7 @@ def phase_train_parity():
   from repro_torch.models import build_model
   from repro_torch.train import optimizer as opt_lib
   from repro_torch.train import train_step as ts_lib
-  cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32",
+  cfg = dataclasses.replace(get_config(arch), dtype="float32",
                             n_layers=PARITY_LAYERS)
   tcfg = ts_lib.TrainConfig()
   gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
@@ -3466,9 +3617,13 @@ def phase_train_parity():
       param_dtype="float32")
   batch = _train_batch(cfg, *TRAIN_PARITY_BATCH)
   cpu_batch = {k: v.cpu() for k, v in batch.items()}
+  ssm = cfg.family == "ssm"
+  grad_tol = RWKV_PARITY_GRAD_TOL if ssm else 1e-4
   with exact_f32():
+    _reset_kernel_counts()
     loss_g, _, grads_g = ts_lib.value_and_grad(
         gpu_model, tcfg, dict(gpu_params.named_parameters()), batch)
+    counts = _kernel_counts()
     loss_c, _, grads_c = ts_lib.value_and_grad(
         cpu_model, tcfg, dict(cpu_params.named_parameters()), cpu_batch)
   names = [n for n, _ in gpu_params.named_parameters()]
@@ -3477,14 +3632,16 @@ def phase_train_parity():
                for n, g, c in zip(names, grads_g, grads_c)}
   worst = max(grad_errs, key=grad_errs.get)
   zero = [n for n, g in zip(names, grads_g) if not bool(g.abs().max() > 0)]
-  log(f"[train-parity] {cfg.name} at full width, float32, "
+  wkv = (f"; {counts['wkv6']} K7 and {counts['wkv6_bwd']} K7-backward "
+         "launches on the card" if ssm else "")
+  log(f"[{tag}] {cfg.name} at full width, float32, "
       f"{cfg.n_layers} layers, TF32 off, batch {TRAIN_PARITY_BATCH}: "
       f"loss card {float(loss_g):.7f} vs CPU {float(loss_c):.7f}, relative "
       f"{loss_err:.3g} (tolerance 1e-5); {len(names)} gradient leaves, "
       f"worst {worst} at {grad_errs[worst]:.3g} of its max |value| "
-      f"(tolerance 1e-4); leaves with an all-zero gradient on the card: "
-      f"{zero or 'none'}")
-  if loss_err > 1e-5 or grad_errs[worst] > 1e-4 or zero:
+      f"(tolerance {grad_tol:g}); leaves with an all-zero gradient on the "
+      f"card: {zero or 'none'}{wkv}")
+  if loss_err > 1e-5 or grad_errs[worst] > grad_tol or zero:
     raise AssertionError("the card and the CPU disagree on training")
   # one AdamW step on each device from the same parameters, moments and
   # gradients (the CPU's): f32 moments, then int8 ones
@@ -3510,7 +3667,7 @@ def phase_train_parity():
               for t in (leaf.values() if isinstance(leaf, dict) else [leaf])]
     same_s = all(torch.equal(a.cpu(), b)
                  for a, b in zip(leaves(sg), leaves(sc)))
-    log(f"[train-parity] one adamw_update, {'int8' if quantize else 'f32'} "
+    log(f"[{tag}] one adamw_update, {'int8' if quantize else 'f32'} "
         f"states, the CPU's gradients on both: global_norm card "
         f"{float(mg['grad_norm']):.9g} vs CPU {float(mc['grad_norm']):.9g} "
         f"({gn_ulps} ulp), lr_at {mg['lr']:.9g} vs {mc['lr']:.9g}; "
@@ -3574,6 +3731,249 @@ def phase_train_resume():
   shutil.rmtree(root, ignore_errors=True)
   if not restored or got_losses != want_losses[half:] or not same_p:
     raise AssertionError("a restart does not resume bit for bit")
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 training: K7's backward, the launcher at full width, the card
+# against the CPU
+# ---------------------------------------------------------------------------
+
+def _k7_bwd_counts(b, t, h, d, elem_bytes, with_state):
+  """Bytes K7's backward must move (r, k, v, w, dO, u read once, s0 and
+  ds_final when given; dr, dk, dv, dw, du and ds0 written once) and its
+  operations: twice the forward's (``_k7_counts``), the usual count of a
+  backward."""
+  n_bytes = (b * t * h * d * (3 * elem_bytes + 4 + 4 + 3 * elem_bytes + 4)
+             + 2 * h * d * 4
+             + b * h * d * d * 4 * (3 if with_state else 1))
+  return n_bytes, 2 * _k7_counts(b, t, h, d, elem_bytes, with_state)[1]
+
+
+def _k7_bwd_inputs(rng, b, t, h, d, dtype, with_state, tiny_w):
+  import numpy as np
+  import torch
+
+  def heads(x):  # the model's (B, T, H * D) projections as (B, H, T, D)
+    return x.view(b, t, h, d).transpose(1, 2)
+  r, k, v = (heads(_randn(rng, (b, t, h * d), dtype) * sc)
+             for sc in (0.5, 0.5, 1.0))
+  w = heads(torch.exp(-torch.exp(
+      2.0 * _randn(rng, (b, t, h * d), torch.float32) - 3.0)))
+  if tiny_w:
+    ws = rng.uniform(1e-30, 0.9999, (b, t, h * d)).astype(np.float32)
+    pick = rng.uniform(size=ws.shape)
+    ws[pick < 0.05] = 1e-30
+    ws[pick > 0.95] = 0.9999
+    w = heads(torch.from_numpy(ws).cuda())
+  u = _randn(rng, (h, d), torch.float32) * 0.3
+  s0 = _randn(rng, (b, h, d, d), torch.float32) * 0.1 if with_state else None
+  # the output's gradient as the model hands it back: a (B, H, T, D) view
+  # of (B, T, H, D) memory
+  dout = heads(_randn(rng, (b, t, h * d), torch.float32))
+  ds = _randn(rng, (b, h, d, d), torch.float32) * 0.1 if with_state else None
+  return r, k, v, w, u, s0, dout, ds
+
+
+def phase_k7_backward():
+  """K7's backward kernel against its plain chunked version
+  (``ref.wkv6_chunked_bwd``) at the training shape and its edges: each
+  gradient's error against its bound, reruns bit-identical, and at the
+  training shape its time as a graph replay, bound, plain time, each
+  kernel's device time from the profiler and ptxas' registers and
+  spills.  Bounds, written before the first run: dr, dk, dv, du and ds0
+  within 1e-4 of each one's largest |value| (K7's forward's bound: f32
+  sums in other orders and the factored decays), plus 2^-8 for the bf16
+  dr, dk and dv (their final rounding); dw, whose d log w sums terms
+  that cancel, within 1e-4 of ``dlogw_scale`` over w."""
+  import numpy as np
+  import torch
+  from repro_torch import _build
+  from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+  from repro_torch.kernels.rwkv6_scan import ops as wkv
+  from wkv_grad_scale import dlogw_scale
+  rng = np.random.RandomState(29)
+  result = None
+  for b, t, h, d, chunk, dt_name, with_state, tiny_w in K7_BWD_CASES:
+    dtype = getattr(torch, dt_name)
+    r, k, v, w, u, s0, dout, ds = _k7_bwd_inputs(rng, b, t, h, d, dtype,
+                                                 with_state, tiny_w)
+    got = wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout, ds, chunk=chunk)
+    again = wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout, ds, chunk=chunk)
+    want = wkv.wkv6_bwd_reference(r, k, v, w, u, s0, dout, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    errs, parts = {}, []
+    for name, x, y in zip(names, got, want):
+      if name == "dw":
+        continue
+      tol = 1e-4 + (2.0 ** -8 if x.dtype == torch.bfloat16 else 0.0)
+      errs[name] = (float((x.float() - y).abs().max()),
+                    float(y.abs().max()), tol)
+    scale = dlogw_scale(r, k, v, u, dout, want[0], want[1], chunk)
+    dw_ratio = float(((got[3] - want[3]).abs() * w / scale).max())
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    tag = (f"B={b} T={t} H={h} D={d} chunk={chunk} {dt_name} r/k/v"
+           + (", s0 and ds_final" if with_state else "")
+           + (", w down to 1e-30" if tiny_w else ""))
+    line = (f"[K7-bwd] {tag}: max |diff| (max |value|, tolerance of it) "
+            + ", ".join(f"{n} {e:.3g} ({m:.3g}, {tl:.3g})"
+                        for n, (e, m, tl) in errs.items())
+            + f"; dw max |diff| w / dlogw_scale {dw_ratio:.3g} (tolerance "
+            f"1e-4); rerun {'bit-identical' if same else 'DIFFERENT'}")
+    if (not finite or not same or dw_ratio > 1e-4
+        or any(e > tl * m for e, m, tl in errs.values())):
+      log(line)
+      raise AssertionError(f"K7's backward fails at {tag}")
+    if (b, t, h, d) != (8, 512, 32, 64):
+      log(line)
+      continue
+    ms = cuda_ms(lambda: wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout, ds,
+                                             chunk=chunk), inner=3)
+    plain_ms = cuda_ms(lambda: wkv.wkv6_bwd_reference(
+        r, k, v, w, u, s0, dout, ds, chunk=chunk), inner=1)
+    fwd_ms = cuda_ms(lambda: wkv_kernel.wkv6(r, k, v, w, u, s0,
+                                             chunk=chunk))
+    n_bytes, n_ops = _k7_bwd_counts(b, t, h, d, r.element_size(),
+                                    with_state)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
+    log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB at 3.35 TB/s, "
+        f"{n_ops / 1e9:.3f} GFLOP at 67 TFLOP/s f32), library: none (no "
+        f"PyTorch call computes the WKV6 recurrence's gradient); the "
+        f"forward K7 at this shape {fwd_ms:.4f} ms")
+    if dtype == torch.bfloat16:
+      _device_profile("K7-bwd", f"one backward, {tag}",
+                      lambda: wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout,
+                                                  ds, chunk=chunk))
+      result = dict(
+          name="wkv6_bwd (K7 backward)", route="cuda",
+          source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+          replaces="src/repro/models/ssm.py:225 (XLA's gradient of the "
+                   "pure-jnp wkv6_chunked; no Pallas kernel has a "
+                   "backward)",
+          on_main_path=True,
+          max_abs_err=max(e for e, _, _ in errs.values()), ms=ms,
+          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          library_note="no single PyTorch call computes the WKV6 "
+                       "recurrence's gradient")
+  for name, report in sorted(_build.ptxas_report("rwkv6_scan").items()):
+    short = re.search(r"wkv6_bwd_kernelI(\w+?)Li(\d+)E", name)
+    if short:
+      elem = "bf16" if "bfloat16" in short.group(1) else "f32"
+      log(f"[K7-bwd] ptxas: wkv6_bwd_kernel<{elem}, {short.group(2)}>: "
+          f"{report.get('registers')} registers a thread, "
+          f"{report.get('spill_bytes')} bytes of spill stores")
+  return {"wkv6_bwd": result}
+
+
+def phase_train_rwkv(smi):
+  """rwkv6 training's main path: ``python -m repro_torch.launch.train
+  --arch rwkv6-1.6b`` at full width (24 layers, bf16 compute, f32 master
+  weights), the launcher's 200 steps of 8 x 512 tokens, run through its
+  ``main(argv)``; then one step's device operations and 5 steps under
+  LightPE-2 QAT."""
+  import shutil
+  import tempfile
+  import torch
+  from repro_torch.launch import train as launch_train
+  from repro_torch.train import train_step as ts_lib
+  (ROOT / "build").mkdir(exist_ok=True)
+  ckpt = tempfile.mkdtemp(prefix="train_rwkv_", dir=ROOT / "build")
+  rows = []
+  real_step = ts_lib.train_step
+  ts_lib.train_step = _timed(real_step, rows)
+  torch.cuda.reset_peak_memory_stats()
+  _reset_kernel_counts()
+  t0 = time.perf_counter()
+  try:
+    trainer = launch_train.main(TRAIN_RWKV_ARGV + ["--ckpt-dir", ckpt])
+  finally:
+    ts_lib.train_step = real_step
+  wall = time.perf_counter() - t0
+  counts = _kernel_counts()
+  peak = torch.cuda.max_memory_allocated()
+  cfg = trainer.model.cfg
+  steps = len(trainer.history)
+  losses = [r["loss"] for r in trainer.history]
+  b, s = int(TRAIN_RWKV_ARGV[5]), int(TRAIN_RWKV_ARGV[7])
+  host = statistics.median(r[0] for r in rows[1:])
+  ev = statistics.median(r[1] for r in rows[1:])
+  tok_s = b * s / (ev / 1e3)
+  n_params = sum(p.numel() for p in trainer.state["params"].parameters())
+  log(f"[train-rwkv] {cfg.name}: {_describe(cfg)}, "
+      f"{n_params:,} parameters (param_count {cfg.param_count():,}), f32 "
+      f"master weights, bf16 compute, remat; {steps} steps of {b} x {s} "
+      f"tokens in {wall:.1f} s (set-up included)")
+  log(f"[train-rwkv] losses {losses[0]:.4f} -> {losses[-1]:.4f}: first 5 "
+      f"{[round(x, 4) for x in losses[:5]]}, last 5 "
+      f"{[round(x, 4) for x in losses[-5:]]}; every 10 steps "
+      f"{[round(x, 3) for x in losses[::10]]}")
+  log(f"[train-rwkv] step (median of steps 2-{steps}): host {host:.2f} ms, "
+      f"events {ev:.2f} ms (first step {rows[0][0]:.1f} ms host); "
+      f"{tok_s:,.1f} tokens/s; model FLOPs "
+      f"{cfg.train_flops_per_token() / 1e9:.3f} GFLOP/token x tokens/s = "
+      f"{cfg.train_flops_per_token() * tok_s / PEAK_BF16_PER_S:.2%} of the "
+      f"bf16 dense peak (989 TFLOP/s); peak memory {peak / 2**30:.2f} GiB "
+      f"({peak / 1e9:.2f} GB); launches {counts}; card: {smi}")
+  want = {"wkv6": 2 * cfg.n_layers * steps, "wkv6_bwd": cfg.n_layers * steps}
+  if any(counts[k] != n for k, n in want.items()) or any(
+      n for k, n in counts.items() if k not in want):
+    raise AssertionError(f"expected K7 launches {want} (the forward and its "
+                         f"recompute, and the backward, a layer a step) and "
+                         f"no other kernel, got {counts}")
+  if not all(x == x and abs(x) < float("inf") for x in losses):
+    raise AssertionError(f"a loss is not finite: {losses}")
+  first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+  uniform = math.log(cfg.vocab_size)
+  log(f"[train-rwkv] mean of the first 5 losses {first:.4f}, of the last 5 "
+      f"{last:.4f} (fell by {first - last:.4f}); the uniform guess ln "
+      f"{cfg.vocab_size} = {uniform:.4f}")
+  if not last < min(first, uniform):
+    raise AssertionError(f"the last 5 losses ({last:.4f}) are not below the "
+                         f"first 5 ({first:.4f}) and the uniform guess "
+                         f"({uniform:.4f})")
+  batch = _train_batch(cfg, b, s, step=1000)
+  zero = _nonzero_grad_leaves(trainer.model, trainer.tcfg,
+                              trainer.state["params"], batch)
+  log(f"[train-rwkv] every one of the "
+      f"{len(list(trainer.state['params'].parameters()))} trainable leaves "
+      "gets a nonzero gradient" if not zero else f"ZERO GRADIENTS: {zero}")
+  if zero:
+    raise AssertionError(f"leaves without a gradient: {zero}")
+  stage = []
+  timed_stage(stage, "step", lambda: trainer.run(1))
+  by_group = {}
+  device_ms = _device_profile("train-rwkv", "one full-width step",
+                              lambda: trainer.run(1), by_group)
+  log(f"[train-rwkv-profile] one step: {stage[0][1]:.2f} ms (host), "
+      f"{stage[0][2]:.2f} ms (events); the card busy "
+      + (f"{device_ms / stage[0][2]:.1%} of it" if device_ms else
+         "not measured")
+      + "; K7 " + (f"{by_group['K7']:.3f} ms" if "K7" in by_group
+                   else "not measured")
+      + ", K7's backward " + (f"{by_group['K7-bwd']:.3f} ms"
+                              if "K7-bwd" in by_group else "not measured")
+      + " of device time")
+  del trainer
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  tcfg = launch_train.recipe(TRAIN_VARIANT_STEPS, "LightPE-2")
+  trainer = launch_train.make_trainer(cfg, tcfg, TRAIN_VARIANT_STEPS, b, s,
+                                      ckpt)
+  hist = trainer.run()
+  qat = [r["loss"] for r in hist]
+  log(f"[train-rwkv] LightPE-2 QAT: {len(hist)} steps, losses "
+      f"{[round(x, 4) for x in qat]}, host ms a step "
+      f"{statistics.median(r['sec'] for r in hist[1:]) * 1e3:.2f} (median of "
+      f"steps 2-{len(hist)}), peak memory "
+      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+  if not all(x == x and abs(x) < float("inf") for x in qat):
+    raise AssertionError(f"LightPE-2 QAT: a loss is not finite: {qat}")
+  del trainer
+  torch.cuda.empty_cache()
+  shutil.rmtree(ckpt, ignore_errors=True)
+  return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3919,6 +4319,7 @@ def main() -> int:
     sys.exit("chip_smoke.py: src/repro_torch is not beside this script; "
              "run it from a checkout of the repository")
   sys.path.insert(0, str(ROOT / "src"))
+  sys.path.insert(0, str(ROOT / "tests"))  # [K7-bwd]'s wkv_grad_scale
   import torch
   if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device is available")
@@ -3952,6 +4353,7 @@ def main() -> int:
   fleet = phase_fleet(layers, sweep, launches)
   phase_store_parity(layers)
   phase_workers(layers, sweep)
+  phase_workers_trace(layers)
   phase_resilience_perf()
   del sweep
   k1 = kernels["block_dominance_counts"]
@@ -3993,6 +4395,14 @@ def main() -> int:
   phase_train_resume()
   log(f"[train-resume] [K6-bwd] through [train-resume]: "
       f"{time.perf_counter() - t_train:.1f} s")
+  t_rwkv = time.perf_counter()
+  kernels.update(phase_k7_backward())
+  rwkv_launches = phase_train_rwkv(smi)
+  launches["wkv6_bwd"] = rwkv_launches["wkv6_bwd"]
+  kernels["wkv6"]["launches_train_rwkv"] = rwkv_launches["wkv6"]
+  phase_train_parity("rwkv6-1.6b", "train-rwkv-parity")
+  log(f"[train-rwkv-parity] [K7-bwd] through [train-rwkv-parity]: "
+      f"{time.perf_counter() - t_rwkv:.1f} s")
   kernels.update(phase_codec_kernels())
   launches.update(phase_codecs())
   phase_codecs_parity()
@@ -4003,7 +4413,9 @@ def main() -> int:
       "run (K1, K2: the sweep; K5, K6: the first serve run; K6's "
       "backward: the [train] run, where K6 launched "
       f"{kernels['flash_attention']['launches_train']} times; K7: the first "
-      "serve-rwkv run; K3, K4: the codecs run); on the co-exploration "
+      "serve-rwkv run; K7's backward: the [train-rwkv] run, where K7 "
+      f"launched {kernels['wkv6']['launches_train_rwkv']} times; K3, K4: "
+      "the codecs run); on the co-exploration "
       f"path K1 launched {co_parity['k1_launches']} times in "
       f"[coexplore-parity] ({co_parity['n_chunks']} blocks), no kernel in "
       "[coexplore] (its joint front projects top1_err out: a staircase); "

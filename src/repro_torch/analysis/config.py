@@ -82,6 +82,19 @@ DEVICE_PROGRAM_BUILDERS = {
 # Annotations that make a function array context on their own.
 TENSOR_ANNOTATIONS = frozenset({("torch", "Tensor"), ("Tensor",)})
 
+# Calls whose value is a tensor wherever they stand, so that arithmetic
+# and methods on it are array context even in an unannotated host
+# function: torch's constructors, the host-to-device copy and ``.to``.
+TENSOR_CONSTRUCTORS = frozenset({
+    "tensor", "as_tensor", "from_numpy", "scalar_tensor", "zeros", "ones",
+    "empty", "full", "arange", "linspace", "logspace", "eye", "zeros_like",
+    "ones_like", "empty_like", "full_like", "stack", "cat", "where",
+})
+TENSOR_TRANSFERS = frozenset({"h2d"})
+TENSOR_CASTS = frozenset({"to"})
+# methods of a tensor whose value is a host number, list or array
+HOST_VALUE_METHODS = frozenset({"item", "tolist", "numpy"})
+
 # Host modules whose functions are the libm / numpy reference itself.
 HOST_MODULES = frozenset({"np", "numpy", "math", "cmath", "struct"})
 

@@ -11,7 +11,11 @@ its "traced" code is named by convention instead:
   * **array context**: the device programs, every function reached from
     ``config.ARRAY_ROOTS`` (``oracle.characterize_batch`` and
     ``characterize_joint_dedup``), and any function that annotates a
-    parameter or its return as ``torch.Tensor``.
+    parameter or its return as ``torch.Tensor``; and, in any other
+    function, the expressions on a value that comes from a torch
+    constructor (``torch.zeros``, ``torch.from_numpy``, ...), from
+    ``h2d`` or from ``.to(...)``, followed through the function's
+    assignments in source order (``config.TENSOR_CONSTRUCTORS``).
 
 Reachability follows plain calls across the scanned tree to fixpoint: a
 ``Name`` call to a function of the same module or one imported from the
@@ -215,6 +219,75 @@ def array_context_functions(mod: Module, ctx: Context) -> Set[ast.AST]:
           and (fn in reached or annotated_as_tensor(fn))}
 
 
+def _is_source(node: ast.AST) -> bool:
+  """A call whose value is a tensor wherever it stands."""
+  if not isinstance(node, ast.Call):
+    return False
+  chain = attr_chain(node.func)
+  if len(chain) == 2 and chain[0] == "torch" \
+      and chain[1] in config.TENSOR_CONSTRUCTORS:
+    return True
+  if chain and chain[-1] in config.TENSOR_TRANSFERS:
+    return True
+  return isinstance(node.func, ast.Attribute) \
+      and node.func.attr in config.TENSOR_CASTS
+
+
+def _tensor_valued(node: ast.AST, names: Set[str]) -> bool:
+  """Whether ``node`` evaluates to a tensor, given the local ``names``
+  known to hold one."""
+  if isinstance(node, ast.Name):
+    return node.id in names
+  if _is_source(node):
+    return True
+  if isinstance(node, ast.BinOp):
+    return _tensor_valued(node.left, names) \
+        or _tensor_valued(node.right, names)
+  if isinstance(node, ast.UnaryOp):
+    return _tensor_valued(node.operand, names)
+  if isinstance(node, ast.Subscript):
+    return _tensor_valued(node.value, names)
+  if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+    chain = attr_chain(node.func)
+    if chain and chain[0] == "torch":
+      return any(_tensor_valued(a, names) for a in node.args)
+    return node.func.attr not in config.HOST_VALUE_METHODS \
+        and _tensor_valued(node.func.value, names)
+  return False
+
+
+def _assigned_names(target: ast.AST) -> Iterator[str]:
+  if isinstance(target, ast.Name):
+    yield target.id
+  elif isinstance(target, (ast.Tuple, ast.List)):
+    for t in target.elts:
+      yield from _assigned_names(t)
+
+
+def tensor_value_nodes(fn: ast.AST) -> Set[ast.AST]:
+  """The arithmetic, in-place arithmetic and method calls of ``fn`` on a
+  tensor-valued expression: a torch constructor's, ``h2d``'s or ``.to``'s
+  value, or a local name assigned one (followed in source order, twice
+  round for loops)."""
+  assigns = sorted((n for n in ast.walk(fn)
+                    if isinstance(n, (ast.Assign, ast.AnnAssign,
+                                      ast.AugAssign))
+                    and n.value is not None),
+                   key=lambda n: (n.lineno, n.col_offset))
+  names: Set[str] = set()
+  for _ in range(2):
+    for a in assigns:
+      if _tensor_valued(a.value, names):
+        for t in (a.targets if isinstance(a, ast.Assign) else [a.target]):
+          names.update(_assigned_names(t))
+  return {n for n in ast.walk(fn)
+          if (isinstance(n, (ast.BinOp, ast.Call))
+              and _tensor_valued(n, names)
+              and not (isinstance(n, ast.Call) and _is_source(n)))
+          or (isinstance(n, ast.AugAssign)
+              and _tensor_valued(n.target, names))}
+
+
 def nodes_of(fns: Iterable[ast.AST]) -> Set[ast.AST]:
   """Every AST node inside the given functions."""
   nodes: Set[ast.AST] = set()
@@ -224,10 +297,17 @@ def nodes_of(fns: Iterable[ast.AST]) -> Set[ast.AST]:
 
 
 def array_context_nodes(mod: Module, ctx: Context) -> Set[ast.AST]:
+  """Every node of the array-context functions of ``mod``, and the
+  expressions on tensor values in its other functions."""
   key = ("array_context_nodes", mod.rel)
   got = ctx.cache.get(key)
   if got is None:
-    got = ctx.cache[key] = nodes_of(array_context_functions(mod, ctx))
+    fns = array_context_functions(mod, ctx)
+    got = nodes_of(fns)
+    for fn in ast.walk(mod.tree):
+      if isinstance(fn, FUNCTION_DEFS) and fn not in fns:
+        got |= tensor_value_nodes(fn)
+    ctx.cache[key] = got
   return got
 
 

@@ -737,6 +737,545 @@ int dispatch_d(const Params& p, int64_t bh, int64_t d, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7's backward, wkv6_backward.  It replaces no TPU kernel: the reference
+// trains through XLA's gradient of the pure-jnp wkv6_chunked
+// (repro/models/ssm.py).  Per (batch, head), with dO the output's gradient
+// and dS the carried state gradient (from ds_final, zero when null), a
+// reverse sweep over the chunks computes, per chunk (lp = la_prev, lam =
+// la of its last row, S its incoming state, kd = k e^(lam - la), M_tj =
+// sum_d r_td k_jd e^(lp_td - la_jd) and dM_tj = dO_t . v_j for j < t, rd_t
+// = r_t . (u k_t), drd_t = dO_t . v_t):
+//
+//   dv    = M^T dO + rd dO + kd dS^T
+//   dr    = e^lp (dO S^T) + (dM * decay) k + drd u k
+//   dk    = (dM * decay)^T r + e^(lam - la) (V dS^T) + drd u r
+//   du   += sum_t drd_t r_t k_t
+//   dS_in = e^lam dS + (r e^lp)^T dO
+//
+// and the decay's gradient without another pass over the (t, j) plane:
+// d lp = r (dr - drd u k), d la = -k (dk - drd u r), d lam = e^lam
+// rowsum(S dS) + sum_j kd_j (V dS^T)_j, d log w_s = sum_{t >= s} d la_t +
+// sum_{t > s} d lp_t + d lam (a reverse cumsum down each channel), dw = d
+// log w / w above the floor 1e-30, half of it at the floor (the gradient
+// of jnp.maximum), none below.  ref.py's wkv6_chunked_bwd is the same
+// algorithm in plain torch.
+//
+// Design (a first, simple one): one block of 256 threads per (batch,
+// head).  A forward pass from s0 writes each chunk's incoming state S to a
+// scratch buffer (nc x D x D float32 a head; the forward kernel's serving
+// call and bits stay as they are), then the reverse sweep runs with dS in
+// shared memory.  Every chunk is padded to 64 rows of identity tokens (w =
+// 1, r = k = v = dO = 0), so the (t, j) plane is always 64 x 64 and cut
+// into 4 x 4 blocks of 16-row sub-chunks.  A block below the diagonal
+// factors its decays as the forward kernel does, e^(lp_t - la_j) =
+// e^(lp_t - E_{I-1}) e^(E_{I-1} - E_J) e^(E_J - la_j) with E_J the la of
+// sub-chunk J's last row, three factors <= 1: r~ = r e^(lp - E_{I-1}) and
+// k~ = k e^(E_J - la) are kept as tiles and the middle factor in a table;
+// the diagonal blocks take one exp per (t, j < t, d).  Every exponent is
+// <= 0.  The products are f32 FMAs on the CUDA cores (no tensor cores, no
+// cluster split yet), each thread holding a 4 x (D / 16) register tile of
+// the (row, channel) outputs; every sum has a fixed order and nothing is
+// atomic, so reruns give the same bits, and du is written per (batch,
+// head) for the wrapper to sum over the batch in order.
+//
+// Bound on an H100 SXM at the training shape (B = 8, H = 32, T = 512, D =
+// 64, bf16 r/k/v): the function reads r, k, v, w, dO and writes dr, dk,
+// dv, dw (PERF.md has the bytes and operations, chip_smoke.py computes
+// them); the design above is bound by shared-memory traffic and latency
+// (256 blocks of one 190 KB block an SM: two waves on 132 SMs), not by the
+// card's rates.
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = kMaxChunk;        // a chunk's rows, padded
+constexpr int kPart = 16;               // rows of a sub-chunk
+constexpr int kParts = kRows / kPart;   // sub-chunks of a chunk
+constexpr float kWFloor = 1e-30f;
+
+struct BwdParams {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* w;
+  const float* u;
+  const float* s0;
+  const float* dout;
+  const float* ds_final;
+  void* dr;
+  void* dk;
+  void* dv;
+  float* dw;
+  float* du;      // (b * h, d): per (batch, head)
+  float* ds0;
+  float* states;  // (b * h, chunks, d, d) scratch
+  int64_t h, t;
+  int64_t r_sb, r_sh, r_st;
+  int64_t k_sb, k_sh, k_st;
+  int64_t v_sb, v_sh, v_st;
+  int64_t w_sb, w_sh, w_st;
+  int64_t o_sb, o_sh, o_st;   // dout
+  int64_t g_sb, g_sh, g_st;   // dr, dk, dv and dw
+  int chunk;
+};
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Float offsets of the backward's shared memory.
+template <int D>
+struct BwdLayout {
+  static constexpr int LD = D + 1;       // pitch of a (row, channel) tile
+  static constexpr int LP = kRows + 1;   // pitch of a (t, j) plane
+  static constexpr int kTile = kRows * LD;
+  static constexpr int R = 0, K = R + kTile, V = K + kTile, DO = V + kTile;
+  static constexpr int LA = DO + kTile;  // log w, then its cumsum
+  static constexpr int RT = LA + kTile;  // r~, then d la
+  static constexpr int KT = RT + kTile;  // k~, then d lp
+  static constexpr int PM = KT + kTile;  // M, then k * (dk's state part)
+  static constexpr int PDM = PM + kRows * LP;          // dM
+  static constexpr int S = PDM + kRows * LP;           // D x LD
+  static constexpr int DS = S + D * LD;                // D x LD
+  static constexpr int G = DS + D * LD;                // [I][J][D], J < I
+  static constexpr int EE = G + kParts * kParts * D;   // [I][D]: e^E_{I-1}
+  static constexpr int EL = EE + kParts * D;           // [J][D]: e^(lam-E_J)
+  static constexpr int RD = EL + kParts * D;           // kRows
+  static constexpr int DRD = RD + kRows;               // kRows
+  static constexpr int kFloats = DRD + kRows;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) wkv6_bwd_kernel(BwdParams p) {
+  using L = BwdLayout<D>;
+  constexpr int LD = L::LD, LP = L::LP, ND = D / 16;
+  extern __shared__ __align__(16) float sm[];
+  float* R = sm + L::R;
+  float* K = sm + L::K;
+  float* V = sm + L::V;
+  float* DO = sm + L::DO;
+  float* LA = sm + L::LA;
+  float* RT = sm + L::RT;
+  float* KT = sm + L::KT;
+  float* PM = sm + L::PM;
+  float* PDM = sm + L::PDM;
+  float* S = sm + L::S;
+  float* DS = sm + L::DS;
+  float* G = sm + L::G;
+  float* EE = sm + L::EE;
+  float* EL = sm + L::EL;
+  float* RD = sm + L::RD;
+  float* DRD = sm + L::DRD;
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / p.h, head = bh % p.h;
+  const int C = p.chunk;
+  const int64_t nc = (p.t + C - 1) / C;
+  const T* rg = static_cast<const T*>(p.r) + b * p.r_sb + head * p.r_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + head * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + head * p.v_sh;
+  const float* wg = p.w + b * p.w_sb + head * p.w_sh;
+  const float* dog = p.dout + b * p.o_sb + head * p.o_sh;
+  const float* ug = p.u + head * D;
+  const int64_t g0 = b * p.g_sb + head * p.g_sh;
+  float* states = p.states + bh * nc * D * D;
+
+  // chunk c's rows of a (B, H, T, D) input as a 64-row f32 tile, the rows
+  // past the chunk or past T as zeros
+  auto load = [&](float* dst, auto src, int64_t st, int64_t c) {
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int t = i / D, d = i % D;
+      const int64_t pos = c * C + t;
+      dst[t * LD + d] = t < C && pos < p.t ? to_f32(src[pos * st + d]) : 0.f;
+    }
+  };
+  // LA = cumsum of log max(w, 1e-30) down each channel (the rows past the
+  // chunk or T are w = 1, log 0)
+  auto load_la = [&](int64_t c) {
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int t = i / D, d = i % D;
+      const int64_t pos = c * C + t;
+      LA[t * LD + d] = t < C && pos < p.t
+          ? logf(fmaxf(wg[pos * p.w_st + d], kWFloor)) : 0.f;
+    }
+    __syncthreads();
+    if (tid < D) {
+      float run = 0.f;
+      for (int t = 0; t < kRows; ++t) {
+        run += LA[t * LD + tid];
+        LA[t * LD + tid] = run;
+      }
+    }
+    __syncthreads();
+  };
+  const float* lam = LA + (kRows - 1) * LD;
+
+  // ---- forward: each chunk's incoming state to the scratch buffer
+  for (int i = tid; i < D * D; i += kThreads)
+    S[(i / D) * LD + i % D] = p.s0 ? p.s0[bh * D * D + i] : 0.f;
+  for (int64_t c = 0; c < nc; ++c) {
+    __syncthreads();
+    for (int i = tid; i < D * D; i += kThreads)
+      states[c * D * D + i] = S[(i / D) * LD + i % D];
+    if (c + 1 == nc) break;
+    load(K, kg, p.k_st, c);
+    load(V, vg, p.v_st, c);
+    load_la(c);
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int t = i / D, d = i % D;
+      KT[t * LD + d] = K[t * LD + d] * __expf(lam[d] - LA[t * LD + d]);
+    }
+    __syncthreads();
+    float acc[ND][ND];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const float dl = __expf(lam[ty + 16 * i]);
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        acc[i][j] = dl * S[(ty + 16 * i) * LD + tx + 16 * j];
+    }
+    for (int t = 0; t < kRows; ++t) {
+      float kd[ND], vv[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        kd[i] = KT[t * LD + ty + 16 * i];
+        vv[i] = V[t * LD + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(kd[i], vv[j], acc[i][j]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        S[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
+  }
+
+  // ---- the reverse sweep
+  for (int i = tid; i < D * D; i += kThreads)
+    DS[(i / D) * LD + i % D] = p.ds_final ? p.ds_final[bh * D * D + i] : 0.f;
+  float du_acc = 0.f;  // threads < D: channel tid
+  for (int64_t c = nc - 1; c >= 0; --c) {
+    __syncthreads();
+    load(R, rg, p.r_st, c);
+    load(K, kg, p.k_st, c);
+    load(V, vg, p.v_st, c);
+    load(DO, dog, p.o_st, c);
+    for (int i = tid; i < D * D; i += kThreads)
+      S[(i / D) * LD + i % D] = states[c * D * D + i];
+    load_la(c);
+
+    // the tables of the factored decays, r~ and k~, rd
+    if (tid < D) {
+      const int d = tid;
+      float e[kParts];
+#pragma unroll
+      for (int q = 0; q < kParts; ++q) e[q] = LA[(kPart * q + kPart - 1) * LD + d];
+#pragma unroll
+      for (int q = 0; q < kParts; ++q) {
+        const float prev = q ? e[q > 0 ? q - 1 : 0] : 0.f;
+        EE[q * D + d] = __expf(prev);
+        EL[q * D + d] = __expf(lam[d] - e[q]);
+#pragma unroll
+        for (int j = 0; j < q; ++j)
+          G[(q * kParts + j) * D + d] = __expf(prev - e[j]);
+      }
+    } else if (tid >= kThreads - kRows) {
+      const int t = tid - (kThreads - kRows);
+      float s = 0.f;
+      for (int d = 0; d < D; ++d)
+        s = fmaf(R[t * LD + d] * ug[d], K[t * LD + d], s);
+      RD[t] = s;
+    }
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int t = i / D, d = i % D, q = t / kPart;
+      const float lp = t ? LA[(t - 1) * LD + d] : 0.f;
+      const float e_prev = q ? LA[(kPart * q - 1) * LD + d] : 0.f;
+      const float e_end = LA[(kPart * q + kPart - 1) * LD + d];
+      RT[t * LD + d] = R[t * LD + d] * __expf(lp - e_prev);
+      KT[t * LD + d] = K[t * LD + d] * __expf(e_end - LA[t * LD + d]);
+    }
+    __syncthreads();
+
+    // the (t, j) plane: dM and drd from dO V^T, and M; thread (ty, tx)
+    // holds (t, j) = (ty + 16 i, tx + 16 jj), so block (i, jj) of the plane
+    {
+      float gacc[kParts][kParts], macc[kParts][kParts];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+#pragma unroll
+        for (int j = 0; j < kParts; ++j) gacc[i][j] = macc[i][j] = 0.f;
+      for (int e = 0; e < D; ++e) {
+        float dov[kParts], vv[kParts];
+#pragma unroll
+        for (int i = 0; i < kParts; ++i) {
+          dov[i] = DO[(ty + 16 * i) * LD + e];
+          vv[i] = V[(tx + 16 * i) * LD + e];
+        }
+#pragma unroll
+        for (int i = 0; i < kParts; ++i)
+#pragma unroll
+          for (int j = 0; j < kParts; ++j)
+            gacc[i][j] = fmaf(dov[i], vv[j], gacc[i][j]);
+      }
+      for (int d = 0; d < D; ++d) {
+        float rt[kParts], kt[kParts];
+#pragma unroll
+        for (int i = 0; i < kParts; ++i) {
+          rt[i] = RT[(ty + 16 * i) * LD + d];
+          kt[i] = KT[(tx + 16 * i) * LD + d];
+        }
+#pragma unroll
+        for (int i = 1; i < kParts; ++i)
+#pragma unroll
+          for (int j = 0; j < i; ++j)
+            macc[i][j] = fmaf(rt[i], kt[j] * G[(i * kParts + j) * D + d],
+                              macc[i][j]);
+        if (ty > tx) {
+#pragma unroll
+          for (int i = 0; i < kParts; ++i) {
+            const int t = ty + 16 * i, j = tx + 16 * i;
+            macc[i][i] = fmaf(R[t * LD + d] * K[j * LD + d],
+                              __expf(LA[(t - 1) * LD + d] - LA[j * LD + d]),
+                              macc[i][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+#pragma unroll
+        for (int j = 0; j < kParts; ++j) {
+          const int t = ty + 16 * i, jj = tx + 16 * j;
+          PDM[t * LP + jj] = jj < t ? gacc[i][j] : 0.f;
+          PM[t * LP + jj] = jj < t ? macc[i][j] : 0.f;
+          if (jj == t) DRD[t] = gacc[i][j];
+        }
+    }
+    __syncthreads();
+
+    // (row, channel) outputs: thread (ty, tx) holds rows ty + 16 i (of
+    // sub-chunk i) and channels tx + 16 jj
+    float dv[kParts][ND], drn[kParts][ND], dkn[kParts][ND], kx[kParts][ND];
+#pragma unroll
+    for (int i = 0; i < kParts; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j) dv[i][j] = drn[i][j] = dkn[i][j] = 0.f;
+    // dv = M^T dO + kd dS^T
+    for (int s = 0; s < kRows; ++s) {
+      float pm[kParts], dov[ND];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i) pm[i] = PM[s * LP + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) dov[j] = DO[s * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) dv[i][j] = fmaf(pm[i], dov[j], dv[i][j]);
+    }
+    for (int d = 0; d < D; ++d) {
+      float kd[kParts], ds[ND];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+        kd[i] = KT[(ty + 16 * i) * LD + d] * EL[i * D + d];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) ds[j] = DS[d * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) dv[i][j] = fmaf(kd[i], ds[j], dv[i][j]);
+    }
+    // state parts: Y = dO S^T into drn, X = V dS^T into dkn
+    for (int e = 0; e < D; ++e) {
+      float dov[kParts], vv[kParts], sv[ND], dsv[ND];
+#pragma unroll
+      for (int i = 0; i < kParts; ++i) {
+        dov[i] = DO[(ty + 16 * i) * LD + e];
+        vv[i] = V[(ty + 16 * i) * LD + e];
+      }
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        sv[j] = S[(tx + 16 * j) * LD + e];
+        dsv[j] = DS[(tx + 16 * j) * LD + e];
+      }
+#pragma unroll
+      for (int i = 0; i < kParts; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          drn[i][j] = fmaf(dov[i], sv[j], drn[i][j]);
+          dkn[i][j] = fmaf(vv[i], dsv[j], dkn[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kParts; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int t = ty + 16 * i, d = tx + 16 * j;
+        const float la = LA[t * LD + d];
+        drn[i][j] *= __expf((t ? LA[(t - 1) * LD + d] : 0.f));
+        dkn[i][j] *= __expf(lam[d] - la);
+        kx[i][j] = K[t * LD + d] * dkn[i][j];
+      }
+    // the intra-chunk parts through the plane's blocks: below the diagonal
+    // by the factored decays, on it one exp per (t, j < t, d)
+#pragma unroll
+    for (int i = 0; i < kParts; ++i) {
+      const int t = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = tx + 16 * j;
+        const float lp = t ? LA[(t - 1) * LD + d] : 0.f;
+        const float lt = LA[t * LD + d];
+        // dr: rows of sub-chunk i against the columns of sub-chunks q < i
+        float acc = 0.f;
+        for (int q = 0; q < i; ++q) {
+          float part = 0.f;
+          for (int jr = kPart * q; jr < kPart * q + kPart; ++jr)
+            part = fmaf(PDM[t * LP + jr], KT[jr * LD + d], part);
+          acc = fmaf(G[(i * kParts + q) * D + d], part, acc);
+        }
+        if (i) acc *= __expf(lp - LA[(kPart * i - 1) * LD + d]);
+        for (int jr = kPart * i; jr < t; ++jr)
+          acc = fmaf(PDM[t * LP + jr] * K[jr * LD + d],
+                     __expf(lp - LA[jr * LD + d]), acc);
+        drn[i][j] += acc;
+        // dk: column t (as j) of sub-chunk i against the rows of q > i
+        acc = 0.f;
+        for (int q = i + 1; q < kParts; ++q) {
+          float part = 0.f;
+          for (int tr = kPart * q; tr < kPart * q + kPart; ++tr)
+            part = fmaf(PDM[tr * LP + t], RT[tr * LD + d], part);
+          acc = fmaf(G[(q * kParts + i) * D + d], part, acc);
+        }
+        acc *= __expf(LA[(kPart * i + kPart - 1) * LD + d] - lt);
+        for (int tr = t + 1; tr < kPart * i + kPart; ++tr)
+          acc = fmaf(PDM[tr * LP + t] * R[tr * LD + d],
+                     __expf(LA[(tr - 1) * LD + d] - lt), acc);
+        dkn[i][j] += acc;
+      }
+    }
+    // the outputs of the chunk's rows, with the bonus terms
+#pragma unroll
+    for (int i = 0; i < kParts; ++i) {
+      const int t = ty + 16 * i;
+      const int64_t pos = c * C + t;
+      const bool out = t < C && pos < p.t;
+      const int64_t at = g0 + pos * p.g_st;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = tx + 16 * j;
+        const float rv = R[t * LD + d], kv = K[t * LD + d];
+        const float bon = DRD[t] * ug[d];
+        if (out) {
+          store(static_cast<T*>(p.dr) + at + d, fmaf(bon, kv, drn[i][j]));
+          store(static_cast<T*>(p.dk) + at + d, fmaf(bon, rv, dkn[i][j]));
+          store(static_cast<T*>(p.dv) + at + d,
+                fmaf(RD[t], DO[t * LD + d], dv[i][j]));
+        }
+      }
+    }
+    // dS_in = e^lam dS + (r e^lp)^T dO, r e^lp = r~ e^E_{I-1} (after the
+    // stores, so that dv's registers are free)
+    float dsn[ND][ND];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const float dl = __expf(lam[ty + 16 * i]);
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        dsn[i][j] = dl * DS[(ty + 16 * i) * LD + tx + 16 * j];
+    }
+    for (int t = 0; t < kRows; ++t) {
+      float rq[ND], dov[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        const int d = ty + 16 * i;
+        rq[i] = RT[t * LD + d] * EE[(t / kPart) * D + d];
+        dov[i] = DO[t * LD + tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+#pragma unroll
+        for (int j = 0; j < ND; ++j) dsn[i][j] = fmaf(rq[i], dov[j], dsn[i][j]);
+    }
+    // du and d lam's first term, channel tid
+    float dlam = 0.f;
+    if (tid < D) {
+      const int d = tid;
+      for (int t = 0; t < kRows; ++t)
+        du_acc = fmaf(DRD[t] * R[t * LD + d], K[t * LD + d], du_acc);
+      for (int e = 0; e < D; ++e)
+        dlam = fmaf(S[d * LD + e], DS[d * LD + e], dlam);
+      dlam *= __expf(lam[d]);
+    }
+    __syncthreads();  // every read of the tiles, the planes and dS is done
+    float* Q = RT;   // d la
+    float* P = KT;   // d lp
+    float* KX = PM;  // k * (dk's state part), pitch LD
+#pragma unroll
+    for (int i = 0; i < kParts; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int at = (ty + 16 * i) * LD + tx + 16 * j;
+        P[at] = R[at] * drn[i][j];
+        Q[at] = -K[at] * dkn[i][j];
+        KX[at] = kx[i][j];
+      }
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        DS[(ty + 16 * i) * LD + tx + 16 * j] = dsn[i][j];
+    __syncthreads();
+    // d log w by a reverse cumsum down channel tid, then dw
+    if (tid < D) {
+      const int d = tid;
+      for (int t = 0; t < kRows; ++t) dlam += KX[t * LD + d];
+      float aq = 0.f, ap = 0.f;
+      for (int t = kRows - 1; t >= 0; --t) {
+        aq += Q[t * LD + d];
+        const float g = dlam + aq + ap;
+        ap += P[t * LD + d];
+        const int64_t pos = c * C + t;
+        if (t < C && pos < p.t) {
+          const float wv = wg[pos * p.w_st + d];
+          p.dw[g0 + pos * p.g_st + d] =
+              wv > kWFloor ? g / wv : (wv == kWFloor ? 0.5f * g / wv : 0.f);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < D) p.du[bh * D + tid] = du_acc;
+  for (int i = tid; i < D * D; i += kThreads)
+    p.ds0[bh * D * D + i] = DS[(i / D) * LD + i % D];
+}
+
+template <typename T, int D>
+int launch_bwd(const BwdParams& p, int64_t bh, cudaStream_t stream) {
+  constexpr size_t smem = BwdLayout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wkv6_bwd_kernel<T, D><<<static_cast<unsigned>(bh), kThreads, smem,
+                          stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const BwdParams& p, int64_t bh, int64_t d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_bwd<T, 16>(p, bh, s);
+    case 32: return launch_bwd<T, 32>(p, bh, s);
+    case 64: return launch_bwd<T, 64>(p, bh, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -764,6 +1303,37 @@ int wkv6_forward(const void* r, const void* k, const void* v, const float* w,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_d<__nv_bfloat16>(p, b * h, d, st)
                  : dispatch_d<float>(p, b * h, d, st);
+}
+
+// K7's backward.  r/k/v/w as wkv6_forward takes them, dout (b, h, t, d)
+// float32 through its strides, ds_final (b, h, d, d) float32 contiguous or
+// null (zero); dr/dk/dv (r's type) and dw (float32) written through the
+// strides g_* (the same for all four); du_part (b, h, d) and ds0 (b, h,
+// d, d) float32 contiguous; states a float32 scratch of b * h *
+// ceil(t / chunk) * d * d.  d in {16, 32, 64}, 1 <= chunk <= 64.
+int wkv6_backward(const void* r, const void* k, const void* v,
+                  const float* w, const float* u, const float* s0,
+                  const float* dout, const float* ds_final, void* dr,
+                  void* dk, void* dv, float* dw, float* du_part, float* ds0,
+                  float* states, int64_t b, int64_t h, int64_t t, int64_t d,
+                  int64_t chunk,
+                  int64_t r_sb, int64_t r_sh, int64_t r_st,
+                  int64_t k_sb, int64_t k_sh, int64_t k_st,
+                  int64_t v_sb, int64_t v_sh, int64_t v_st,
+                  int64_t w_sb, int64_t w_sh, int64_t w_st,
+                  int64_t o_sb, int64_t o_sh, int64_t o_st,
+                  int64_t g_sb, int64_t g_sh, int64_t g_st,
+                  int is_bf16, void* stream) {
+  if (chunk < 1 || chunk > kMaxChunk || t < 0) return cudaErrorInvalidValue;
+  if (b == 0 || h == 0) return cudaSuccess;
+  const BwdParams p{r, k, v, w, u, s0, dout, ds_final, dr, dk, dv, dw,
+                    du_part, ds0, states, h, t,
+                    r_sb, r_sh, r_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+                    w_sb, w_sh, w_st, o_sb, o_sh, o_st, g_sb, g_sh, g_st,
+                    static_cast<int>(chunk)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? dispatch_bwd<__nv_bfloat16>(p, b * h, d, st)
+                 : dispatch_bwd<float>(p, b * h, d, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Launch wrapper for the CUDA chunked WKV6 kernel (``csrc/rwkv6_scan.cu``,
-built and loaded through ``ctypes``).
+"""Launch wrappers for the CUDA chunked WKV6 kernel and its backward
+(``csrc/rwkv6_scan.cu``, built and loaded through ``ctypes``).
 
 The wrapper takes r/k/v (B, H, T, D) float32 or bf16 and w (B, H, T, D)
 float32 in any strides whose last dim is contiguous (the model passes
@@ -8,7 +8,10 @@ s0 (B, H, D, D), float32 and contiguous, all on one CUDA device.  It
 allocates the float32 outputs, launches on the current stream and raises
 if the launch was refused.  The output is written in (B, T, H, D) memory
 order and returned as its (B, H, T, D) view, so the model's move back to
-(B, T, H, D) is free.  ``LAUNCHES`` counts its launches.
+(B, T, H, D) is free.  ``wkv6_bwd`` takes the same inputs and the
+output's float32 gradient (any strides with a contiguous last dim) and
+returns the gradients, dr/dk/dv/dw laid out as the output.  ``LAUNCHES``
+counts the launches of each.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 64
 DTYPES = (torch.float32, torch.bfloat16)
 
-LAUNCHES: Dict[str, int] = {"wkv6": 0}
+LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -38,6 +41,8 @@ def _lib() -> ctypes.CDLL:
   p, i64 = ctypes.c_void_p, ctypes.c_int64
   lib.wkv6_forward.argtypes = [p] * 8 + [i64] * 20 + [ctypes.c_int, p]
   lib.wkv6_forward.restype = ctypes.c_int
+  lib.wkv6_backward.argtypes = [p] * 15 + [i64] * 23 + [ctypes.c_int, p]
+  lib.wkv6_backward.restype = ctypes.c_int
   return lib
 
 
@@ -105,3 +110,62 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {status}")
   LAUNCHES["wkv6"] += 1
   return out.permute(0, 2, 1, 3), s_out
+
+
+def check_grad_inputs(r: torch.Tensor, dout: torch.Tensor,
+                      ds_final: Optional[torch.Tensor]) -> None:
+  """Raise ValueError on an output gradient the backward does not take."""
+  b, h, _, d = r.shape
+  if dout.device != r.device or dout.dtype != torch.float32:
+    raise ValueError(f"dout: expected float32 on {r.device}, got "
+                     f"{dout.dtype} on {dout.device}")
+  if dout.shape != r.shape or dout.stride(-1) != 1:
+    raise ValueError(f"dout: expected shape {tuple(r.shape)} with a "
+                     f"contiguous last dim, got {tuple(dout.shape)} strides "
+                     f"{dout.stride()}")
+  if ds_final is not None and (
+      ds_final.device != r.device or ds_final.dtype != torch.float32
+      or tuple(ds_final.shape) != (b, h, d, d)
+      or not ds_final.is_contiguous()):
+    raise ValueError(f"ds_final: expected contiguous float32 of shape "
+                     f"{(b, h, d, d)} on {r.device}")
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+             dout: torch.Tensor, ds_final: Optional[torch.Tensor] = None,
+             chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+  """K7's backward: the gradients (dr, dk, dv in r's dtype, dw float32,
+  all (B, H, T, D) views of (B, T, H, D) memory; du (H, D) float32; ds0
+  (B, H, D, D) float32) of ``wkv6``'s output and final state, given their
+  gradients ``dout`` (float32) and ``ds_final`` (None is zero).  s0 None is
+  a zero state.  Reruns give the same bits: the kernel writes du per
+  (batch, head) and the batch is summed here in order."""
+  check_inputs(r, k, v, w, u, s0, chunk)
+  check_grad_inputs(r, dout, ds_final)
+  b, h, t, d = r.shape
+  dev = r.device
+  grads = [torch.empty((b, t, h, d), dtype=dt, device=dev)
+           for dt in (r.dtype, r.dtype, r.dtype, torch.float32)]
+  du = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+  ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+  states = torch.empty((b * h * -(-t // int(chunk)) * d * d,),
+                       dtype=torch.float32, device=dev)
+  g = grads[0]
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream().cuda_stream
+    status = _lib().wkv6_backward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(),
+        dout.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
+        *(x.data_ptr() for x in grads), du.data_ptr(), ds0.data_ptr(),
+        states.data_ptr(), b, h, t, d, int(chunk),
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+        *dout.stride()[:3], g.stride(0), g.stride(2), g.stride(1),
+        int(r.dtype == torch.bfloat16), stream)
+  if status != 0:
+    raise RuntimeError(f"wkv6 backward kernel launch failed: CUDA error "
+                       f"{status}")
+  LAUNCHES["wkv6_bwd"] += 1
+  dr, dk, dv, dw = (x.permute(0, 2, 1, 3) for x in grads)
+  return dr, dk, dv, dw, du.sum(dim=0), ds0

@@ -7,9 +7,11 @@ cosine decay over ``--steps``, on ``MarkovTokenStream`` batches
   PYTHONPATH=src python -m repro_torch.launch.train --steps 200
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
       --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b
 
-``--arch`` defaults to qwen3-0.6b, the architecture the port trains (the
-reference's default, olmo-1b, comes with slice 8).  ``--device`` defaults
+``--arch`` defaults to qwen3-0.6b; rwkv6-1.6b trains too (through K7 and
+its backward; ``--smoke`` gives it heads of 16, a size K7 takes).  The
+reference's default, olmo-1b, comes with slice 8.  ``--device`` defaults
 to ``cuda`` and the launcher raises without a card.  The port trains on
 one device: ``--model-parallel`` above 1, ``--production-mesh`` and
 ``--profile fsdp`` raise, naming slice 7d.  The run resumes from the

@@ -14,8 +14,8 @@ A Model lives on one device: CUDA unless the caller passes
 Prefill and decode run eagerly under ``torch.inference_mode()``.
 ``param_dtype`` ("float32" or "bfloat16") makes trainable parameters;
 ``train_loss`` takes them (or :func:`transformer.param_tree`'s tree of
-them, fake-quantized for QAT) and records the autograd graph.  Training
-rwkv6 comes with slice 7c.
+them, fake-quantized for QAT) and records the autograd graph, for either
+layer kind.
 """
 from __future__ import annotations
 

@@ -1,17 +1,25 @@
 """RWKV-6 ("Finch") time mix and channel mix (the port of the RWKV half of
-``repro.models.ssm``): parameters, token shift, the prefill path through
-K7 and the per-token decode path.
+``repro.models.ssm``): parameters, token shift, the full-sequence path
+through K7 (prefill, and training through K7's autograd function) and the
+per-token decode path.
 
-Matmul weights are stored in the model dtype (the reference stores float32
-and casts at every use: the same rounding); ``w0``, ``u`` and ``ln_x`` stay
-float32 and are used as float32; the ``mix``/``cmix`` lerps are stored
-float32 and cast to the activations' dtype at use, as the reference does.
-Mamba comes with slice 8 of the port (``transformer.check_supported``
-names it).
+Matmul weights are stored in the model dtype for serving (the reference
+stores float32 and casts at every use: the same rounding), or in a
+trainable model's ``param_dtype``, and every matmul casts its weight to
+the activations' dtype at use, which for a serving model's weights does
+nothing; ``w0``, ``u`` and ``ln_x`` stay float32 and are used as float32;
+the ``mix``/``cmix`` lerps are stored float32 and cast to the activations'
+dtype at use, as the reference does.  (Under ``param_dtype="bfloat16"``
+the reference's ``make_train_state`` also rounds the 2-D lerps, ``u`` and
+``ln_x`` to bf16; the port keeps these float32 leaves as serving keeps
+them.)  The functions take a layer's leaves by name, from an
+:class:`RWKVMix` or from :func:`transformer.param_tree`'s per-layer dict,
+so serving and training run the same code.  Mamba comes with slice 8 of
+the port (``transformer.check_supported`` names it).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,13 +39,16 @@ FLOAT32_LEAVES = ("mix", "w0", "u", "ln_x", "cmix")
 class RWKVMix(nn.Module):
   """One RWKV-6 layer's parameters: the time mix (r, k, v, g projections,
   the data-dependent decay's LoRA, the bonus u, the per-head group norm)
-  and the channel mix (``cm_*``), the reference's ``init_rwkv`` leaves."""
+  and the channel mix (``cm_*``), the reference's ``init_rwkv`` leaves.
+  The matmul weights are in the model dtype, or in ``dtype`` when given;
+  the ``FLOAT32_LEAVES`` in float32."""
 
-  def __init__(self, cfg: ModelConfig, device: Device = None):
+  def __init__(self, cfg: ModelConfig, device: Device = None,
+               dtype: Optional[torch.dtype] = None):
     super().__init__()
     d, dff = cfg.d_model, cfg.d_ff
     h, hd = cfg.n_heads, cfg.head_dim
-    e, rank, dt = h * hd, max(d // 16, 1), model_dtype(cfg)
+    e, rank, dt = h * hd, max(d // 16, 1), dtype or model_dtype(cfg)
     f32 = torch.float32
 
     def weight(*shape):
@@ -77,23 +88,57 @@ class RWKVMix(nn.Module):
     self.cm_wv.copy_(dense_init(gen, dff, d, scale=0.5))
     return self
 
+  def __getitem__(self, name: str) -> torch.Tensor:
+    """A leaf by name, as :func:`transformer.param_tree`'s dicts give it."""
+    return getattr(self, name)
+
+
+# a layer's leaves: the module, or its dict in a parameter tree
+Leaves = Union[RWKVMix, Mapping[str, torch.Tensor]]
+
+
+class _Sigmoid(torch.autograd.Function):
+  """The reference's sigmoid as XLA evaluates it: 1 / (1 + e^-x) one op at
+  a time, each rounded to x's dtype, and its gradient g (y (1 - y)), also
+  one op at a time.  ``torch.sigmoid`` rounds once, and in bf16 that moves
+  the gate and the channel mix's r by an ulp in about half their elements,
+  which rwkv's group norm can amplify into the gradients."""
+
+  @staticmethod
+  def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    y = torch.reciprocal(1 + torch.exp(-x))
+    ctx.save_for_backward(y)
+    return y
+
+  @staticmethod
+  def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    (y,) = ctx.saved_tensors
+    return g * (y * (1 - y))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+  """``jax.nn.silu``'s rounding: x times the sigmoid above."""
+  return x * _Sigmoid.apply(x)
+
 
 def _token_shift(x: torch.Tensor) -> torch.Tensor:
   """x (B, L, d) -> the previous token at each position (zeros at t = 0)."""
   return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def _rwkv_wkv_inputs(p: RWKVMix, x: torch.Tensor, x_prev: torch.Tensor):
-  """The lerps and projections shared by prefill and decode: r, k, v, the
-  gate g (x's dtype) and the decay w (float32)."""
-  mix = p.mix.to(x.dtype)
-  dx = x_prev - x
-  xr, xk, xv, xg, xw = (x + dx * mix[i] for i in range(5))
-  r, k, v = xr @ p.wr, xk @ p.wk, xv @ p.wv
-  g = F.silu(xg @ p.wg)
+def _rwkv_wkv_inputs(p: Leaves, x: torch.Tensor, x_prev: torch.Tensor):
+  """The lerps and projections shared by prefill, training and decode: r,
+  k, v, the gate g (x's dtype) and the decay w (float32)."""
+  dt = x.dtype
+  mix = p["mix"].to(dt)
+  # x_prev - x once a lerp, as the reference writes it: in bf16 the
+  # gradient then sums its parts in the reference's order
+  xr, xk, xv, xg, xw = (x + (x_prev - x) * mix[i] for i in range(5))
+  r, k, v = xr @ p["wr"].to(dt), xk @ p["wk"].to(dt), xv @ p["wv"].to(dt)
+  g = _silu(xg @ p["wg"].to(dt))
   # data-dependent decay (the v6 "Finch" feature)
-  lora = torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b
-  w = torch.exp(-torch.exp(p.w0 + lora.float()))
+  lora = torch.tanh(xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
+  w = torch.exp(-torch.exp(p["w0"] + lora.float()))
   return r, k, v, g, w
 
 
@@ -103,10 +148,11 @@ def _group_norm(out: torch.Tensor, ln_x: torch.Tensor) -> torch.Tensor:
   return out * torch.rsqrt(var + 1e-6) * ln_x
 
 
-def apply_rwkv_time_mix(p: RWKVMix, x: torch.Tensor, cfg: ModelConfig
+def apply_rwkv_time_mix(p: Leaves, x: torch.Tensor, cfg: ModelConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
   """x (B, L, d) -> (time-mix output (B, L, d), final WKV state (B, H, D,
-  D) float32), from a zero state; the recurrence runs K7 on the card."""
+  D) float32), from a zero state; the recurrence runs K7 on the card, and
+  K7's backward when a leaf or x needs a gradient."""
   b, l, _ = x.shape
   h, hd = cfg.n_heads, cfg.head_dim
   r, k, v, g, w = _rwkv_wkv_inputs(p, x, _token_shift(x))
@@ -114,32 +160,32 @@ def apply_rwkv_time_mix(p: RWKVMix, x: torch.Tensor, cfg: ModelConfig
   def heads(t):  # (B, L, H * hd) -> (B, H, L, hd), a view
     return t.view(b, l, h, hd).transpose(1, 2)
 
-  out, s_final = wkv_ops.wkv6(heads(r), heads(k), heads(v), heads(w), p.u,
+  out, s_final = wkv_ops.wkv6(heads(r), heads(k), heads(v), heads(w), p["u"],
                               chunk=cfg.ssm_chunk)
-  out = _group_norm(out, p.ln_x[None, :, None, :])
+  out = _group_norm(out, p["ln_x"][None, :, None, :])
   out = out.transpose(1, 2).reshape(b, l, h * hd).to(x.dtype) * g
-  return out @ p.wo, s_final
+  return out @ p["wo"].to(x.dtype), s_final
 
 
-def rwkv_channel_decode(p: RWKVMix, x: torch.Tensor, prev: torch.Tensor,
+def rwkv_channel_decode(p: Leaves, x: torch.Tensor, prev: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
   """The channel mix of x (..., d) given the previous token ``prev``."""
-  cmix = p.cmix.to(x.dtype)
-  dx = prev - x
-  xr = x + dx * cmix[0]
-  xk = x + dx * cmix[1]
-  r = torch.sigmoid(xr @ p.cm_wr)
-  k = torch.square(torch.relu(xk @ p.cm_wk))
-  return r * (k @ p.cm_wv)
+  dt = x.dtype
+  cmix = p["cmix"].to(dt)
+  xr = x + (prev - x) * cmix[0]
+  xk = x + (prev - x) * cmix[1]
+  r = _Sigmoid.apply(xr @ p["cm_wr"].to(dt))
+  k = torch.square(torch.relu(xk @ p["cm_wk"].to(dt)))
+  return r * (k @ p["cm_wv"].to(dt))
 
 
-def apply_rwkv_channel_mix(p: RWKVMix, x: torch.Tensor,
+def apply_rwkv_channel_mix(p: Leaves, x: torch.Tensor,
                            cfg: ModelConfig) -> torch.Tensor:
   """x (B, L, d) -> (B, L, d)."""
   return rwkv_channel_decode(p, x, _token_shift(x), cfg)
 
 
-def rwkv_decode_step(p: RWKVMix, x: torch.Tensor, cache: Cache,
+def rwkv_decode_step(p: Leaves, x: torch.Tensor, cache: Cache,
                      cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
   """One token x (B, d) through the time mix only (the caller runs the
   channel mix with ``cm_prev``).  The cache {"s" (B, H, D, D) float32,
@@ -152,12 +198,12 @@ def rwkv_decode_step(p: RWKVMix, x: torch.Tensor, cache: Cache,
     return t.reshape(b, h, hd).float()
 
   o, s_new = wkv_ops.wkv6_decode_step(heads(r), heads(k), heads(v),
-                                      heads(w), p.u, cache["s"])
-  o = _group_norm(o, p.ln_x[None])
+                                      heads(w), p["u"], cache["s"])
+  o = _group_norm(o, p["ln_x"][None])
   o = o.reshape(b, h * hd).to(x.dtype) * g
   cache["s"].copy_(s_new)
   cache["tm_prev"].copy_(x)
-  return o @ p.wo, cache
+  return o @ p["wo"].to(x.dtype), cache
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int,

@@ -1,11 +1,12 @@
 """Decoder-only LM (the port of ``repro.models.transformer``): parameters
 as ``nn.Module``s and two layer kinds, for serving, and the training
-forward and loss for attention layers.  Attention layers (with a dense
-SwiGLU MLP) keep a per-layer KV cache, optionally int8 (QUIDAM's
-precision axis applied to serving), and run prefill through K6 and decode
-through K5; training runs them through K6 and its backward.  RWKV-6
-layers (time mix + channel mix, attention-free) keep a recurrent state
-and run prefill through K7 and decode through the per-token WKV6 update.
+forward and loss for both.  Attention layers (with a dense SwiGLU MLP)
+keep a per-layer KV cache, optionally int8 (QUIDAM's precision axis
+applied to serving), and run prefill through K6 and decode through K5;
+training runs them through K6 and its backward.  RWKV-6 layers (time mix
++ channel mix, attention-free) keep a recurrent state and run prefill
+through K7 and decode through the per-token WKV6 update; training runs
+them through K7 and its backward.
 
 Differences from the reference, none of them in the numbers:
   * the reference scans over stacked blocks; here the layers are a
@@ -26,7 +27,7 @@ Differences from the reference, none of them in the numbers:
     ``n_blocks``.
 
 Mamba, MoE and encoder-decoder raise ``NotImplementedError`` naming the
-slice of the port that brings them; training rwkv6 names slice 7c.
+slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -74,11 +75,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-  """Raise NotImplementedError for what training in the port lacks."""
-  if cfg.family == "ssm":
-    raise NotImplementedError(
-        f"{cfg.name}: training rwkv6 layers (a backward for K7) comes with "
-        "slice 7c of the port")
+  """Raise NotImplementedError for what training in the port lacks: today
+  nothing, since every layer kind that :func:`check_supported` admits
+  trains; a layer kind that serves before it trains names its slice
+  here."""
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +233,7 @@ class Layer(nn.Module):
     self.kind = cfg.layer_kinds()[0]
     self.mix_norm = Norm(cfg, device)
     if self.kind == "rwkv":
-      self.mix = ssm.RWKVMix(cfg, device)
+      self.mix = ssm.RWKVMix(cfg, device, dtype)
     else:
       self.mix = Attention(cfg, device, dtype)
     self.ffn_norm = Norm(cfg, device)
@@ -430,8 +430,15 @@ def apply_attn_train(p: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 def apply_layer_train(p: Tree, x: torch.Tensor, cfg: ModelConfig,
                       rope_cs) -> Tuple[torch.Tensor, torch.Tensor]:
-  """One pre-norm attention + dense MLP layer; returns (x, aux loss)."""
+  """One pre-norm layer: attention + dense MLP, or the RWKV time mix +
+  channel mix (no MLP); returns (x, aux loss)."""
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
+  if cfg.layer_kinds()[0] == "rwkv":
+    out, _ = ssm.apply_rwkv_time_mix(p["mix"], _norm(p["mix_norm"], x, cfg),
+                                     cfg)
+    x = x + out
+    return x + ssm.apply_rwkv_channel_mix(
+        p["mix"], _norm(p["ffn_norm"], x, cfg), cfg), aux
   x = x + apply_attn_train(p["mix"], _norm(p["mix_norm"], x, cfg), cfg,
                            rope_cs)
   h = _norm(p["ffn_norm"], x, cfg)

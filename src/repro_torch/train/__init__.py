@@ -5,5 +5,6 @@ which trains the QAT CNNs and the supernet), :mod:`repro_torch.train.qat`
 :mod:`repro_torch.train.checkpoint` and :mod:`repro_torch.train.trainer`
 (the language-model trainer), and
 :mod:`repro_torch.train.fault_tolerance` (the retry primitive, the
-straggler monitor and the elastic mesh planner).  Training rwkv6 comes
-with slice 7c."""
+straggler monitor and the elastic mesh planner).  The language models
+are qwen3 (attention, through K6 and its backward) and rwkv6 (through K7
+and its backward)."""

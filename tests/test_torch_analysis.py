@@ -495,6 +495,20 @@ SEEDED = [
      '      out[name] = {"count": count, "idx": idx,\n',
      '      out[name] = {"count": count.item(), "idx": idx,\n',
      "count.item()"),
+    # in an unannotated host function: a value from a torch constructor,
+    # from h2d and from .to(device)
+    ("EXA005", "explore/device.py",
+     "    _PROBED[key] = report\n",
+     "    scale = torch.zeros(3, dtype=torch.float64)\n"
+     "    _PROBED[key] = report, scale / 3.0\n", "scale / 3.0"),
+    ("EXA003", "explore/device.py",
+     "    _PROBED[key] = report\n",
+     "    edges = h2d(np.ones(3), key)\n"
+     "    _PROBED[key] = report, edges.sum()\n", "edges.sum()"),
+    ("EXA002", "explore/device.py",
+     "    _PROBED[key] = report\n",
+     "    got = report[\"x\"].to(device)\n"
+     "    _PROBED[key] = report, got.exp()\n", "got.exp()"),
     ("ROB004", "kernels/pareto_front/ops.py",
      '  if obj.device.type == "cpu":\n    return _ref.dominance_counts_ref(obj)\n',
      '  if not torch.cuda.is_available():\n'

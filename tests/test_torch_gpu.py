@@ -5,7 +5,8 @@ the serving engine (qwen3-0.6b and rwkv6-1.6b), the deploy codecs and
 guided search with its fault tolerance (journals that move between card
 and CPU, the watchdog on a CUDA handle), and the QAT CNNs, their SGD
 step and the weight-sharing supernet against the same code on the CPU;
-K6's backward kernel against its plain version, and autograd through K6.
+K6's and K7's backward kernels against their plain versions, autograd
+through K6 and K7, and rwkv6's training gradients against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 CUDA kernels have no CPU mode).  On a machine with one:
@@ -50,6 +51,7 @@ from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.models import build_model
 from repro_torch.quant import QuantPolicy, pack_params
 from repro_torch.serve import EngineConfig, ServeEngine
+from wkv_grad_scale import dlogw_scale
 
 pytestmark = pytest.mark.gpu
 
@@ -812,6 +814,155 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
     wkv_kernel.wkv6(r, k, v, w, u, state[:, :1])
   with pytest.raises(ValueError, match="contiguous last dim"):
     wkv_kernel.wkv6(r.transpose(2, 3), k, v, w, u, state)
+
+
+# K7's backward against its plain chunked version (``ref.wkv6_chunked_bwd``):
+# both sum float32 products in other orders and the kernel factors the
+# plane's decays, so dr, dk, dv, du and ds0 within 1e-4 of each one's
+# largest |value| (K7's own bound), plus bf16's rounding 2^-8 for the
+# bf16 dr, dk and dv; dw, whose d log w sums terms that cancel, within
+# 1e-4 of ``dlogw_scale`` over w.
+# (b, t, h, d, chunk, tiny_w): T of one token, at and around one chunk,
+# ragged over several, 1,100 (18 chunks); every head dim; w down to 1e-30
+WKV_BWD_CASES = [(2, 1, 4, 64, 64, False), (2, 63, 4, 64, 64, False),
+                 (2, 64, 4, 64, 64, False), (2, 65, 4, 64, 64, False),
+                 (2, 300, 4, 64, 64, False), (1, 1100, 4, 64, 64, False),
+                 (2, 300, 4, 32, 32, False), (2, 300, 4, 16, 16, False),
+                 (1, 100, 3, 32, 64, False), (1, 300, 4, 64, 64, True),
+                 (1, 1100, 2, 16, 64, True)]
+
+
+def _wkv_bwd_close(got, want, r, k, v, w, u, dout, chunk):
+  dr, dk, dv, dw, du, ds0 = got
+  for name, x, y in (("dr", dr, want[0]), ("dk", dk, want[1]),
+                     ("dv", dv, want[2]), ("du", du, want[4]),
+                     ("ds0", ds0, want[5])):
+    tol = 1e-4 + (2.0 ** -8 if x.dtype == torch.bfloat16 else 0.0)
+    assert _rel_err(x.float(), y) <= tol, name
+  scale = dlogw_scale(r, k, v, u, dout, want[0], want[1], chunk)
+  assert bool(((dw - want[3]).abs() * w <= 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_backward_kernel_matches_plain_version(cuda, case, dtype):
+  b, t, h, d, chunk, tiny_w = case
+  rng = np.random.RandomState(t + h + d)
+  r, k, v, w, u, state = _wkv_inputs(rng, b, t, h, d, cuda, dtype, True,
+                                     tiny_w)
+  dout = _normal(rng, (b, t, h, d), cuda).transpose(1, 2)
+  ds_final = _normal(rng, (b, h, d, d), cuda) * 0.1
+  wkv_kernel.reset_launch_counts()
+  got = wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout, ds_final,
+                            chunk=chunk)
+  assert wkv_kernel.LAUNCHES == {"wkv6": 0, "wkv6_bwd": 1}
+  want = wkv.wkv6_bwd_reference(r, k, v, w, u, state, dout, ds_final,
+                                chunk=chunk)
+  torch.cuda.synchronize()
+  assert [x.dtype for x in got] == [dtype] * 3 + [torch.float32] * 3
+  assert [tuple(x.shape) for x in got] == [(b, h, t, d)] * 4 + [
+      (h, d), (b, h, d, d)]
+  assert all(bool(torch.isfinite(x).all()) for x in got)
+  _wkv_bwd_close(got, want, r, k, v, w, u, dout, chunk)
+
+
+def test_wkv6_backward_without_state_or_state_gradient(cuda):
+  """s0 None and ds_final None are zeros, as the plain version's."""
+  rng = np.random.RandomState(2)
+  r, k, v, w, u, _ = _wkv_inputs(rng, 2, 130, 4, 64, cuda, torch.bfloat16,
+                                 False)
+  dout = _normal(rng, (2, 4, 130, 64), cuda)
+  got = wkv_kernel.wkv6_bwd(r, k, v, w, u, None, dout, None)
+  want = wkv.wkv6_bwd_reference(r, k, v, w, u, None, dout, None)
+  _wkv_bwd_close(got, want, r, k, v, w, u, dout, 64)
+
+
+@pytest.mark.parametrize("t", [512, 1100])
+def test_wkv6_backward_is_deterministic_and_replays_in_a_cuda_graph(cuda, t):
+  rng = np.random.RandomState(t)
+  r, k, v, w, u, state = _wkv_inputs(rng, 2, t, 8, 64, cuda, torch.bfloat16,
+                                     True)
+  dout = _normal(rng, (2, 8, t, 64), cuda)
+  ds_final = _normal(rng, (2, 8, 64, 64), cuda)
+  wkv_kernel.reset_launch_counts()
+  _replays_bit_equal(lambda: wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout,
+                                                 ds_final))
+  assert wkv_kernel.LAUNCHES["wkv6_bwd"] >= 3
+
+
+def test_wkv6_gradient_goes_through_the_kernels(cuda):
+  """Autograd through ``ops.wkv6`` on the card launches K7 and K7's
+  backward, and equals autograd through the plain chunked form; without a
+  gradient only the forward kernel runs, with the same bits."""
+  rng = np.random.RandomState(9)
+  b, t, h, d = 2, 200, 4, 32
+  r, k, v, w, u, state = _wkv_inputs(rng, b, t, h, d, cuda, torch.float32,
+                                     True)
+  leaves = [x.detach().clone().requires_grad_()
+            for x in (r, k, v, w, u, state)]
+  dout = _normal(rng, (b, h, t, d), cuda)
+  ds_final = _normal(rng, (b, h, d, d), cuda)
+  wkv_kernel.reset_launch_counts()
+  out, s_final = wkv.wkv6(*leaves, chunk=32)
+  got = torch.autograd.grad((out, s_final), leaves, (dout, ds_final))
+  assert wkv_kernel.LAUNCHES == {"wkv6": 1, "wkv6_bwd": 1}
+  ref_out = wkv_ref.wkv6_chunked(*leaves, 32)
+  want = torch.autograd.grad(ref_out, leaves, (dout, ds_final))
+  _wkv_bwd_close(got, want, r, k, v, w, u, dout, 32)
+  with torch.no_grad():
+    plain_out, _ = wkv_kernel.wkv6(r, k, v, w, u, state, chunk=32)
+  assert torch.equal(out.detach(), plain_out)
+  assert wkv_kernel.LAUNCHES == {"wkv6": 2, "wkv6_bwd": 1}
+
+
+def test_wkv6_backward_refuses_what_it_does_not_take(cuda):
+  rng = np.random.RandomState(0)
+  r, k, v, w, u, state = _wkv_inputs(rng, 1, 16, 2, 64, cuda,
+                                     torch.float32, True)
+  dout = _normal(rng, (1, 2, 16, 64), cuda)
+  with pytest.raises(ValueError, match="dout: expected float32"):
+    wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout.bfloat16())
+  with pytest.raises(ValueError, match="dout: expected shape"):
+    wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout.transpose(2, 3))
+  with pytest.raises(ValueError, match="ds_final"):
+    wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout, state[:, :1])
+  with pytest.raises(ValueError, match="head dim"):
+    wkv_kernel.wkv6_bwd(*(x[..., :48] for x in (r, k, v, w)), u[:, :48],
+                        None, dout[..., :48])
+
+
+def test_rwkv6_training_gradients_on_the_card_match_the_cpu(cuda):
+  """rwkv6-1.6b at full width, float32, depth cut to 2 layers, TF32 off:
+  the train loss and every gradient leaf, the card (K7 and its backward)
+  against the CPU (autograd through the plain chunked form) from the same
+  weights and batch; loss within 1e-5, each leaf within 1e-4 of its
+  largest |value| (float32 sums in other orders)."""
+  from repro_torch.core.cnn import exact_f32
+  from repro_torch.train import train_step as ts_lib
+  cfg = dataclasses.replace(get_config("rwkv6-1.6b"), dtype="float32",
+                            n_layers=2)
+  cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg)
+  cpu_params = cpu_model.init(0, param_dtype="float32")
+  gpu_params = gpu_model.from_state(cpu_params.state_dict(),
+                                    param_dtype="float32")
+  rng = np.random.RandomState(4)
+  batch = {n: torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 130)))
+           for n in ("tokens", "labels")}
+  tcfg = ts_lib.TrainConfig()
+  wkv_kernel.reset_launch_counts()
+  with exact_f32():
+    loss_g, _, grads_g = ts_lib.value_and_grad(
+        gpu_model, tcfg, dict(gpu_params.named_parameters()),
+        {n: x.to(cuda) for n, x in batch.items()})
+    loss_c, _, grads_c = ts_lib.value_and_grad(
+        cpu_model, tcfg, dict(cpu_params.named_parameters()), batch)
+  assert wkv_kernel.LAUNCHES == {"wkv6": 2 * cfg.n_layers,
+                                 "wkv6_bwd": cfg.n_layers}
+  assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+  for name, g, c in zip(dict(cpu_params.named_parameters()), grads_g,
+                        grads_c):
+    assert _rel_err(g.cpu(), c) <= 1e-4, name
+    assert bool(g.abs().max() > 0), name
 
 
 def test_rwkv6_full_width_two_layers_on_the_card_match_the_cpu(cuda):
