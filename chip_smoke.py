@@ -198,12 +198,16 @@ RES_PERF_RECORD = ROOT / "results" / "BENCH_resilience.json"
 # CPU (JAX 0.9.0: python -m benchmarks.run --suite accuracy --only table2;
 # the port draws its own initial weights); (b) at the paper's widths and
 # image size: width 16, 32 px, resnet20, resnet56 and the VGG supernet at
-# max_arch(), the only changes from (a)
+# max_arch(), for QAT_PAPER_STEPS steps, the only changes from (a)
 QAT_REF_CPU = {"FP32": 0.941, "INT16": 0.938, "LightPE-1": 0.951,
                "LightPE-2": 0.965}
 QAT_REF_TOL = 0.05
 QAT_PAPER = (("resnet20", 16), ("resnet56", 16), ("vgg", 16))
 QAT_PAPER_IMAGE = 32
+# (b)'s steps, a third of the recipe's 120: the paper's widths run their
+# path at a third of the cost, to keep the script well inside its time
+# limit (the slowest host seen ran the whole script in 1,195 s)
+QAT_PAPER_STEPS = 40
 # the steps [accuracy-profile] traces: (network, PE type, width, px)
 QAT_PROFILE = (("resnet20", "FP32", 8, 16), ("resnet20", "LightPE-2", 8, 16),
                ("resnet56", "LightPE-2", 16, 32), ("vgg", "LightPE-2", 16, 32))
@@ -318,6 +322,11 @@ TRAIN_PARITY_BATCH = (2, 128)
 # 7.04e-4 of u's max from the plain CPU (H100 80GB HBM3, 700 W); the bound
 # is about 4 x that, far below the O(1) a wrong kernel gives.
 RWKV_PARITY_GRAD_TOL = 3e-3
+# K7's backward's first design (one block per (batch, head), CUDA-core
+# FMAs) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): its
+# time at B = 8, T = 512 bf16, and its device time in one profiled
+# [train-rwkv] step of 421.56 ms
+K7_BWD_FIRST = {"ms": 1.8629, "train_ms": 44.30, "train_device_ms": 421.56}
 TRAIN_RESUME = dict(n_layers=4, steps=12, ckpt_every=3, batch=8, seq=512)
 # K7's backward: (B, T, H, D, chunk, dtype, s0 and ds_final, w down to
 # 1e-30): the rwkv6-1.6b training shape in bf16 and f32, a ragged T with a
@@ -513,6 +522,11 @@ def phase_kernels():
   err = int((got.long() - want.long()).abs().max())
   if err:
     raise AssertionError(f"K2 counts differ from the plain version: {err}")
+  again = kernel.dominance_counts(obj_t)
+  if not torch.equal(got, again):
+    raise AssertionError("K2 counts differ between two runs")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  splits = kernel.pair_splits(obj_t.shape[1], sms)
   ms = cuda_ms(lambda: kernel.dominance_counts(obj_t))
   plain_ms = cuda_ms(lambda: ref.dominance_counts_ref(obj), inner=2)
   b_ms, b_by = bound_ms(d * n * 8 + n * 4, n * n * 2 * d)
@@ -523,8 +537,11 @@ def phase_kernels():
       on_main_path=False, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
       bound_ms=b_ms, bound_by=b_by, library_ms=None)
   log(f"[K2] D={d} N={n}: counts equal ({int((got == 0).sum())} on the "
-      f"front); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-      f"bound {b_ms:.4f} ms ({b_by})")
+      f"front), a rerun equal; j tiles split {splits} ways "
+      f"(pair_splits({obj_t.shape[1]}, {sms} SMs)): "
+      f"{obj_t.shape[1] // kernel.PAIR_TILE} x {splits} blocks; kernel "
+      f"{ms:.4f} ms (the first design, one block an i tile: 0.0888 ms), "
+      f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
   return results
 
 
@@ -2298,11 +2315,12 @@ def phase_accuracy(smi):
                            f"than {QAT_REF_TOL} from the reference's "
                            f"{QAT_REF_CPU[t]}")
   log(f"[accuracy] (b) the paper's widths: width 16 (the VGG supernet at "
-      f"max_arch(), its own widths), {QAT_PAPER_IMAGE} px; nothing else "
-      "changed from (a)")
+      f"max_arch(), its own widths), {QAT_PAPER_IMAGE} px, "
+      f"{QAT_PAPER_STEPS} steps; nothing else changed from (a)")
   for kind, width in QAT_PAPER:
     for t in PAPER_PE_TYPES:
-      r = train_qat(kind, t, "cuda", width=width, image=QAT_PAPER_IMAGE)
+      r = train_qat(kind, t, "cuda", width=width, image=QAT_PAPER_IMAGE,
+                    steps=QAT_PAPER_STEPS)
       log(_qat_line(f"[accuracy] (b) {kind}"
                     + (f" width {width}" if kind != "vgg" else " (VGG16 "
                        "plan)") + f", {QAT_PAPER_IMAGE} px, {t}", r))
@@ -3799,6 +3817,7 @@ def phase_k7_backward():
                                                  with_state, tiny_w)
     got = wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout, ds, chunk=chunk)
     again = wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout, ds, chunk=chunk)
+    blocks = wkv_kernel.last_bwd_blocks()
     want = wkv.wkv6_bwd_reference(r, k, v, w, u, s0, dout, ds, chunk=chunk)
     torch.cuda.synchronize()
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
@@ -3813,6 +3832,10 @@ def phase_k7_backward():
     dw_ratio = float(((got[3] - want[3]).abs() * w / scale).max())
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     finite = all(bool(torch.isfinite(x).all()) for x in got)
+    # chunk-parallel: a block per (batch, head) and chunk in launches 1, 3
+    per_chunk = b * h * -(-t // chunk)
+    grid_ok = (blocks["wkv6_bwd_local_kernel"] == per_chunk
+               and blocks["wkv6_bwd_grad_kernel"] == per_chunk)
     tag = (f"B={b} T={t} H={h} D={d} chunk={chunk} {dt_name} r/k/v"
            + (", s0 and ds_final" if with_state else "")
            + (", w down to 1e-30" if tiny_w else ""))
@@ -3821,9 +3844,9 @@ def phase_k7_backward():
                         for n, (e, m, tl) in errs.items())
             + f"; dw max |diff| w / dlogw_scale {dw_ratio:.3g} (tolerance "
             f"1e-4); rerun {'bit-identical' if same else 'DIFFERENT'}")
-    if (not finite or not same or dw_ratio > 1e-4
+    if (not finite or not same or dw_ratio > 1e-4 or not grid_ok
         or any(e > tl * m for e, m, tl in errs.values())):
-      log(line)
+      log(f"{line}; blocks a launch {blocks}")
       raise AssertionError(f"K7's backward fails at {tag}")
     if (b, t, h, d) != (8, 512, 32, 64):
       log(line)
@@ -3837,11 +3860,15 @@ def phase_k7_backward():
     n_bytes, n_ops = _k7_bwd_counts(b, t, h, d, r.element_size(),
                                     with_state)
     b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
-    log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    log(f"{line}; kernel {ms:.4f} ms (the first design, one block per "
+        f"(batch, head): {K7_BWD_FIRST['ms']} ms bf16), plain "
+        f"{plain_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB at 3.35 TB/s, "
         f"{n_ops / 1e9:.3f} GFLOP at 67 TFLOP/s f32), library: none (no "
         f"PyTorch call computes the WKV6 recurrence's gradient); the "
-        f"forward K7 at this shape {fwd_ms:.4f} ms")
+        f"forward K7 at this shape {fwd_ms:.4f} ms; blocks a launch (as "
+        "the C entry launched them) "
+        + ", ".join(f"{k} {n:,}" for k, n in blocks.items()))
     if dtype == torch.bfloat16:
       _device_profile("K7-bwd", f"one backward, {tag}",
                       lambda: wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dout,
@@ -3858,10 +3885,11 @@ def phase_k7_backward():
           library_note="no single PyTorch call computes the WKV6 "
                        "recurrence's gradient")
   for name, report in sorted(_build.ptxas_report("rwkv6_scan").items()):
-    short = re.search(r"wkv6_bwd_kernelI(\w+?)Li(\d+)E", name)
+    short = re.search(r"(wkv6_bwd_[a-z]+_kernel)I(\w*?)Li(\d+)E", name)
     if short:
-      elem = "bf16" if "bfloat16" in short.group(1) else "f32"
-      log(f"[K7-bwd] ptxas: wkv6_bwd_kernel<{elem}, {short.group(2)}>: "
+      elem = ("bf16, " if "bfloat16" in short.group(2) else
+              "f32, " if short.group(2) else "")
+      log(f"[K7-bwd] ptxas: {short.group(1)}<{elem}{short.group(3)}>: "
           f"{report.get('registers')} registers a thread, "
           f"{report.get('spill_bytes')} bytes of spill stores")
   return {"wkv6_bwd": result}
@@ -3952,8 +3980,11 @@ def phase_train_rwkv(smi):
          "not measured")
       + "; K7 " + (f"{by_group['K7']:.3f} ms" if "K7" in by_group
                    else "not measured")
-      + ", K7's backward " + (f"{by_group['K7-bwd']:.3f} ms"
-                              if "K7-bwd" in by_group else "not measured")
+      + ", K7's backward " + (
+          f"{by_group['K7-bwd']:.3f} ms ({by_group['K7-bwd'] / device_ms:.1%}"
+          f" of the step's device time; the first design: "
+          f"{K7_BWD_FIRST['train_ms']} ms of {K7_BWD_FIRST['train_device_ms']}"
+          " ms)" if "K7-bwd" in by_group and device_ms else "not measured")
       + " of device time")
   del trainer
   torch.cuda.empty_cache()

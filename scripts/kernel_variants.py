@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time design variants of the K1, K3, K4 and K7 CUDA kernels side by side
-on one card, in one process.
+"""Time design variants of the K1, K2, K3, K4, K7 and K7-bwd CUDA kernels
+side by side on one card, in one process.
 
 Each variant is the kernel's own source with one constant or one rule
 changed (the shipped source is the first variant of each list: K7's
@@ -16,15 +16,21 @@ called through its C entry.  Every variant's output is held to the
 kernel's plain version before it is timed, and the variants are timed in
 turns (first to last, then last to first) as CUDA-graph replays.  K7 also
 reports how many clusters of its blocks the card holds at once
-(``cudaOccupancyMaxActiveClusters``).
+(``cudaOccupancyMaxActiveClusters``).  K2 (D=3, N=4,096) and K7's
+backward (the rwkv6-1.6b training shape, B=8, H=32, T=512, D=64, bf16)
+have the shipped source alone; with ``--parent`` another tree (a parent
+commit unpacked by ``git archive``) adds its source of each named kernel
+as a variant, so a change and its parent are timed in turns on one card.
 
-    PYTHONPATH=src python3 scripts/kernel_variants.py [K1 K3 K4 K7]
+    PYTHONPATH=src python3 scripts/kernel_variants.py [K1 K2 K3 K4 K7 K7-bwd]
+        [--parent build/parent]
 
 With kernel names, only their variants are built and timed.  Needs a
 CUDA card and nvcc; prints the card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import statistics
@@ -37,14 +43,21 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels.int8_matmul import ref as i8_ref
+from repro_torch.kernels.pareto_front import kernel as pf_kernel
 from repro_torch.kernels.pareto_front import ref as pf_ref
 from repro_torch.kernels.pow2_matmul import ref as p2_ref
+from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 
 OUT = _build.BUILD_DIR.parent / "variants"
 KERNELS = _build.PACKAGE / "kernels"
 K7_TS = (300, 512, 2048)              # B = 1, H = 32, D = 64, chunk 64
 K7_BLOCKS = (8, 7, 5, 4)              # fixed cluster sizes
+K7_BWD_SHAPE = (8, 32, 512, 64)       # B, H, T, D; chunk 64, bf16 r/k/v
+K2_SHAPE = (3, 4096)                  # D, N (the survivor cap)
+CSRC = {"K1": "pareto_front", "K2": "pareto_front", "K3": "int8_matmul",
+        "K4": "pow2_matmul", "K7": "rwkv6_scan", "K7-bwd": "rwkv6_scan"}
 K4_TILES = ((128, 96, 256), (128, 64, 256), (64, 96, 128), (64, 192, 128))
 # K3: qwen3-0.6b's four (K, N) of a layer, a decode token and a prompt;
 # K = 0 times the launch and the epilogue alone
@@ -256,12 +269,106 @@ def k1_calls(lib, entry="pf_block_dominance_counts", check=True):
   return {f"D={d} N={n} block={block}": call}
 
 
+def k7_bwd_calls(lib):
+  """K7's backward at K7_BWD_SHAPE on seeded inputs (zero s0 and
+  ds_final), through the C entry ``wkv6_backward`` as ``kernel.wkv6_bwd``
+  calls it (its scratch holds a parent's, b h chunks d^2 floats), dr, dk,
+  dv, du and ds0 within 1e-4 (+ 2^-8 for bf16) of each one's largest
+  |value| of the plain version."""
+  p, i64 = ctypes.c_void_p, ctypes.c_int64
+  lib.wkv6_backward.argtypes = [p] * 15 + [i64] * 23 + [ctypes.c_int, p]
+  b, h, t, d = K7_BWD_SHAPE
+  gen = torch.Generator().manual_seed(29)
+
+  def heads(x):
+    return x.view(b, t, h, d).transpose(1, 2)
+  r, k, v = (heads(torch.randn(b, t, h * d, generator=gen).cuda()
+                   .bfloat16()) for _ in range(3))
+  w = heads(torch.exp(-torch.exp(torch.randn(b, t, h * d, generator=gen)
+                                 - 3.0)).cuda())
+  u = torch.randn(h, d, generator=gen).cuda() * 0.3
+  dout = heads(torch.randn(b, t, h * d, generator=gen).cuda())
+  grads = [torch.empty(b, t, h, d, dtype=dt, device="cuda")
+           for dt in (r.dtype, r.dtype, r.dtype, torch.float32)]
+  du = torch.empty(b, h, d, device="cuda")
+  ds0 = torch.empty(b, h, d, d, device="cuda")
+  scratch = torch.empty(wkv_kernel.bwd_scratch_floats(b, h, t, d, 64),
+                        device="cuda")
+  g = grads[0]
+
+  def call():
+    status = lib.wkv6_backward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None, dout.data_ptr(), None,
+        *(x.data_ptr() for x in grads), du.data_ptr(), ds0.data_ptr(),
+        scratch.data_ptr(), b, h, t, d, 64, *r.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+        *dout.stride()[:3], g.stride(0), g.stride(2), g.stride(1), 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert status == 0, status
+  call()
+  want = wkv_ops.wkv6_bwd_reference(r, k, v, w, u, None, dout, None, 64)
+  got = [x.permute(0, 2, 1, 3) for x in grads[:3]] + [du.sum(0), ds0]
+  for i, (x, y) in enumerate(zip(got, [*want[:3], *want[4:]])):
+    tol = 1e-4 + (2.0 ** -8 if x.dtype == torch.bfloat16 else 0.0)
+    assert float((x.float() - y).abs().max()) <= tol * float(
+        y.abs().max()), i
+  return {f"B={b} H={h} T={t} D={d} bf16": call}
+
+
+def k2_calls(lib, split: bool = True):
+  """K2 at K2_SHAPE on seeded objectives with ties, counts equal to the
+  plain version; ``split``: the C entry takes kernel.pair_splits' count
+  of j splits (PR 11's design takes none)."""
+  fn = lib.pf_dominance_counts
+  fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * (3 if split else 2)
+                 + [ctypes.c_void_p] * 2)
+  d, n = K2_SHAPE
+  gen = torch.Generator().manual_seed(2)
+  obj = torch.round(torch.rand(n, d, generator=gen, dtype=torch.float64)
+                    * 64) / 64
+  obj_t = obj.T.contiguous().cuda()
+  counts = torch.empty(n, dtype=torch.int32, device="cuda")
+  extra = (pf_kernel.pair_splits(n, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count),) if split else ()
+
+  def call():
+    status = fn(obj_t.data_ptr(), d, n, *extra, counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    assert status == 0, status
+  call()
+  assert torch.equal(counts.cpu(), pf_ref.dominance_counts_ref(obj))
+  return {f"D={d} N={n}" + (f", {extra[0]} splits" if split else ""): call}
+
+
 def _named(values) -> str:
   return ", ".join(f"{name} = {value}" for name, value in values.items())
 
 
+def parent_job(kernel: str, parent: Path):
+  """{variant name: (source text, calls function)}: ``kernel`` as the
+  tree ``parent`` has it."""
+  name = CSRC[kernel]
+  src = (parent / "src/repro_torch/kernels" / name / "csrc"
+         / f"{name}.cu").read_text()
+  calls = {"K1": k1_calls, "K3": k3_calls, "K4": k4_calls, "K7": k7_calls,
+           "K7-bwd": k7_bwd_calls}.get(kernel)
+  if kernel == "K2":
+    split = re.search(r"pf_dominance_counts\([^)]*splits", src) is not None
+    calls = lambda lib: k2_calls(lib, split)  # noqa: E731
+  return {f"{kernel} parent ({parent})": (src, calls)}
+
+
 def jobs_of(kernel: str):
   """{variant name: (source text, calls function)} of one kernel."""
+  if kernel == "K7-bwd":
+    return {"K7-bwd shipped": (
+        (KERNELS / "rwkv6_scan/csrc/rwkv6_scan.cu").read_text(),
+        k7_bwd_calls)}
+  if kernel == "K2":
+    return {"K2 shipped (j tiles split over pair_splits blocks)": (
+        (KERNELS / "pareto_front/csrc/pareto_front.cu").read_text(),
+        k2_calls)}
   if kernel == "K7":
     k7 = (KERNELS / "rwkv6_scan/csrc/rwkv6_scan.cu").read_text()
     # a fixed size n: at most n blocks, and the first (largest) n is taken
@@ -304,12 +411,22 @@ def jobs_of(kernel: str):
 
 
 def main() -> int:
+  ap = argparse.ArgumentParser()
+  ap.add_argument("kernels", nargs="*", metavar="KERNEL",
+                  help=f"any of {', '.join(CSRC)} (default K1 K3 K4 K7)")
+  ap.add_argument("--parent", type=Path,
+                  help="a tree whose source of each kernel is a variant")
+  args = ap.parse_args()
+  unknown = set(args.kernels) - set(CSRC)
+  if unknown:
+    ap.error(f"unknown kernels: {sorted(unknown)}")
   if not torch.cuda.is_available():
     sys.exit("kernel_variants.py: no CUDA device is available")
-  kernels = sys.argv[1:] or ["K1", "K3", "K4", "K7"]
   jobs = {}
-  for kernel in kernels:
+  for kernel in args.kernels or ["K1", "K3", "K4", "K7"]:
     jobs.update(jobs_of(kernel))
+    if args.parent is not None:
+      jobs.update(parent_job(kernel, args.parent.resolve()))
   names = list(jobs)
   with ThreadPoolExecutor(len(names)) as pool:
     libs = dict(zip(names, pool.map(

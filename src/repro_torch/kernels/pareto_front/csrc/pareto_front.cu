@@ -33,13 +33,18 @@
 //     repro/kernels/pareto_front/kernel.py::dominance_counts_pallas
 //     (_pairwise_kernel): global O(N^2) dominance counts.  The TPU walks
 //     the j tiles on a sequential grid axis and accumulates in the output
-//     tile; here one CUDA block owns one 256-point i tile and loops over
-//     every j tile itself, staging each through shared memory and keeping
-//     its thread's count in a register, so no atomics and no second pass
-//     are needed.  Bound: N^2 point pairs of 2 * D compares each (D = 3,
-//     N = 4,096: 100M float64 compares); bytes are negligible.  With
-//     N / 256 blocks a small N fills few of the 132 SMs; splitting j over
-//     blocks is left for a later change.
+//     tile.  Bound: N^2 point pairs of 2 * D compares each (D = 3, N =
+//     4,096: 100M float64 compares, 0.003 ms at the 34 TFLOP/s float64
+//     rate); bytes are negligible.  N / 256 blocks, one a 256-point i
+//     tile, fill few of the 132 SMs at the survivor cap (16 at N = 4,096),
+//     so the grid is (N / 256 i tiles) x (splits of the j tiles), the
+//     splits chosen by the caller (kernel.py's pair_splits: at least two
+//     blocks an SM); a block counts
+//     its i tile against its own j range, staging each j tile through
+//     shared memory and keeping its thread's count in a register, and
+//     adds it to the zeroed counts with one integer atomicAdd, exact and
+//     order-free, so every run gives the same counts.  What holds it back
+//     is in PERF.md (section 6).
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 on success).
@@ -87,24 +92,27 @@ __global__ void block_dominance_kernel(const double* __restrict__ obj,
 
 template <int D>
 __global__ void pairwise_dominance_kernel(const double* __restrict__ obj,
-                                          int64_t n,
+                                          int64_t n, int64_t splits,
                                           int32_t* __restrict__ counts) {
   __shared__ double tile[D * kPairTile];
   const int t = threadIdx.x;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kPairTile + t;
+  const int64_t tiles = n / kPairTile, s = blockIdx.y;
+  const int64_t first = tiles * s / splits, last = tiles * (s + 1) / splits;
   double mine[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) mine[d] = obj[d * n + i];
   int32_t c = 0;
-  for (int64_t j0 = 0; j0 < n; j0 += kPairTile) {
+  for (int64_t jt = first; jt < last; ++jt) {
     __syncthreads();  // the previous j tile is fully consumed
 #pragma unroll
-    for (int d = 0; d < D; ++d) tile[d * kPairTile + t] = obj[d * n + j0 + t];
+    for (int d = 0; d < D; ++d)
+      tile[d * kPairTile + t] = obj[d * n + jt * kPairTile + t];
     __syncthreads();
     for (int j = 0; j < kPairTile; ++j)
       c += dominates<D>(tile, kPairTile, j, mine);
   }
-  counts[i] = c;
+  if (c) atomicAdd(counts + i, c);
 }
 
 }  // namespace
@@ -130,19 +138,25 @@ int pf_block_dominance_counts(const double* obj, int64_t d, int64_t n,
   return cudaGetLastError();
 }
 
-// obj (d, n) float64 with n a multiple of 256, d in {2, 3, 4}
-// -> counts (n,) int32.
+// obj (d, n) float64 with n a multiple of 256, d in {2, 3, 4}, the j
+// tiles split over 1 <= splits blocks (at most n / 256 are used)
+// -> counts (n,) int32, zeroed here and then added to.
 int pf_dominance_counts(const double* obj, int64_t d, int64_t n,
-                        int32_t* counts, void* stream) {
-  if (n % kPairTile != 0) return cudaErrorInvalidValue;
+                        int64_t splits, int32_t* counts, void* stream) {
+  if (n % kPairTile != 0 || splits < 1) return cudaErrorInvalidValue;
+  if (d < 2 || d > 4) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n / kPairTile));
+  const int64_t tiles = n / kPairTile;
+  const int64_t sp = splits < tiles ? splits : tiles;
+  if (sp > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * n, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(sp));
   switch (d) {
-    case 2: pairwise_dominance_kernel<2><<<grid, kPairTile, 0, s>>>(obj, n, counts); break;
-    case 3: pairwise_dominance_kernel<3><<<grid, kPairTile, 0, s>>>(obj, n, counts); break;
-    case 4: pairwise_dominance_kernel<4><<<grid, kPairTile, 0, s>>>(obj, n, counts); break;
-    default: return cudaErrorInvalidValue;
+    case 2: pairwise_dominance_kernel<2><<<grid, kPairTile, 0, s>>>(obj, n, sp, counts); break;
+    case 3: pairwise_dominance_kernel<3><<<grid, kPairTile, 0, s>>>(obj, n, sp, counts); break;
+    case 4: pairwise_dominance_kernel<4><<<grid, kPairTile, 0, s>>>(obj, n, sp, counts); break;
   }
   return cudaGetLastError();
 }

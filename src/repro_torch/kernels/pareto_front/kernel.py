@@ -21,6 +21,8 @@ from repro_torch import _build
 
 # K2's i and j tile (kPairTile in the CUDA source)
 PAIR_TILE = 256
+# K2's blocks an SM that pair_splits aims for
+PAIR_BLOCKS_PER_SM = 2
 
 LAUNCHES: Dict[str, int] = {"block_dominance_counts": 0,
                             "dominance_counts": 0}
@@ -39,7 +41,7 @@ def _lib() -> ctypes.CDLL:
   p, i64 = ctypes.c_void_p, ctypes.c_int64
   lib.pf_block_dominance_counts.argtypes = [p, i64, i64, i64, p, p]
   lib.pf_block_dominance_counts.restype = ctypes.c_int
-  lib.pf_dominance_counts.argtypes = [p, i64, i64, p, p]
+  lib.pf_dominance_counts.argtypes = [p, i64, i64, i64, p, p]
   lib.pf_dominance_counts.restype = ctypes.c_int
   return lib
 
@@ -80,14 +82,30 @@ def block_dominance_counts(obj_t: torch.Tensor, block: int) -> torch.Tensor:
   return counts
 
 
+def pair_splits(n: int, sms: int) -> int:
+  """K2's splits of the j tiles at N points on a card of ``sms`` SMs: the
+  fewest that give (N / 256 i tiles) x splits >= 2 blocks an SM, at most
+  one j tile a split."""
+  tiles = max(1, n // PAIR_TILE)
+  want = -(-PAIR_BLOCKS_PER_SM * sms // tiles)
+  return max(1, min(tiles, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+  return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def dominance_counts(obj_t: torch.Tensor) -> torch.Tensor:
-  """K2: (D, N) -> (N,) int32 global dominance counts."""
+  """K2: (D, N) -> (N,) int32 global dominance counts; the j tiles split
+  over ``pair_splits(N, the card's SMs)`` blocks an i tile."""
   _check_input(obj_t, PAIR_TILE)
   d, n = obj_t.shape
+  splits = pair_splits(n, _sm_count(obj_t.device.index))
   counts = torch.empty(n, dtype=torch.int32, device=obj_t.device)
   with torch.cuda.device(obj_t.device):
     stream = torch.cuda.current_stream().cuda_stream
-    status = _lib().pf_dominance_counts(obj_t.data_ptr(), d, n,
+    status = _lib().pf_dominance_counts(obj_t.data_ptr(), d, n, splits,
                                         counts.data_ptr(), stream)
   _launched("dominance_counts", status)
   return counts

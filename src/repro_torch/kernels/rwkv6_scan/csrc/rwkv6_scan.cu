@@ -203,10 +203,10 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
 // 16-deep K steps [ks0, ks1) (K steps past ks1 hold zeros).  The warp owns
 // output tiles (mt, nt + j * n_step), j < 4 (those with nt + j * n_step <
 // N / 8); acc[j] holds tile j's fragment.  a(m, k) and b(k, n) are float;
-// A is split into bf16 hi + lo, and so is B unless kExactB (B's values are
-// bf16 already): hi hi + lo hi (+ hi lo) into one f32 sum, about 2^-16 of
-// each product.
-template <bool kExactB, typename FA, typename FB>
+// A is split into bf16 hi + lo unless kExactA, and so is B unless kExactB
+// (the values are bf16 already): hi hi (+ lo hi) (+ hi lo) into one f32
+// sum, about 2^-16 of each product.
+template <bool kExactB, bool kExactA = false, typename FA, typename FB>
 __device__ __forceinline__ void warp_mma(float (&acc)[4][4], int mt, int nt,
                                          int n_step, int n_tiles, int ks0,
                                          int ks1, FA a, FB b) {
@@ -229,7 +229,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[4][4], int mt, int nt,
       split2(b(k, n), b(k + 1, n), bh0, bl0);
       split2(b(k + 8, n), b(k + 9, n), bh1, bl1);
       mma_bf16(acc[j], ah, bh0, bh1);
-      mma_bf16(acc[j], al, bh0, bh1);
+      if (!kExactA) mma_bf16(acc[j], al, bh0, bh1);
       if (!kExactB) mma_bf16(acc[j], ah, bl0, bl1);
     }
   }
@@ -740,56 +740,81 @@ int dispatch_d(const Params& p, int64_t bh, int64_t d, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // K7's backward, wkv6_backward.  It replaces no TPU kernel: the reference
 // trains through XLA's gradient of the pure-jnp wkv6_chunked
-// (repro/models/ssm.py).  Per (batch, head), with dO the output's gradient
-// and dS the carried state gradient (from ds_final, zero when null), a
-// reverse sweep over the chunks computes, per chunk (lp = la_prev, lam =
-// la of its last row, S its incoming state, kd = k e^(lam - la), M_tj =
-// sum_d r_td k_jd e^(lp_td - la_jd) and dM_tj = dO_t . v_j for j < t, rd_t
-// = r_t . (u k_t), drd_t = dO_t . v_t):
+// (repro/models/ssm.py), and no pallas_call has a backward.  It exists
+// because the port's rwkv6 training runs K7 on the card, and autograd
+// cannot differentiate a hand kernel.  Per (batch, head), with dO the
+// output's gradient, S_c chunk c's incoming state and dS_c the gradient of
+// its outgoing state (lp = la_prev, lam = la of the chunk's last row, kd =
+// k e^(lam - la), M_tj = sum_d r_td k_jd e^(lp_td - la_jd) and dM_tj = dO_t
+// . v_j for j < t, rd_t = r_t . (u k_t), drd_t = dO_t . v_t):
 //
-//   dv    = M^T dO + rd dO + kd dS^T
-//   dr    = e^lp (dO S^T) + (dM * decay) k + drd u k
-//   dk    = (dM * decay)^T r + e^(lam - la) (V dS^T) + drd u r
-//   du   += sum_t drd_t r_t k_t
-//   dS_in = e^lam dS + (r e^lp)^T dO
+//   dv      = M^T dO + rd dO + kd dS_c
+//   dr      = e^lp (dO S_c^T) + (dM * decay) k + drd u k
+//   dk      = (dM * decay)^T r + e^(lam - la) (V dS_c^T) + drd u r
+//   du      = sum over chunks of sum_t drd_t r_t k_t
+//   S_{c+1} = diag(e^lam_c) S_c + kd_c^T V_c              (from s0)
+//   dS_{c-1} = diag(e^lam_c) dS_c + (r e^lp)_c^T dO_c      (from ds_final)
 //
 // and the decay's gradient without another pass over the (t, j) plane:
 // d lp = r (dr - drd u k), d la = -k (dk - drd u r), d lam = e^lam
-// rowsum(S dS) + sum_j kd_j (V dS^T)_j, d log w_s = sum_{t >= s} d la_t +
-// sum_{t > s} d lp_t + d lam (a reverse cumsum down each channel), dw = d
-// log w / w above the floor 1e-30, half of it at the floor (the gradient
-// of jnp.maximum), none below.  ref.py's wkv6_chunked_bwd is the same
-// algorithm in plain torch.
-//
-// Design (a first, simple one): one block of 256 threads per (batch,
-// head).  A forward pass from s0 writes each chunk's incoming state S to a
-// scratch buffer (nc x D x D float32 a head; the forward kernel's serving
-// call and bits stay as they are), then the reverse sweep runs with dS in
-// shared memory.  Every chunk is padded to 64 rows of identity tokens (w =
-// 1, r = k = v = dO = 0), so the (t, j) plane is always 64 x 64 and cut
-// into 4 x 4 blocks of 16-row sub-chunks.  A block below the diagonal
-// factors its decays as the forward kernel does, e^(lp_t - la_j) =
-// e^(lp_t - E_{I-1}) e^(E_{I-1} - E_J) e^(E_J - la_j) with E_J the la of
-// sub-chunk J's last row, three factors <= 1: r~ = r e^(lp - E_{I-1}) and
-// k~ = k e^(E_J - la) are kept as tiles and the middle factor in a table;
-// the diagonal blocks take one exp per (t, j < t, d).  Every exponent is
-// <= 0.  The products are f32 FMAs on the CUDA cores (no tensor cores, no
-// cluster split yet), each thread holding a 4 x (D / 16) register tile of
-// the (row, channel) outputs; every sum has a fixed order and nothing is
-// atomic, so reruns give the same bits, and du is written per (batch,
-// head) for the wrapper to sum over the batch in order.
+// rowsum(S_c dS_c) + sum_j kd_j (V dS_c^T)_j, d log w_s = sum_{t >= s} d
+// la_t + sum_{t > s} d lp_t + d lam (a reverse cumsum down each channel),
+// dw = d log w / w above the floor 1e-30, half of it at the floor (the
+// gradient of jnp.maximum), none below.  ref.py's wkv6_chunked_bwd is the
+// same function in plain torch (the tests' wkv_bwd_split.py follows this
+// kernel's schedule).
 //
 // Bound on an H100 SXM at the training shape (B = 8, H = 32, T = 512, D =
 // 64, bf16 r/k/v): the function reads r, k, v, w, dO and writes dr, dk,
-// dv, dw (PERF.md has the bytes and operations, chip_smoke.py computes
-// them); the design above is bound by shared-memory traffic and latency
-// (256 blocks of one 190 KB block an SM: two waves on 132 SMs), not by the
-// card's rates.
+// dv, dw (205.5 MB, 0.061 ms at 3.35 TB/s) and does 5.45 GFLOP, twice the
+// forward's, 0.081 ms at the 67 TFLOP/s f32 rate: it is bound by its
+// operations.  A chunk's gradients depend on the rest of the sequence only
+// through S_c and dS_c, which are folds of per-chunk D x D terms, so the
+// kernel runs chunk-parallel, in three launches, to fill the card:
+//
+//  1. wkv6_bwd_local_kernel, grid (chunks, B * H), 62 KB, three blocks an
+//     SM: a chunk's two local sums on the tensor cores, U_c = kd^T V and
+//     W_c = (r e^lp)^T dO, its e^lam and its share of du, into a float32
+//     scratch buffer.
+//  2. wkv6_bwd_fold_kernel, one thread a float4 of a head's D x D: the
+//     folds in chunk order, in place, U_c -> S_c forward from s0 and W_c
+//     -> dS_c backward from ds_final (ending in ds0), one FMA a chunk, and
+//     du summed over the chunks.  The only serial part.
+//  3. wkv6_bwd_grad_kernel, grid (B * H, chunks), 112 KB at D = 64 for
+//     bf16, two blocks an SM (float32 r/k/v: 136 KB, one): everything a
+//     chunk's rows need, given S_c and dS_c.  Its tiles arrive by 16-byte
+//     cp.async in three groups (w; r and k; v, dO and dS_c), each awaited
+//     just before its first use.  The (t, j) plane is cut into 16-row
+//     sub-chunks: a block below the diagonal factors e^(lp_t - la_j) =
+//     e^(lp_t - E_{I-1}) e^(E_{I-1} - E_J) e^(E_J - la_j), with E_J the la
+//     of sub-chunk J's last row, three factors each <= 1 (r~ = r e^(lp -
+//     E_{I-1}), a table g_IJ and k~ = k e^(E_J - la)), so its products run
+//     on the tensor cores; in the diagonal blocks M takes one exp per (t,
+//     j < t, d), and dr's and dk's shares take running products of w_m =
+//     e^(la_m - la_{m-1}) instead (15 exps a (sub-chunk, channel), not
+//     120; the products telescope to the same la differences).  Every
+//     exponent is <= 0, even at w = 1e-30.  The plane holds M, then dM
+//     (its blocks on and below the diagonal); one D x D tile holds dS_c,
+//     dk's diagonal share, then S_c, then a copy of w for dw.  The ten
+//     (16 rows x D) x (D x D) or plane products are mma.sync.m16n8k16 with
+//     each float32 operand split into bf16 hi + lo (hi hi + lo hi + hi lo
+//     into one f32 sum, about 2^-16 of each product; bf16 r, k, v enter
+//     exactly), as the forward's.  dr, dk and dv are written from
+//     registers, d log w by a reverse scan down each channel in segments.
+//
+// The training shape runs 256 x 8 = 2,048 blocks in launches 1 and 3.
+// Every sum has a fixed order and nothing is atomic, so reruns and
+// CUDA-graph replays give the same bits.  What holds it back (PERF.md,
+// section 6): launch 3 is latency-bound at two blocks an SM, in lockstep,
+// with 18 barriers a block; clock64 stamps at its barriers, in a probe
+// copy of this source, put a block's time in its first tiles' wait, the
+// tables, M, dk's products (split operands loaded from shared memory), and
+// dr's diagonal and epilogue.
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = kMaxChunk;        // a chunk's rows, padded
-constexpr int kPart = 16;               // rows of a sub-chunk
-constexpr int kParts = kRows / kPart;   // sub-chunks of a chunk
+constexpr int kPart = 16;                     // rows of a sub-chunk
+constexpr int kHalfPart = kPart / 2;
+constexpr int kMaxParts = kMaxChunk / kPart;  // sub-chunks of a chunk
 constexpr float kWFloor = 1e-30f;
 
 struct BwdParams {
@@ -805,10 +830,10 @@ struct BwdParams {
   void* dk;
   void* dv;
   float* dw;
-  float* du;      // (b * h, d): per (batch, head)
+  float* du;       // (b * h, d): per (batch, head)
   float* ds0;
-  float* states;  // (b * h, chunks, d, d) scratch
-  int64_t h, t;
+  float* scratch;  // bwd_scratch_floats(b * h, chunks, d)
+  int64_t bh, h, t;
   int64_t r_sb, r_sh, r_st;
   int64_t k_sb, k_sh, k_st;
   int64_t v_sb, v_sh, v_st;
@@ -818,460 +843,925 @@ struct BwdParams {
   int chunk;
 };
 
+// The scratch buffer: U_c then S_c, W_c then dS_c (bh, chunks, d, d), and
+// e^lam_c and chunk c's share of du (bh, chunks, d).
+struct BwdScratch {
+  float* s;
+  float* ds;
+  float* decay;
+  float* du;
+};
+
+__host__ __device__ inline BwdScratch bwd_scratch(float* base, int64_t bh,
+                                                  int64_t nc, int d) {
+  const int64_t sq = bh * nc * d * d, vec = bh * nc * d;
+  return {base, base + sq, base + 2 * sq, base + 2 * sq + vec};
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Float offsets of the backward's shared memory.
-template <int D>
-struct BwdLayout {
-  static constexpr int LD = D + 1;       // pitch of a (row, channel) tile
-  static constexpr int LP = kRows + 1;   // pitch of a (t, j) plane
-  static constexpr int kTile = kRows * LD;
-  static constexpr int R = 0, K = R + kTile, V = K + kTile, DO = V + kTile;
-  static constexpr int LA = DO + kTile;  // log w, then its cumsum
-  static constexpr int RT = LA + kTile;  // r~, then d la
-  static constexpr int KT = RT + kTile;  // k~, then d lp
-  static constexpr int PM = KT + kTile;  // M, then k * (dk's state part)
-  static constexpr int PDM = PM + kRows * LP;          // dM
-  static constexpr int S = PDM + kRows * LP;           // D x LD
-  static constexpr int DS = S + D * LD;                // D x LD
-  static constexpr int G = DS + D * LD;                // [I][J][D], J < I
-  static constexpr int EE = G + kParts * kParts * D;   // [I][D]: e^E_{I-1}
-  static constexpr int EL = EE + kParts * D;           // [J][D]: e^(lam-E_J)
-  static constexpr int RD = EL + kParts * D;           // kRows
-  static constexpr int DRD = RD + kRows;               // kRows
-  static constexpr int kFloats = DRD + kRows;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// f(j, e, row, col) over the warp's accumulator elements acc[j][e]
+template <typename F>
+__device__ __forceinline__ void for_acc(const WarpTiles& wt, int n_tiles,
+                                        F f) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n8 = wt.nt + j * wt.n_step;
+    if (n8 >= n_tiles) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f(j, e, 16 * wt.mt + g + 8 * (e / 2), 8 * n8 + t2 + e % 2);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// la (rows x D, pitch LD) = the inclusive cumsum of log max(la, 1e-30)
+// down each channel (la holds w), in kThreads / D segments of rows; tot
+// holds kThreads floats
+template <int D, int LD>
+__device__ __forceinline__ void cumsum_log_rows(float* la, float* tot,
+                                                int rows) {
+  constexpr int kSegs = kThreads / D;
+  const int d = threadIdx.x % D, seg = threadIdx.x / D;
+  constexpr int kPer = (kMaxChunk + kSegs - 1) / kSegs;
+  const int per = (rows + kSegs - 1) / kSegs;
+  const int lo = seg * per, hi = min(rows, lo + per);
+  float lg[kPer];  // every log of the segment in flight at once
+#pragma unroll
+  for (int n = 0; n < kPer; ++n)
+    lg[n] = lo + n < hi ? logf(fmaxf(la[(lo + n) * LD + d], kWFloor)) : 0.f;
+  float run = 0.f;
+#pragma unroll
+  for (int n = 0; n < kPer; ++n) {
+    run += lg[n];
+    lg[n] = run;
+  }
+  tot[seg * D + d] = run;
+  __syncthreads();
+  float off = 0.f;
+  for (int s = 0; s < seg; ++s) off += tot[s * D + d];
+#pragma unroll
+  for (int n = 0; n < kPer; ++n)
+    if (lo + n < hi) la[(lo + n) * LD + d] = lg[n] + off;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// The (B, H, T, D) operands of one (batch, head) and the chunk's rows.
+template <typename T>
+struct BwdRows {
+  const T* r;
+  const T* k;
+  const T* v;
+  const float* w;
+  const float* dout;
+  int64_t t0, g0, bh, c;
+  __device__ BwdRows(const BwdParams& p, int64_t bh_, int64_t c_) {
+    bh = bh_;
+    c = c_;
+    const int64_t b = bh / p.h, head = bh % p.h;
+    r = static_cast<const T*>(p.r) + b * p.r_sb + head * p.r_sh;
+    k = static_cast<const T*>(p.k) + b * p.k_sb + head * p.k_sh;
+    v = static_cast<const T*>(p.v) + b * p.v_sb + head * p.v_sh;
+    w = p.w + b * p.w_sb + head * p.w_sh;
+    dout = p.dout + b * p.o_sb + head * p.o_sh;
+    t0 = c * p.chunk;
+    g0 = b * p.g_sb + head * p.g_sh;
+  }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1) wkv6_bwd_kernel(BwdParams p) {
-  using L = BwdLayout<D>;
-  constexpr int LD = L::LD, LP = L::LP, ND = D / 16;
-  extern __shared__ __align__(16) float sm[];
-  float* R = sm + L::R;
-  float* K = sm + L::K;
-  float* V = sm + L::V;
-  float* DO = sm + L::DO;
-  float* LA = sm + L::LA;
-  float* RT = sm + L::RT;
-  float* KT = sm + L::KT;
-  float* PM = sm + L::PM;
-  float* PDM = sm + L::PDM;
-  float* S = sm + L::S;
-  float* DS = sm + L::DS;
-  float* G = sm + L::G;
-  float* EE = sm + L::EE;
-  float* EL = sm + L::EL;
-  float* RD = sm + L::RD;
-  float* DRD = sm + L::DRD;
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / p.h, head = bh % p.h;
-  const int C = p.chunk;
-  const int64_t nc = (p.t + C - 1) / C;
-  const T* rg = static_cast<const T*>(p.r) + b * p.r_sb + head * p.r_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + head * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + head * p.v_sh;
-  const float* wg = p.w + b * p.w_sb + head * p.w_sh;
-  const float* dog = p.dout + b * p.o_sb + head * p.o_sh;
-  const float* ug = p.u + head * D;
-  const int64_t g0 = b * p.g_sb + head * p.g_sh;
-  float* states = p.states + bh * nc * D * D;
-
-  // chunk c's rows of a (B, H, T, D) input as a 64-row f32 tile, the rows
-  // past the chunk or past T as zeros
-  auto load = [&](float* dst, auto src, int64_t st, int64_t c) {
-    for (int i = tid; i < kRows * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const int64_t pos = c * C + t;
-      dst[t * LD + d] = t < C && pos < p.t ? to_f32(src[pos * st + d]) : 0.f;
-    }
-  };
-  // LA = cumsum of log max(w, 1e-30) down each channel (the rows past the
-  // chunk or T are w = 1, log 0)
-  auto load_la = [&](int64_t c) {
-    for (int i = tid; i < kRows * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const int64_t pos = c * C + t;
-      LA[t * LD + d] = t < C && pos < p.t
-          ? logf(fmaxf(wg[pos * p.w_st + d], kWFloor)) : 0.f;
-    }
-    __syncthreads();
-    if (tid < D) {
-      float run = 0.f;
-      for (int t = 0; t < kRows; ++t) {
-        run += LA[t * LD + tid];
-        LA[t * LD + tid] = run;
-      }
-    }
-    __syncthreads();
-  };
-  const float* lam = LA + (kRows - 1) * LD;
-
-  // ---- forward: each chunk's incoming state to the scratch buffer
-  for (int i = tid; i < D * D; i += kThreads)
-    S[(i / D) * LD + i % D] = p.s0 ? p.s0[bh * D * D + i] : 0.f;
-  for (int64_t c = 0; c < nc; ++c) {
-    __syncthreads();
-    for (int i = tid; i < D * D; i += kThreads)
-      states[c * D * D + i] = S[(i / D) * LD + i % D];
-    if (c + 1 == nc) break;
-    load(K, kg, p.k_st, c);
-    load(V, vg, p.v_st, c);
-    load_la(c);
-    for (int i = tid; i < kRows * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      KT[t * LD + d] = K[t * LD + d] * __expf(lam[d] - LA[t * LD + d]);
-    }
-    __syncthreads();
-    float acc[ND][ND];
+// A chunk's rows [0, CP) of a (T, D) operand, loaded all at once (every
+// global load of the thread is in flight before its first use): put(t, d,
+// value) for each, the rows past the chunk or T as `pad`.
+template <int D, typename S, typename F>
+__device__ __forceinline__ void load_rows(int cp, int c, int64_t t0,
+                                          int64_t t_end, const S* src,
+                                          int64_t stride, S pad, F put) {
+  constexpr int kIt = kMaxChunk * D / kThreads;
+  S vals[kIt];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      const float dl = __expf(lam[ty + 16 * i]);
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-        acc[i][j] = dl * S[(ty + 16 * i) * LD + tx + 16 * j];
-    }
-    for (int t = 0; t < kRows; ++t) {
-      float kd[ND], vv[ND];
-#pragma unroll
-      for (int i = 0; i < ND; ++i) {
-        kd[i] = KT[t * LD + ty + 16 * i];
-        vv[i] = V[t * LD + tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < ND; ++i)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(kd[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-        S[(ty + 16 * i) * LD + tx + 16 * j] = acc[i][j];
+  for (int n = 0; n < kIt; ++n) {
+    const int i = threadIdx.x + n * kThreads, t = i / D, d = i % D;
+    const int64_t pos = t0 + t;
+    vals[n] = t < c && pos < t_end ? src[pos * stride + d] : pad;
   }
+#pragma unroll
+  for (int n = 0; n < kIt; ++n) {
+    const int i = threadIdx.x + n * kThreads, t = i / D, d = i % D;
+    if (t < cp) put(t, d, vals[n]);
+  }
+}
 
-  // ---- the reverse sweep
-  for (int i = tid; i < D * D; i += kThreads)
-    DS[(i / D) * LD + i % D] = p.ds_final ? p.ds_final[bh * D * D + i] : 0.f;
-  float du_acc = 0.f;  // threads < D: channel tid
-  for (int64_t c = nc - 1; c >= 0; --c) {
-    __syncthreads();
-    load(R, rg, p.r_st, c);
-    load(K, kg, p.k_st, c);
-    load(V, vg, p.v_st, c);
-    load(DO, dog, p.o_st, c);
-    for (int i = tid; i < D * D; i += kThreads)
-      S[(i / D) * LD + i % D] = states[c * D * D + i];
-    load_la(c);
+// A chunk's rows [0, CP) of a (T, D) operand into dst (pitch `pitch`, rows
+// 16-byte aligned) by 16-byte cp.async copies, all in flight together
+// (the caller commits and waits); the rows past the chunk or T are
+// stored as `pad`.  Source rows that are not 16-byte aligned (an odd
+// view) go through registers instead, with the same values.
+template <int D, typename S>
+__device__ __forceinline__ void stage_rows(S* dst, int pitch, int cp, int c,
+                                           int64_t t0, int64_t t_end,
+                                           const S* src, int64_t stride,
+                                           S pad) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(S));  // elements a copy
+  constexpr int kQ = D / kV;                             // copies a row
+  const bool aligned = reinterpret_cast<uintptr_t>(src) % 16 == 0
+                       && (stride * static_cast<int64_t>(sizeof(S))) % 16 == 0;
+  if (!aligned) {
+    load_rows<D>(cp, c, t0, t_end, src, stride, pad,
+                 [&](int t, int d, S x) { dst[t * pitch + d] = x; });
+    return;
+  }
+  for (int i = threadIdx.x; i < cp * kQ; i += kThreads) {
+    const int t = i / kQ, q = i % kQ;
+    const int64_t pos = t0 + t;
+    S* to = dst + t * pitch + q * kV;
+    if (t < c && pos < t_end) {
+      cp_async16(to, src + pos * stride + q * kV);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kV; ++e) to[e] = pad;
+    }
+  }
+}
 
-    // the tables of the factored decays, r~ and k~, rd
-    if (tid < D) {
-      const int d = tid;
-      float e[kParts];
-#pragma unroll
-      for (int q = 0; q < kParts; ++q) e[q] = LA[(kPart * q + kPart - 1) * LD + d];
-#pragma unroll
-      for (int q = 0; q < kParts; ++q) {
-        const float prev = q ? e[q > 0 ? q - 1 : 0] : 0.f;
-        EE[q * D + d] = __expf(prev);
-        EL[q * D + d] = __expf(lam[d] - e[q]);
-#pragma unroll
-        for (int j = 0; j < q; ++j)
-          G[(q * kParts + j) * D + d] = __expf(prev - e[j]);
-      }
-    } else if (tid >= kThreads - kRows) {
-      const int t = tid - (kThreads - kRows);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d)
-        s = fmaf(R[t * LD + d] * ug[d], K[t * LD + d], s);
-      RD[t] = s;
-    }
-    for (int i = tid; i < kRows * D; i += kThreads) {
-      const int t = i / D, d = i % D, q = t / kPart;
-      const float lp = t ? LA[(t - 1) * LD + d] : 0.f;
-      const float e_prev = q ? LA[(kPart * q - 1) * LD + d] : 0.f;
-      const float e_end = LA[(kPart * q + kPart - 1) * LD + d];
-      RT[t * LD + d] = R[t * LD + d] * __expf(lp - e_prev);
-      KT[t * LD + d] = K[t * LD + d] * __expf(e_end - LA[t * LD + d]);
-    }
-    __syncthreads();
+// Launch 1's shared memory (bytes): la (then kd in place), r e^lp and dO
+// as float32 (cp x (D + 4)), v in its own type, the cumsum's segment
+// totals and drd.
+template <typename T, int D>
+struct LocalLayout {
+  static constexpr int LD = D + 4;  // rows 16-byte aligned, for cp.async
+  static constexpr int LV = D + (sizeof(T) == 2 ? 8 : 4);
+  size_t la, rq, dout, tot, drd, lam, v, bytes;
+  __host__ __device__ explicit LocalLayout(int c) {
+    const int cp = padded_rows(c);
+    const size_t tile = round16(sizeof(float) * cp * LD);
+    la = 0;
+    rq = la + tile;
+    dout = rq + tile;
+    tot = dout + tile;
+    drd = tot + sizeof(float) * kThreads;
+    lam = drd + sizeof(float) * kMaxChunk;
+    v = lam + sizeof(float) * D;
+    bytes = v + round16(sizeof(T) * cp * LV);
+  }
+};
 
-    // the (t, j) plane: dM and drd from dO V^T, and M; thread (ty, tx)
-    // holds (t, j) = (ty + 16 i, tx + 16 jj), so block (i, jj) of the plane
-    {
-      float gacc[kParts][kParts], macc[kParts][kParts];
-#pragma unroll
-      for (int i = 0; i < kParts; ++i)
-#pragma unroll
-        for (int j = 0; j < kParts; ++j) gacc[i][j] = macc[i][j] = 0.f;
-      for (int e = 0; e < D; ++e) {
-        float dov[kParts], vv[kParts];
-#pragma unroll
-        for (int i = 0; i < kParts; ++i) {
-          dov[i] = DO[(ty + 16 * i) * LD + e];
-          vv[i] = V[(tx + 16 * i) * LD + e];
-        }
-#pragma unroll
-        for (int i = 0; i < kParts; ++i)
-#pragma unroll
-          for (int j = 0; j < kParts; ++j)
-            gacc[i][j] = fmaf(dov[i], vv[j], gacc[i][j]);
-      }
-      for (int d = 0; d < D; ++d) {
-        float rt[kParts], kt[kParts];
-#pragma unroll
-        for (int i = 0; i < kParts; ++i) {
-          rt[i] = RT[(ty + 16 * i) * LD + d];
-          kt[i] = KT[(tx + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int i = 1; i < kParts; ++i)
-#pragma unroll
-          for (int j = 0; j < i; ++j)
-            macc[i][j] = fmaf(rt[i], kt[j] * G[(i * kParts + j) * D + d],
-                              macc[i][j]);
-        if (ty > tx) {
-#pragma unroll
-          for (int i = 0; i < kParts; ++i) {
-            const int t = ty + 16 * i, j = tx + 16 * i;
-            macc[i][i] = fmaf(R[t * LD + d] * K[j * LD + d],
-                              __expf(LA[(t - 1) * LD + d] - LA[j * LD + d]),
-                              macc[i][i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kParts; ++i)
-#pragma unroll
-        for (int j = 0; j < kParts; ++j) {
-          const int t = ty + 16 * i, jj = tx + 16 * j;
-          PDM[t * LP + jj] = jj < t ? gacc[i][j] : 0.f;
-          PM[t * LP + jj] = jj < t ? macc[i][j] : 0.f;
-          if (jj == t) DRD[t] = gacc[i][j];
-        }
-    }
-    __syncthreads();
+// Launch 1, grid (chunks, B * H): U_c = kd^T V, W_c = (r e^lp)^T dO,
+// e^lam and chunk c's share of du into the scratch buffer.  About 62 KB of
+// shared memory at D = 64 (bf16): three blocks an SM (two for float32
+// r/k/v, whose register copies need more than a third of the file).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 2)
+    wkv6_bwd_local_kernel(BwdParams p) {
+  using L = LocalLayout<T, D>;
+  constexpr int LD = L::LD, LV = L::LV, kSegs = kThreads / D;
+  constexpr bool kExactV = sizeof(T) == 2;
+  const int C = p.chunk, CP = padded_rows(C);
+  const L lay(C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* LA = reinterpret_cast<float*>(smem + lay.la);
+  float* KD = LA;  // kd in place of la, once r e^lp is taken
+  float* RQ = reinterpret_cast<float*>(smem + lay.rq);
+  float* DO = reinterpret_cast<float*>(smem + lay.dout);
+  float* TOT = reinterpret_cast<float*>(smem + lay.tot);
+  float* DRD = reinterpret_cast<float*>(smem + lay.drd);
+  float* LAM = reinterpret_cast<float*>(smem + lay.lam);
+  T* V = reinterpret_cast<T*>(smem + lay.v);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t nc = gridDim.x;
+  const BwdRows<T> in(p, blockIdx.y, blockIdx.x);
+  const BwdScratch sc = bwd_scratch(p.scratch, p.bh, nc, D);
+  const int64_t slot = in.bh * nc + in.c;
 
-    // (row, channel) outputs: thread (ty, tx) holds rows ty + 16 i (of
-    // sub-chunk i) and channels tx + 16 jj
-    float dv[kParts][ND], drn[kParts][ND], dkn[kParts][ND], kx[kParts][ND];
+  // w, v and dO by cp.async (the rows past the chunk or T as identity
+  // tokens, w = 1, v = dO = 0), r and k into registers meanwhile: one
+  // round trip to device memory
+  stage_rows<D>(LA, LD, CP, C, in.t0, p.t, in.w, p.w_st, 1.f);
+  stage_rows<D>(V, LV, CP, C, in.t0, p.t, in.v, p.v_st, static_cast<T>(0.f));
+  stage_rows<D>(DO, LD, CP, C, in.t0, p.t, in.dout, p.o_st, 0.f);
+  cp_async_commit();
+  constexpr int kIt = kMaxChunk * D / kThreads;
+  T kv[kIt], rv[kIt];
 #pragma unroll
-    for (int i = 0; i < kParts; ++i)
+  for (int n = 0; n < kIt; ++n) {
+    const int i = tid + n * kThreads, t = i / D, d = i % D;
+    const int64_t pos = in.t0 + t;
+    const bool ok = t < C && pos < p.t;
+    kv[n] = ok ? in.k[pos * p.k_st + d] : static_cast<T>(0.f);
+    rv[n] = ok ? in.r[pos * p.r_st + d] : static_cast<T>(0.f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  cumsum_log_rows<D, LD>(LA, TOT, CP);
+  for (int t = warp; t < CP; t += kThreads / 32) {  // drd_t = dO_t . v_t
+    float s = 0.f;
+    for (int e = lane; e < D; e += 32)
+      s = fmaf(DO[t * LD + e], to_f32(V[t * LV + e]), s);
+    s = warp_sum(s);
+    if (lane == 0) DRD[t] = s;
+  }
+  if (tid < D) LAM[tid] = LA[(CP - 1) * LD + tid];
+  // r e^lp (lp = la of the row before); then, after a barrier, kd = k
+  // e^(lam - la) in place of la
 #pragma unroll
-      for (int j = 0; j < ND; ++j) dv[i][j] = drn[i][j] = dkn[i][j] = 0.f;
-    // dv = M^T dO + kd dS^T
-    for (int s = 0; s < kRows; ++s) {
-      float pm[kParts], dov[ND];
+  for (int n = 0; n < kIt; ++n) {
+    const int i = tid + n * kThreads, t = i / D, d = i % D;
+    if (t < CP)
+      RQ[t * LD + d] = to_f32(rv[n]) * __expf(t ? LA[(t - 1) * LD + d] : 0.f);
+  }
+  __syncthreads();
+  // du's terms drd_t r_t k_t: channel tid % D, the thread's rows, then the
+  // segments in order
+  float du = 0.f;
 #pragma unroll
-      for (int i = 0; i < kParts; ++i) pm[i] = PM[s * LP + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < ND; ++j) dov[j] = DO[s * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kParts; ++i)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) dv[i][j] = fmaf(pm[i], dov[j], dv[i][j]);
+  for (int n = 0; n < kIt; ++n) {
+    const int i = tid + n * kThreads, t = i / D, d = i % D;
+    if (t < CP) {
+      const float k_f = to_f32(kv[n]);
+      KD[t * LD + d] = k_f * __expf(LAM[d] - LA[t * LD + d]);
+      du = fmaf(DRD[t] * to_f32(rv[n]), k_f, du);
     }
-    for (int d = 0; d < D; ++d) {
-      float kd[kParts], ds[ND];
+  }
+  TOT[tid] = du;  // (segment, channel)
+  __syncthreads();
+  if (tid < D) {
+    float s = 0.f;
+    for (int seg = 0; seg < kSegs; ++seg) s += TOT[seg * D + tid];
+    sc.du[slot * D + tid] = s;
+    sc.decay[slot * D + tid] = __expf(LAM[tid]);
+  }
+  // U (rows d_k, columns d_v) and W
+  const WarpTiles wt(D, D, warp);
+  float acc[4][4];
+  const int lane_g = lane / 4, lane_t2 = 2 * (lane % 4);
+  auto put = [&](float* out) {
 #pragma unroll
-      for (int i = 0; i < kParts; ++i)
-        kd[i] = KT[(ty + 16 * i) * LD + d] * EL[i * D + d];
-#pragma unroll
-      for (int j = 0; j < ND; ++j) ds[j] = DS[d * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kParts; ++i)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) dv[i][j] = fmaf(kd[i], ds[j], dv[i][j]);
+    for (int j = 0; j < 4; ++j) {
+      const int n8 = wt.nt + j * wt.n_step;
+      if (n8 >= wt.n_tiles) break;
+      const int row = 16 * wt.mt + lane_g, col = 8 * n8 + lane_t2;
+      *reinterpret_cast<float2*>(out + row * D + col) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + (row + 8) * D + col) =
+          make_float2(acc[j][2], acc[j][3]);
     }
-    // state parts: Y = dO S^T into drn, X = V dS^T into dkn
-    for (int e = 0; e < D; ++e) {
-      float dov[kParts], vv[kParts], sv[ND], dsv[ND];
+  };
+  zero(acc);
+  warp_mma<kExactV>(
+      acc, wt.mt, wt.nt, wt.n_step, wt.n_tiles, 0, CP / 16,
+      [&](int m, int k) { return KD[k * LD + m]; },
+      [&](int k, int n) { return to_f32(V[k * LV + n]); });
+  put(sc.s + slot * D * D);
+  zero(acc);
+  warp_mma<false>(
+      acc, wt.mt, wt.nt, wt.n_step, wt.n_tiles, 0, CP / 16,
+      [&](int m, int k) { return RQ[k * LD + m]; },
+      [&](int k, int n) { return DO[k * LD + n]; });
+  put(sc.ds + slot * D * D);
+}
+
+// Launch 2: blockIdx.y 0 folds U_c into S_c forward from s0, 1 folds W_c
+// into dS_c backward from ds_final and writes ds0, 2 sums du over the
+// chunks; one thread a float4 of a head's D x D (a channel for du).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    wkv6_bwd_fold_kernel(BwdParams p, int64_t nc) {
+  constexpr int kN4 = D * D / 4;
+  const BwdScratch sc = bwd_scratch(p.scratch, p.bh, nc, D);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int role = blockIdx.y;
+  if (role == 2) {
+    if (i >= p.bh * D) return;
+    const int64_t bh = i / D;
+    const int d = static_cast<int>(i % D);
+    float s = 0.f;
+    for (int64_t c = 0; c < nc; ++c) s += sc.du[(bh * nc + c) * D + d];
+    p.du[i] = s;
+    return;
+  }
+  if (i >= p.bh * kN4) return;
+  const int64_t bh = i / kN4;
+  const int i4 = static_cast<int>(i % kN4), d = 4 * i4 / D;
+  float4* slots = reinterpret_cast<float4*>(role == 0 ? sc.s : sc.ds)
+                  + bh * nc * kN4 + i4;
+  const float* decay = sc.decay + bh * nc * D + d;
+  const float* init = role == 0 ? p.s0 : p.ds_final;
+  float4 s = init ? reinterpret_cast<const float4*>(init)[bh * kN4 + i4]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  // kBatch chunks' loads in flight at once, then their steps in order
+  constexpr int kBatch = 8;
+  for (int64_t n0 = 0; n0 < nc; n0 += kBatch) {
+    float4 x[kBatch];
+    float a[kBatch];
 #pragma unroll
-      for (int i = 0; i < kParts; ++i) {
-        dov[i] = DO[(ty + 16 * i) * LD + e];
-        vv[i] = V[(ty + 16 * i) * LD + e];
+    for (int j = 0; j < kBatch; ++j) {
+      const int64_t n = n0 + j;
+      const int64_t c = role == 0 ? n : nc - 1 - n;
+      if (n < nc) {
+        x[j] = slots[c * kN4];
+        a[j] = decay[c * D];
       }
+    }
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        sv[j] = S[(tx + 16 * j) * LD + e];
-        dsv[j] = DS[(tx + 16 * j) * LD + e];
-      }
+    for (int j = 0; j < kBatch; ++j) {
+      const int64_t n = n0 + j;
+      if (n >= nc) break;
+      const int64_t c = role == 0 ? n : nc - 1 - n;
+      slots[c * kN4] = s;
+      s = make_float4(fmaf(a[j], s.x, x[j].x), fmaf(a[j], s.y, x[j].y),
+                      fmaf(a[j], s.z, x[j].z), fmaf(a[j], s.w, x[j].w));
+    }
+  }
+  if (role == 1) reinterpret_cast<float4*>(p.ds0)[bh * kN4 + i4] = s;
+}
+
+// Launch 3's shared memory (bytes): r, k, v in their own type, dO, la and
+// k~ as float32 (cp x (D + 4)), the plane's blocks on and below the
+// diagonal (kPart x (kPart + 1) each), the D x D tile (D x (D + 4), or cp
+// rows when more), and the tables.
+template <typename T, int D>
+struct GradLayout {
+  static constexpr int LD = D + 4;  // rows 16-byte aligned, for cp.async
+  static constexpr int LE = D + (sizeof(T) == 2 ? 8 : 4);
+  static constexpr int LV = LE;
+  static constexpr int SP = D + 4;
+  static constexpr int LB = kPart + 1;
+  static constexpr int kBlock = kPart * LB;  // floats of a plane block
+  size_t r, k, v, dout, la, kt, plane, x, g, el, ee, rd, drd, kxs, ssum,
+      tot, dlam, bytes;
+  __host__ __device__ explicit GradLayout(int c) {
+    const int cp = padded_rows(c), parts = cp / kPart;
+    const size_t tile = round16(sizeof(float) * cp * LD);
+    r = 0;
+    k = r + round16(sizeof(T) * cp * LE);
+    v = k + round16(sizeof(T) * cp * LE);
+    dout = v + round16(sizeof(T) * cp * LV);
+    la = dout + tile;
+    kt = la + tile;
+    plane = kt + tile;
+    x = plane + round16(sizeof(float) * parts * (parts + 1) / 2 * kBlock);
+    const size_t xs = static_cast<size_t>(D) * SP;
+    const size_t ws = static_cast<size_t>(cp) * LD;
+    g = x + round16(sizeof(float) * (xs > ws ? xs : ws));
+    el = g + sizeof(float) * kMaxParts * (kMaxParts - 1) / 2 * D;
+    ee = el + sizeof(float) * kMaxParts * D;
+    rd = ee + sizeof(float) * kMaxParts * D;
+    drd = rd + sizeof(float) * kMaxChunk;
+    kxs = drd + sizeof(float) * kMaxChunk;
+    ssum = kxs + sizeof(float) * kMaxParts * D;
+    tot = ssum + sizeof(float) * D;
+    dlam = tot + sizeof(float) * kThreads;
+    bytes = dlam + sizeof(float) * D;
+  }
+};
+
+// Launch 3, grid (B * H, chunks): chunk c's dr, dk, dv and dw from S_c and
+// dS_c (see the note above).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    wkv6_bwd_grad_kernel(BwdParams p, int64_t nc) {
+  using L = GradLayout<T, D>;
+  constexpr int LD = L::LD, LE = L::LE, LV = L::LV, SP = L::SP, LB = L::LB;
+  constexpr int kBlock = L::kBlock, kSegs = kThreads / D;
+  constexpr bool kExact = sizeof(T) == 2;
+  const int C = p.chunk, CP = padded_rows(C), parts = CP / kPart;
+  const L lay(C);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* R = reinterpret_cast<T*>(smem + lay.r);
+  T* K = reinterpret_cast<T*>(smem + lay.k);
+  T* V = reinterpret_cast<T*>(smem + lay.v);
+  float* DO = reinterpret_cast<float*>(smem + lay.dout);
+  float* LA = reinterpret_cast<float*>(smem + lay.la);
+  float* KT = reinterpret_cast<float*>(smem + lay.kt);
+  float* PL = reinterpret_cast<float*>(smem + lay.plane);
+  float* X = reinterpret_cast<float*>(smem + lay.x);
+  float* G = reinterpret_cast<float*>(smem + lay.g);     // [I(I-1)/2 + J][D]
+  float* EL = reinterpret_cast<float*>(smem + lay.el);   // [J][D] e^(lam-E_J)
+  float* EE = reinterpret_cast<float*>(smem + lay.ee);   // [I][D] e^E_{I-1}
+  float* RD = reinterpret_cast<float*>(smem + lay.rd);
+  float* DRD = reinterpret_cast<float*>(smem + lay.drd);
+  float* KXS = reinterpret_cast<float*>(smem + lay.kxs);  // [J][D]
+  float* SSUM = reinterpret_cast<float*>(smem + lay.ssum);
+  float* TOT = reinterpret_cast<float*>(smem + lay.tot);
+  float* DLAM = reinterpret_cast<float*>(smem + lay.dlam);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const BwdScratch sc = bwd_scratch(p.scratch, p.bh, nc, D);
+  const T zero_t = static_cast<T>(0.f);
+  const BwdRows<T> in(p, blockIdx.x, blockIdx.y);
+  const int64_t slot = in.bh * nc + in.c;
+  const float* ug = p.u + (in.bh % p.h) * D;
+  T* dr = static_cast<T*>(p.dr) + in.g0;
+  T* dk = static_cast<T*>(p.dk) + in.g0;
+  T* dv = static_cast<T*>(p.dv) + in.g0;
+
+  // the plane's element (t, j), block (t / kPart, j / kPart) on or below
+  // the diagonal
+  auto pl = [&](int t, int j) -> float& {
+    const int bi = t / kPart;
+    return PL[(bi * (bi + 1) / 2 + j / kPart) * kBlock + (t % kPart) * LB
+              + j % kPart];
+  };
+  auto e_row = [&](int q) { return LA + (kPart * q + kPart - 1) * LD; };
+  // r~ = r e^(lp - E_{I-1}) for a row t of sub-chunk I >= 1
+  auto rt = [&](int t, int d) {
+    const float* e_prev = LA + ((t / kPart) * kPart - 1) * LD;
+    return to_f32(R[t * LE + d]) * __expf(LA[(t - 1) * LD + d] - e_prev[d]);
+  };
+  auto valid = [&](int row) { return row < C && in.t0 + row < p.t; };
+  // the diagonal block's share of dk (is_dk) or dr, into out (CP x LD), a
+  // thread a (sub-chunk, channel).  Inside a sub-chunk e^(lp_t - la_j) =
+  // prod_{m = j + 1}^{t - 1} w_m with w_m = e^(la_m - la_(m-1)): running
+  // products of 15 exps a thread, where a pair's own exp would take 120
+  // (the products telescope to the same la differences).
+  auto diag_pass = [&](bool is_dk, float* out) {
+    const int q = tid / D, c = tid % D;
+    if (q >= parts) return;
+    const int t0r = kPart * q;
+    float om[kPart], xv[kPart];
 #pragma unroll
-      for (int i = 0; i < kParts; ++i)
+    for (int m = 0; m < kPart; ++m) {
+      om[m] = m ? __expf(LA[(t0r + m) * LD + c] - LA[(t0r + m - 1) * LD + c])
+                : 1.f;
+      xv[m] = to_f32(is_dk ? R[(t0r + m) * LE + c] : K[(t0r + m) * LE + c]);
+    }
+    const float* blk = &pl(t0r, t0r);
+    if (is_dk) {  // dk_j = sum_{t > j} dM_tj r_t e^(lp_t - la_j)
 #pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          drn[i][j] = fmaf(dov[i], sv[j], drn[i][j]);
-          dkn[i][j] = fmaf(vv[i], dsv[j], dkn[i][j]);
+      for (int jj = 0; jj < kPart; ++jj) {
+        float f = 1.f, acc_d = 0.f;
+#pragma unroll
+        for (int tt = jj + 1; tt < kPart; ++tt) {
+          acc_d = fmaf(blk[tt * LB + jj] * xv[tt], f, acc_d);
+          f *= om[tt];
         }
-    }
-#pragma unroll
-    for (int i = 0; i < kParts; ++i)
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const int t = ty + 16 * i, d = tx + 16 * j;
-        const float la = LA[t * LD + d];
-        drn[i][j] *= __expf((t ? LA[(t - 1) * LD + d] : 0.f));
-        dkn[i][j] *= __expf(lam[d] - la);
-        kx[i][j] = K[t * LD + d] * dkn[i][j];
+        out[(t0r + jj) * LD + c] = acc_d;
       }
-    // the intra-chunk parts through the plane's blocks: below the diagonal
-    // by the factored decays, on it one exp per (t, j < t, d)
+    } else {  // dr_t = sum_{j < t} dM_tj k_j e^(lp_t - la_j)
 #pragma unroll
-    for (int i = 0; i < kParts; ++i) {
-      const int t = ty + 16 * i;
+      for (int tt = 0; tt < kPart; ++tt) {
+        float f = 1.f, acc_d = 0.f;
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const int d = tx + 16 * j;
-        const float lp = t ? LA[(t - 1) * LD + d] : 0.f;
-        const float lt = LA[t * LD + d];
-        // dr: rows of sub-chunk i against the columns of sub-chunks q < i
-        float acc = 0.f;
-        for (int q = 0; q < i; ++q) {
-          float part = 0.f;
-          for (int jr = kPart * q; jr < kPart * q + kPart; ++jr)
-            part = fmaf(PDM[t * LP + jr], KT[jr * LD + d], part);
-          acc = fmaf(G[(i * kParts + q) * D + d], part, acc);
+        for (int jj = tt - 1; jj >= 0; --jj) {
+          acc_d = fmaf(blk[tt * LB + jj] * xv[jj], f, acc_d);
+          f *= om[jj];
         }
-        if (i) acc *= __expf(lp - LA[(kPart * i - 1) * LD + d]);
-        for (int jr = kPart * i; jr < t; ++jr)
-          acc = fmaf(PDM[t * LP + jr] * K[jr * LD + d],
-                     __expf(lp - LA[jr * LD + d]), acc);
-        drn[i][j] += acc;
-        // dk: column t (as j) of sub-chunk i against the rows of q > i
-        acc = 0.f;
-        for (int q = i + 1; q < kParts; ++q) {
-          float part = 0.f;
-          for (int tr = kPart * q; tr < kPart * q + kPart; ++tr)
-            part = fmaf(PDM[tr * LP + t], RT[tr * LD + d], part);
-          acc = fmaf(G[(q * kParts + i) * D + d], part, acc);
+        out[(t0r + tt) * LD + c] = acc_d;
+      }
+    }
+  };
+  const float* s_c = sc.s + slot * D * D;  // S_c
+  constexpr int kSq4 = D * D / 4 / kThreads > 0 ? D * D / 4 / kThreads : 1;
+
+  // ---- the chunk's tiles (the rows past the chunk or T as identity
+  // tokens) and dS_c by cp.async in three groups: w; r and k; v, dO and
+  // dS_c, each awaited just before its first use; S_c (read after dk) is
+  // prefetched into L2 meanwhile
+  stage_rows<D>(LA, LD, CP, C, in.t0, p.t, in.w, p.w_st, 1.f);
+  cp_async_commit();
+  stage_rows<D>(R, LE, CP, C, in.t0, p.t, in.r, p.r_st, zero_t);
+  stage_rows<D>(K, LE, CP, C, in.t0, p.t, in.k, p.k_st, zero_t);
+  cp_async_commit();
+  stage_rows<D>(V, LV, CP, C, in.t0, p.t, in.v, p.v_st, zero_t);
+  stage_rows<D>(DO, LD, CP, C, in.t0, p.t, in.dout, p.o_st, 0.f);
+  {
+    const float* ds = sc.ds + slot * D * D;
+    for (int i = tid; i < D * D / 4; i += kThreads)
+      cp_async16(X + (4 * i / D) * SP + 4 * i % D, ds + 4 * i);
+    const char* s_next = reinterpret_cast<const char*>(s_c);
+    for (int i = tid; i < D * D * 4 / 128; i += kThreads)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(s_next + 128 * i));
+  }
+  cp_async_commit();
+  asm volatile("cp.async.wait_group 2;\n" ::);  // w
+  __syncthreads();
+  cumsum_log_rows<D, LD>(LA, TOT, CP);
+  const float* lam = LA + (CP - 1) * LD;
+
+  // ---- the tables, k~ and rd
+  for (int i = tid; i < parts * D; i += kThreads) {
+    const int q = i / D, d = i % D;
+    const float prev = q ? e_row(q - 1)[d] : 0.f;
+    EE[q * D + d] = __expf(prev);
+    EL[q * D + d] = __expf(lam[d] - e_row(q)[d]);
+    for (int j = 0; j < q; ++j)
+      G[(q * (q - 1) / 2 + j) * D + d] = __expf(prev - e_row(j)[d]);
+  }
+  asm volatile("cp.async.wait_group 1;\n" ::);  // r and k
+  __syncthreads();
+  constexpr int kIt = kMaxChunk * D / kThreads;
+#pragma unroll
+  for (int n = 0; n < kIt; ++n) {
+    const int i = tid + n * kThreads, t = i / D, d = i % D;
+    if (t < CP)
+      KT[t * LD + d] = to_f32(K[t * LE + d])
+                       * __expf(e_row(t / kPart)[d] - LA[t * LD + d]);
+  }
+  for (int t = warp; t < CP; t += kThreads / 32) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32)
+      s = fmaf(to_f32(R[t * LE + d]) * ug[d], to_f32(K[t * LE + d]), s);
+    s = warp_sum(s);
+    if (lane == 0) RD[t] = s;
+  }
+  __syncthreads();
+
+  // ---- M: below the diagonal blocks on the tensor cores, r~ (k~ g)
+  {
+    const WarpTiles wt(CP, CP, warp);
+    const int bi = wt.mt, lim = min(wt.n_tiles, 2 * bi);
+    if (bi > 0 && lim > 0) {
+      float acc[4][4];
+      zero(acc);
+      const float* gi = G + (bi * (bi - 1) / 2) * D;
+      warp_mma<false>(
+          acc, wt.mt, wt.nt, wt.n_step, lim, 0, D / 16,
+          [&](int m, int k) { return rt(m, k); },
+          [&](int k, int n) {
+            return KT[n * LD + k] * gi[(n / kPart) * D + k];
+          });
+      for_acc(wt, lim, [&](int j, int e, int row, int col) {
+        pl(row, col) = acc[j][e];
+      });
+    }
+  }
+  // the diagonal blocks: zeros on and above the diagonal; below it, the
+  // pairs with t in the block's last 8 rows and j in its first 8 on the
+  // tensor cores, e^(lp_t - la_j) = e^(lp_t - E8) e^(E8 - la_j) with E8
+  // the la of the block's row 7 (both factors <= 1; warps 0 and 4, idle in
+  // the products above), and the pairs within either 8 rows with one exp
+  // per (t, j < t, d).  For those a thread takes rows pp and 7 - pp of an
+  // 8-row half (7 pairs between them, sharing the loads of k_j and la_j)
+  // over every kSlices-th channel; the kSlices threads of a row pair are
+  // adjacent lanes and add their sums by shuffles, in a fixed order.
+  for (int i = tid; i < parts * kPart * kPart; i += kThreads) {
+    const int q = i / (kPart * kPart), tt = (i / kPart) % kPart;
+    const int jj = i % kPart;
+    if (jj >= tt) pl(kPart * q + tt, kPart * q + jj) = 0.f;
+  }
+  for (int q = warp % 4 == 0 ? warp / 4 : parts; q < parts; q += 2) {
+    float acc[4][4];
+    zero(acc);
+    const float* e8 = LA + (kPart * q + kHalfPart - 1) * LD;
+    warp_mma<false>(
+        acc, q, 2 * q, 1, 2 * q + 1, 0, D / 16,
+        [&](int m, int k) {
+          return m % kPart < kHalfPart ? 0.f
+              : to_f32(R[m * LE + k]) * __expf(LA[(m - 1) * LD + k] - e8[k]);
+        },
+        [&](int k, int n) {
+          return to_f32(K[n * LE + k]) * __expf(e8[k] - LA[n * LD + k]);
+        });
+    const int row = kPart * q + kHalfPart + lane / 4;
+    const int col = kPart * q + 2 * (lane % 4);
+    pl(row, col) = acc[0][2];
+    pl(row, col + 1) = acc[0][3];
+  }
+  {
+    constexpr int kSlices = 8, kQuarter = kHalfPart / 2;
+    const int sl = tid % kSlices, item = tid / kSlices;
+    const int q = item / kHalfPart, pp = item % kQuarter;
+    const int base = kPart * q + kHalfPart * ((item / kQuarter) % 2);
+    const int t1 = base + pp, t2 = base + kHalfPart - 1 - pp;
+    float a1[kQuarter - 1], a2[kHalfPart - 1];
+#pragma unroll
+    for (int jj = 0; jj < kHalfPart - 1; ++jj) {
+      if (jj < kQuarter - 1) a1[jj] = 0.f;
+      a2[jj] = 0.f;
+    }
+    if (q < parts) {
+      for (int n = 0; n < D / kSlices; ++n) {
+        const int d = n * kSlices + sl;
+        const float r1 = to_f32(R[t1 * LE + d]), r2 = to_f32(R[t2 * LE + d]);
+        const float p1 = pp ? LA[(t1 - 1) * LD + d] : 0.f;
+        const float p2 = LA[(t2 - 1) * LD + d];
+#pragma unroll
+        for (int jj = 0; jj < kHalfPart - 1; ++jj) {
+          if (jj >= kHalfPart - 1 - pp) break;
+          const int j = base + jj;
+          const float kv = to_f32(K[j * LE + d]), la = LA[j * LD + d];
+          a2[jj] = fmaf(r2 * kv, __expf(p2 - la), a2[jj]);
+          if (jj < kQuarter - 1 && jj < pp)
+            a1[jj] = fmaf(r1 * kv, __expf(p1 - la), a1[jj]);
         }
-        acc *= __expf(LA[(kPart * i + kPart - 1) * LD + d] - lt);
-        for (int tr = t + 1; tr < kPart * i + kPart; ++tr)
-          acc = fmaf(PDM[tr * LP + t] * R[tr * LD + d],
-                     __expf(LA[(tr - 1) * LD + d] - lt), acc);
-        dkn[i][j] += acc;
       }
     }
-    // the outputs of the chunk's rows, with the bonus terms
 #pragma unroll
-    for (int i = 0; i < kParts; ++i) {
-      const int t = ty + 16 * i;
-      const int64_t pos = c * C + t;
-      const bool out = t < C && pos < p.t;
-      const int64_t at = g0 + pos * p.g_st;
+    for (int jj = 0; jj < kHalfPart - 1; ++jj) {
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const int d = tx + 16 * j;
-        const float rv = R[t * LD + d], kv = K[t * LD + d];
-        const float bon = DRD[t] * ug[d];
-        if (out) {
-          store(static_cast<T*>(p.dr) + at + d, fmaf(bon, kv, drn[i][j]));
-          store(static_cast<T*>(p.dk) + at + d, fmaf(bon, rv, dkn[i][j]));
-          store(static_cast<T*>(p.dv) + at + d,
-                fmaf(RD[t], DO[t * LD + d], dv[i][j]));
-        }
+      for (int off = 1; off < kSlices; off *= 2) {
+        if (jj < kQuarter - 1)
+          a1[jj] += __shfl_xor_sync(0xffffffffu, a1[jj], off);
+        a2[jj] += __shfl_xor_sync(0xffffffffu, a2[jj], off);
       }
     }
-    // dS_in = e^lam dS + (r e^lp)^T dO, r e^lp = r~ e^E_{I-1} (after the
-    // stores, so that dv's registers are free)
-    float dsn[ND][ND];
+    if (q < parts && sl == 0) {
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      const float dl = __expf(lam[ty + 16 * i]);
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-        dsn[i][j] = dl * DS[(ty + 16 * i) * LD + tx + 16 * j];
-    }
-    for (int t = 0; t < kRows; ++t) {
-      float rq[ND], dov[ND];
-#pragma unroll
-      for (int i = 0; i < ND; ++i) {
-        const int d = ty + 16 * i;
-        rq[i] = RT[t * LD + d] * EE[(t / kPart) * D + d];
-        dov[i] = DO[t * LD + tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < ND; ++i)
-#pragma unroll
-        for (int j = 0; j < ND; ++j) dsn[i][j] = fmaf(rq[i], dov[j], dsn[i][j]);
-    }
-    // du and d lam's first term, channel tid
-    float dlam = 0.f;
-    if (tid < D) {
-      const int d = tid;
-      for (int t = 0; t < kRows; ++t)
-        du_acc = fmaf(DRD[t] * R[t * LD + d], K[t * LD + d], du_acc);
-      for (int e = 0; e < D; ++e)
-        dlam = fmaf(S[d * LD + e], DS[d * LD + e], dlam);
-      dlam *= __expf(lam[d]);
-    }
-    __syncthreads();  // every read of the tiles, the planes and dS is done
-    float* Q = RT;   // d la
-    float* P = KT;   // d lp
-    float* KX = PM;  // k * (dk's state part), pitch LD
-#pragma unroll
-    for (int i = 0; i < kParts; ++i)
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const int at = (ty + 16 * i) * LD + tx + 16 * j;
-        P[at] = R[at] * drn[i][j];
-        Q[at] = -K[at] * dkn[i][j];
-        KX[at] = kx[i][j];
-      }
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-        DS[(ty + 16 * i) * LD + tx + 16 * j] = dsn[i][j];
-    __syncthreads();
-    // d log w by a reverse cumsum down channel tid, then dw
-    if (tid < D) {
-      const int d = tid;
-      for (int t = 0; t < kRows; ++t) dlam += KX[t * LD + d];
-      float aq = 0.f, ap = 0.f;
-      for (int t = kRows - 1; t >= 0; --t) {
-        aq += Q[t * LD + d];
-        const float g = dlam + aq + ap;
-        ap += P[t * LD + d];
-        const int64_t pos = c * C + t;
-        if (t < C && pos < p.t) {
-          const float wv = wg[pos * p.w_st + d];
-          p.dw[g0 + pos * p.g_st + d] =
-              wv > kWFloor ? g / wv : (wv == kWFloor ? 0.5f * g / wv : 0.f);
-        }
+      for (int jj = 0; jj < kHalfPart - 1; ++jj) {
+        if (jj < kQuarter - 1 && jj < pp) pl(t1, base + jj) = a1[jj];
+        if (jj < kHalfPart - 1 - pp) pl(t2, base + jj) = a2[jj];
       }
     }
   }
   __syncthreads();
-  if (tid < D) p.du[bh * D + tid] = du_acc;
-  for (int i = tid; i < D * D; i += kThreads)
-    p.ds0[bh * D * D + i] = DS[(i / D) * LD + i % D];
+
+  cp_async_wait_all();  // the third group: v, dO and dS_c
+  __syncthreads();
+
+  // ---- dv = M^T dO + kd dS_c + rd dO, kd = k~ e^(lam - E_J)
+  const WarpTiles ot(CP, D, warp);  // the (row, channel) outputs
+  const int bo = ot.mt;             // their sub-chunk
+  {
+    float acc[4][4];
+    zero(acc);
+    warp_mma<false>(
+        acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, bo, parts,
+        [&](int m, int k) { return pl(k, m); },
+        [&](int k, int n) { return DO[k * LD + n]; });
+    warp_mma<false>(
+        acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, 0, D / 16,
+        [&](int m, int k) { return KT[m * LD + k] * EL[bo * D + k]; },
+        [&](int k, int n) { return X[k * SP + n]; });
+    for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+      if (valid(row))
+        store(dv + (in.t0 + row) * p.g_st + col,
+              fmaf(RD[row], DO[row * LD + col], acc[j][e]));
+    });
+  }
+  __syncthreads();  // every read of M is done
+
+  // ---- dM = dO V^T below the diagonal (zeros on and above it), drd on it
+  {
+    const WarpTiles wt(CP, CP, warp);
+    const int lim = min(wt.n_tiles, 2 * wt.mt + 2);
+    float acc[4][4];
+    zero(acc);
+    warp_mma<kExact>(
+        acc, wt.mt, wt.nt, wt.n_step, lim, 0, D / 16,
+        [&](int m, int k) { return DO[m * LD + k]; },
+        [&](int k, int n) { return to_f32(V[n * LV + k]); });
+    for_acc(wt, lim, [&](int j, int e, int row, int col) {
+      pl(row, col) = col < row ? acc[j][e] : 0.f;
+      if (col == row) DRD[row] = acc[j][e];
+    });
+  }
+  __syncthreads();
+
+  // ---- dk = e^(E_J - la) (e^(lam - E_J) V dS_c^T + sum_{I > J} g_IJ dM^T
+  // r~) + the diagonal block + drd u r; d la = -k (dk - drd u r) and the
+  // column sums of kx = kd (V dS_c^T)
+  float dla[4][4];
+  {
+    float acc[4][4];
+    zero(acc);
+    warp_mma<false, kExact>(
+        acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, 0, D / 16,
+        [&](int m, int k) { return to_f32(V[m * LV + k]); },
+        [&](int k, int n) { return X[n * SP + k]; });
+    // kx's column sums over the m tile's rows, by shuffles over the lanes
+    // of a column (g)
+    const float* ej = e_row(bo);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n8 = ot.nt + j * ot.n_step;
+      if (n8 >= ot.n_tiles) break;
+      float cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * bo + lane / 4 + 8 * (e / 2);
+        const int col = 8 * n8 + 2 * (lane % 4) + e % 2;
+        acc[j][e] *= EL[bo * D + col];
+        cs[e % 2] = fmaf(to_f32(K[row * LE + col])
+                             * __expf(ej[col] - LA[row * LD + col]),
+                         acc[j][e], cs[e % 2]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 4);
+        cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 8);
+        cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 16);
+      }
+      if (lane < 4) {
+        KXS[bo * D + 8 * n8 + 2 * lane] = cs[0];
+        KXS[bo * D + 8 * n8 + 2 * lane + 1] = cs[1];
+      }
+    }
+    const float* gj = G + bo * D;  // g_IJ at [(I (I - 1) / 2 + J) D]
+    warp_mma<false>(
+        acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, bo + 1, parts,
+        [&](int m, int k) { return pl(k, m); },
+        [&](int k, int n) {
+          const int bi = k / kPart;
+          return rt(k, n) * gj[(bi * (bi - 1) / 2) * D + n];
+        });
+    for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+      acc[j][e] *= __expf(ej[col] - LA[row * LD + col]);
+    });
+    __syncthreads();  // every product is done
+    // rowsum(S_c dS_c) while dS_c is in X: a row's float4s are adjacent
+    // lanes of one or two warps; then X takes dk's diagonal
+    {
+      constexpr int kW = D / 4 < 32 ? D / 4 : 32;  // lanes a row
+#pragma unroll
+      for (int n = 0; n < kSq4; ++n) {
+        const int i = tid + n * kThreads;
+        const int d = 4 * i / D, e = 4 * i % D;
+        float prod = 0.f;
+        if (i < D * D / 4) {
+          const float4 sv = reinterpret_cast<const float4*>(s_c)[i];
+          const float4 ds = *reinterpret_cast<const float4*>(X + d * SP + e);
+          prod = sv.x * ds.x + sv.y * ds.y + sv.z * ds.z + sv.w * ds.w;
+        }
+#pragma unroll
+        for (int off = kW / 2; off > 0; off /= 2)
+          prod += __shfl_xor_sync(0xffffffffu, prod, off);
+        if (i < D * D / 4 && lane % kW == 0) SSUM[d] = prod;
+      }
+    }
+    __syncthreads();
+    diag_pass(true, X);
+    __syncthreads();
+    for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+      const float s = acc[j][e] + X[row * LD + col];
+      dla[j][e] = -to_f32(K[row * LE + col]) * s;
+      if (valid(row))
+        store(dk + (in.t0 + row) * p.g_st + col,
+              fmaf(DRD[row] * ug[col], to_f32(R[row * LE + col]), s));
+    });
+  }
+  __syncthreads();  // every read of X is done
+
+  // ---- S_c into X
+#pragma unroll
+  for (int n = 0; n < kSq4; ++n) {
+    const int i = tid + n * kThreads;
+    if (i < D * D / 4)
+      *reinterpret_cast<float4*>(X + (4 * i / D) * SP + 4 * i % D) =
+          reinterpret_cast<const float4*>(s_c)[i];
+  }
+  __syncthreads();
+  if (tid < D) {
+    float s = 0.f;
+    for (int q = 0; q < parts; ++q) s += KXS[q * D + tid];
+    DLAM[tid] = fmaf(__expf(lam[tid]), SSUM[tid], s);
+  }
+
+  // ---- dr = e^(lp - E_{I-1}) (e^E_{I-1} dO S_c^T + sum_{J < I} dM (k~
+  // g_IJ)) + the diagonal block + drd u k; d lp = r (dr - drd u k)
+  float acc[4][4];
+  zero(acc);
+  warp_mma<false>(
+      acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, 0, D / 16,
+      [&](int m, int k) { return DO[m * LD + k]; },
+      [&](int k, int n) { return X[n * SP + k]; });
+  for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+    acc[j][e] *= EE[bo * D + col];
+  });
+  {
+    const float* gi = G + (bo * (bo - 1) / 2) * D;
+    warp_mma<false>(
+        acc, ot.mt, ot.nt, ot.n_step, ot.n_tiles, 0, bo,
+        [&](int m, int k) { return pl(m, k); },
+        [&](int k, int n) {
+          return KT[k * LD + n] * gi[(k / kPart) * D + n];
+        });
+  }
+  for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+    acc[j][e] *= __expf((row ? LA[(row - 1) * LD + col] : 0.f)
+                        - (bo ? e_row(bo - 1)[col] : 0.f));
+  });
+  __syncthreads();  // every product is done: DO, KT and S_c are free
+  // w again, for dw, copied into X while dr finishes; dr's diagonal into
+  // KT, then d lp in its place (each element read and written by its
+  // owner); d la into DO
+  float* WS = X;
+  float* QA = DO;  // d la
+  float* QB = KT;  // dr's diagonal, then d lp
+  stage_rows<D>(WS, LD, CP, C, in.t0, p.t, in.w, p.w_st, 1.f);
+  cp_async_commit();
+  for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+    QA[row * LD + col] = dla[j][e];
+  });
+  diag_pass(false, QB);
+  __syncthreads();
+  for_acc(ot, ot.n_tiles, [&](int j, int e, int row, int col) {
+    const float s = acc[j][e] + QB[row * LD + col];
+    QB[row * LD + col] = to_f32(R[row * LE + col]) * s;
+    if (valid(row))
+      store(dr + (in.t0 + row) * p.g_st + col,
+            fmaf(DRD[row] * ug[col], to_f32(K[row * LE + col]), s));
+  });
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- d log w_s = d la_s + sum_{t > s} (d la_t + d lp_t) + d lam, by a
+  // reverse scan down each channel in kSegs segments; then dw
+  {
+    const int d = tid % D, seg = tid / D;
+    const int per = (CP + kSegs - 1) / kSegs;
+    const int lo = seg * per, hi = min(CP, lo + per);
+    float sum = 0.f;
+    for (int t = lo; t < hi; ++t) sum += QA[t * LD + d] + QB[t * LD + d];
+    TOT[seg * D + d] = sum;
+    __syncthreads();
+    float run = DLAM[d];
+    for (int s = kSegs - 1; s > seg; --s) run += TOT[s * D + d];
+    constexpr int kPer = (kMaxChunk + kSegs - 1) / kSegs;
+#pragma unroll
+    for (int n = kPer - 1; n >= 0; --n) {
+      const int t = lo + n;
+      if (t >= hi) continue;
+      const float a = QA[t * LD + d];
+      const float gw = run + a;
+      run += a + QB[t * LD + d];
+      if (valid(t)) {
+        const float wv = WS[t * LD + d];
+        p.dw[in.g0 + (in.t0 + t) * p.g_st + d] =
+            wv > kWFloor ? gw / wv : (wv == kWFloor ? 0.5f * gw / wv : 0.f);
+      }
+    }
+  }
 }
 
+// The blocks of the last backward call's three launches (local sums,
+// folds, gradients), as launched; wkv6_bwd_last_blocks reads them.
+int64_t g_bwd_blocks[3] = {0, 0, 0};
+
+int64_t blocks_of(const dim3& g) {
+  return static_cast<int64_t>(g.x) * g.y * g.z;
+}
+
+// The three launches of one backward call, on the caller's stream.
 template <typename T, int D>
-int launch_bwd(const BwdParams& p, int64_t bh, cudaStream_t stream) {
-  constexpr size_t smem = BwdLayout<D>::kBytes;
+int launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  const int64_t nc = (p.t + p.chunk - 1) / p.chunk;
+  if (nc > 65535) return cudaErrorInvalidValue;  // launch 3's grid.y
+  const size_t local = LocalLayout<T, D>(p.chunk).bytes;
+  const size_t grad = GradLayout<T, D>(p.chunk).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      wkv6_bwd_local_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(LocalLayout<T, D>(kMaxChunk).bytes));
   if (err != cudaSuccess) return err;
-  wkv6_bwd_kernel<T, D><<<static_cast<unsigned>(bh), kThreads, smem,
-                          stream>>>(p);
+  err = cudaFuncSetAttribute(
+      wkv6_bwd_grad_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(GradLayout<T, D>(kMaxChunk).bytes));
+  if (err != cudaSuccess) return err;
+  if (nc == 0) {  // no chunk: ds0 is ds_final, du is zero
+    g_bwd_blocks[0] = g_bwd_blocks[1] = g_bwd_blocks[2] = 0;
+    const size_t sq = sizeof(float) * p.bh * D * D;
+    err = p.ds_final ? cudaMemcpyAsync(p.ds0, p.ds_final, sq,
+                                       cudaMemcpyDeviceToDevice, stream)
+                     : cudaMemsetAsync(p.ds0, 0, sq, stream);
+    if (err != cudaSuccess) return err;
+    return cudaMemsetAsync(p.du, 0, sizeof(float) * p.bh * D, stream);
+  }
+  if (p.bh > 65535) return cudaErrorInvalidValue;  // launch 1's grid.y
+  const int64_t folds = (p.bh * D * D / 4 + kThreads - 1) / kThreads;
+  const dim3 local_grid(static_cast<unsigned>(nc),
+                        static_cast<unsigned>(p.bh));
+  const dim3 fold_grid(static_cast<unsigned>(folds), 3);
+  const dim3 grad_grid(static_cast<unsigned>(p.bh),
+                       static_cast<unsigned>(nc));
+  g_bwd_blocks[0] = blocks_of(local_grid);
+  g_bwd_blocks[1] = blocks_of(fold_grid);
+  g_bwd_blocks[2] = blocks_of(grad_grid);
+  wkv6_bwd_local_kernel<T, D><<<local_grid, kThreads, local, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wkv6_bwd_fold_kernel<D><<<fold_grid, kThreads, 0, stream>>>(p, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wkv6_bwd_grad_kernel<T, D><<<grad_grid, kThreads, grad, stream>>>(p, nc);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_bwd(const BwdParams& p, int64_t bh, int64_t d, cudaStream_t s) {
+int dispatch_bwd(const BwdParams& p, int64_t d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_bwd<T, 16>(p, bh, s);
-    case 32: return launch_bwd<T, 32>(p, bh, s);
-    case 64: return launch_bwd<T, 64>(p, bh, s);
+    case 16: return launch_bwd<T, 16>(p, s);
+    case 32: return launch_bwd<T, 32>(p, s);
+    case 64: return launch_bwd<T, 64>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1309,13 +1799,14 @@ int wkv6_forward(const void* r, const void* k, const void* v, const float* w,
 // float32 through its strides, ds_final (b, h, d, d) float32 contiguous or
 // null (zero); dr/dk/dv (r's type) and dw (float32) written through the
 // strides g_* (the same for all four); du_part (b, h, d) and ds0 (b, h,
-// d, d) float32 contiguous; states a float32 scratch of b * h *
-// ceil(t / chunk) * d * d.  d in {16, 32, 64}, 1 <= chunk <= 64.
+// d, d) float32 contiguous; scratch a float32 buffer of b * h * ceil(t /
+// chunk) * (2 d^2 + 2 d) floats.  d in {16, 32, 64}, 1 <= chunk <= 64.
+// Three launches on the caller's stream (a copy and a memset when t = 0).
 int wkv6_backward(const void* r, const void* k, const void* v,
                   const float* w, const float* u, const float* s0,
                   const float* dout, const float* ds_final, void* dr,
                   void* dk, void* dv, float* dw, float* du_part, float* ds0,
-                  float* states, int64_t b, int64_t h, int64_t t, int64_t d,
+                  float* scratch, int64_t b, int64_t h, int64_t t, int64_t d,
                   int64_t chunk,
                   int64_t r_sb, int64_t r_sh, int64_t r_st,
                   int64_t k_sb, int64_t k_sh, int64_t k_st,
@@ -1327,13 +1818,20 @@ int wkv6_backward(const void* r, const void* k, const void* v,
   if (chunk < 1 || chunk > kMaxChunk || t < 0) return cudaErrorInvalidValue;
   if (b == 0 || h == 0) return cudaSuccess;
   const BwdParams p{r, k, v, w, u, s0, dout, ds_final, dr, dk, dv, dw,
-                    du_part, ds0, states, h, t,
+                    du_part, ds0, scratch, b * h, h, t,
                     r_sb, r_sh, r_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                     w_sb, w_sh, w_st, o_sb, o_sh, o_st, g_sb, g_sh, g_st,
                     static_cast<int>(chunk)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_bwd<__nv_bfloat16>(p, b * h, d, st)
-                 : dispatch_bwd<float>(p, b * h, d, st);
+  return is_bf16 ? dispatch_bwd<__nv_bfloat16>(p, d, st)
+                 : dispatch_bwd<float>(p, d, st);
+}
+
+// The blocks that the last wkv6_backward call of this process launched,
+// into out[0..2]: its local sums, its folds, its gradients (0 each when t
+// = 0).
+void wkv6_bwd_last_blocks(int64_t* out) {
+  for (int i = 0; i < 3; ++i) out[i] = g_bwd_blocks[i];
 }
 
 }  // extern "C"

@@ -11,7 +11,9 @@ order and returned as its (B, H, T, D) view, so the model's move back to
 (B, T, H, D) is free.  ``wkv6_bwd`` takes the same inputs and the
 output's float32 gradient (any strides with a contiguous last dim) and
 returns the gradients, dr/dk/dv/dw laid out as the output.  ``LAUNCHES``
-counts the launches of each.
+counts the calls of each that launched: one a ``wkv6_bwd`` call, though
+the backward is three kernels (a chunk's local sums, the folds across
+chunks, a chunk's gradients) on the current stream.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ def _lib() -> ctypes.CDLL:
   lib.wkv6_forward.restype = ctypes.c_int
   lib.wkv6_backward.argtypes = [p] * 15 + [i64] * 23 + [ctypes.c_int, p]
   lib.wkv6_backward.restype = ctypes.c_int
+  lib.wkv6_bwd_last_blocks.argtypes = [p]
+  lib.wkv6_bwd_last_blocks.restype = None
   return lib
 
 
@@ -112,6 +116,26 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
   return out.permute(0, 2, 1, 3), s_out
 
 
+def bwd_scratch_floats(b: int, h: int, t: int, d: int, chunk: int) -> int:
+  """float32 elements of the backward's scratch buffer: per (batch, head)
+  and chunk, U_c then S_c and W_c then dS_c (D x D each), e^lam_c and the
+  chunk's share of du (D each)."""
+  return b * h * -(-t // chunk) * (2 * d * d + 2 * d)
+
+
+# the backward's three kernels, in launch order
+BWD_KERNELS = ("wkv6_bwd_local_kernel", "wkv6_bwd_fold_kernel",
+               "wkv6_bwd_grad_kernel")
+
+
+def last_bwd_blocks() -> Dict[str, int]:
+  """Blocks of each kernel that the last ``wkv6_bwd`` call on the card
+  launched, as the C entry point recorded its grids (all 0 at T = 0)."""
+  out = (ctypes.c_int64 * 3)()
+  _lib().wkv6_bwd_last_blocks(out)
+  return dict(zip(BWD_KERNELS, out))
+
+
 def check_grad_inputs(r: torch.Tensor, dout: torch.Tensor,
                       ds_final: Optional[torch.Tensor]) -> None:
   """Raise ValueError on an output gradient the backward does not take."""
@@ -139,8 +163,11 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   all (B, H, T, D) views of (B, T, H, D) memory; du (H, D) float32; ds0
   (B, H, D, D) float32) of ``wkv6``'s output and final state, given their
   gradients ``dout`` (float32) and ``ds_final`` (None is zero).  s0 None is
-  a zero state.  Reruns give the same bits: the kernel writes du per
-  (batch, head) and the batch is summed here in order."""
+  a zero state.  Three kernel launches, counted as one: a chunk's local
+  sums into a scratch buffer, the folds across chunks, a chunk's
+  gradients.  Reruns give the same bits: every sum has a fixed order, du
+  is written per (batch, head, chunk), summed over the chunks in order by
+  the fold and over the batch here."""
   check_inputs(r, k, v, w, u, s0, chunk)
   check_grad_inputs(r, dout, ds_final)
   b, h, t, d = r.shape
@@ -149,8 +176,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            for dt in (r.dtype, r.dtype, r.dtype, torch.float32)]
   du = torch.empty((b, h, d), dtype=torch.float32, device=dev)
   ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
-  states = torch.empty((b * h * -(-t // int(chunk)) * d * d,),
-                       dtype=torch.float32, device=dev)
+  scratch = torch.empty((bwd_scratch_floats(b, h, t, d, int(chunk)),),
+                        dtype=torch.float32, device=dev)
   g = grads[0]
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream().cuda_stream
@@ -159,7 +186,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         u.data_ptr(), None if s0 is None else s0.data_ptr(),
         dout.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
         *(x.data_ptr() for x in grads), du.data_ptr(), ds0.data_ptr(),
-        states.data_ptr(), b, h, t, d, int(chunk),
+        scratch.data_ptr(), b, h, t, d, int(chunk),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
         *dout.stride()[:3], g.stride(0), g.stride(2), g.stride(1),
         int(r.dtype == torch.bfloat16), stream)

@@ -13,8 +13,8 @@ Per head, with the state S (D x D) indexed S[d_k, d_v]:
 log-decay form that the CUDA kernel computes, and is what the port's model
 runs on the CPU; ``wkv6_split`` follows the kernel's own schedule (a head's
 chunks split over blocks, factorised scores); ``wkv6_chunked_bwd`` is the
-gradient of ``wkv6_chunked`` as the backward kernel computes it (a reverse
-sweep over the chunks).  All run wherever their input lives.
+gradient of ``wkv6_chunked`` (a reverse sweep over the chunks).  All run
+wherever their input lives.
 """
 from __future__ import annotations
 

@@ -96,6 +96,33 @@ def test_pairwise_kernel_matches_plain_version(cuda, n, d):
   assert kernel.LAUNCHES["dominance_counts"] == 1
 
 
+@pytest.mark.parametrize("n", [256, 4096, 65536])
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_pairwise_kernel_split_over_the_card_equals_plain_version(cuda, n,
+                                                                 d):
+  """K2 with its j tiles split over ``pair_splits(N, the card's SMs)``
+  blocks an i tile: the counts equal the plain version's, with points
+  tied on some objectives and duplicated, and a rerun's."""
+  obj = torch.from_numpy(_objectives(n, d, seed=n + d)).to(cuda)
+  kernel.reset_launch_counts()
+  got = ops.dominance_counts(obj)
+  assert torch.equal(got, ref.dominance_counts_ref(obj))
+  assert torch.equal(ops.dominance_counts(obj), got)
+  assert kernel.LAUNCHES["dominance_counts"] == 2
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 1000])
+def test_pairwise_kernel_gives_the_same_counts_at_any_split(cuda,
+                                                            monkeypatch,
+                                                            splits):
+  """Uneven splits of 17 j tiles, and more splits than tiles (one a
+  tile), count the same pairs."""
+  obj = torch.from_numpy(_objectives(4097, 3, seed=5)).to(cuda)
+  want = ref.dominance_counts_ref(obj)
+  monkeypatch.setattr(kernel, "pair_splits", lambda n, sms: splits)
+  assert torch.equal(ops.dominance_counts(obj), want)
+
+
 def _objectives_with_nan(n, d, seed):
   """_objectives plus -inf entries, NaN entries, a point of NaN only, and
   duplicated NaN and -inf points."""
@@ -823,13 +850,17 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
 # bf16 dr, dk and dv; dw, whose d log w sums terms that cancel, within
 # 1e-4 of ``dlogw_scale`` over w.
 # (b, t, h, d, chunk, tiny_w): T of one token, at and around one chunk,
-# ragged over several, 1,100 (18 chunks); every head dim; w down to 1e-30
+# ragged over several, 1,100 (18 chunks) and 2,048 (32); every head dim;
+# w down to 1e-30; 272 (batch, head) pairs, more than two waves of the
+# card's SMs; chunks of 16 and 32 at D = 64, shorter than the 64-row tile
 WKV_BWD_CASES = [(2, 1, 4, 64, 64, False), (2, 63, 4, 64, 64, False),
                  (2, 64, 4, 64, 64, False), (2, 65, 4, 64, 64, False),
                  (2, 300, 4, 64, 64, False), (1, 1100, 4, 64, 64, False),
                  (2, 300, 4, 32, 32, False), (2, 300, 4, 16, 16, False),
                  (1, 100, 3, 32, 64, False), (1, 300, 4, 64, 64, True),
-                 (1, 1100, 2, 16, 64, True)]
+                 (1, 1100, 2, 16, 64, True), (1, 2048, 4, 64, 64, False),
+                 (2, 130, 136, 64, 64, False), (2, 300, 4, 64, 16, False),
+                 (2, 300, 4, 64, 32, True)]
 
 
 def _wkv_bwd_close(got, want, r, k, v, w, u, dout, chunk):
@@ -856,6 +887,14 @@ def test_wkv6_backward_kernel_matches_plain_version(cuda, case, dtype):
   got = wkv_kernel.wkv6_bwd(r, k, v, w, u, state, dout, ds_final,
                             chunk=chunk)
   assert wkv_kernel.LAUNCHES == {"wkv6": 0, "wkv6_bwd": 1}
+  # chunk-parallel: the C entry launched a block per (batch, head) and
+  # chunk for the local sums and the gradients, and for the folds a thread
+  # per float4 of a head's D x D for each of three roles
+  per_chunk = b * h * -(-t // chunk)
+  assert wkv_kernel.last_bwd_blocks() == {
+      "wkv6_bwd_local_kernel": per_chunk,
+      "wkv6_bwd_fold_kernel": 3 * -(-(b * h * d * d // 4) // 256),
+      "wkv6_bwd_grad_kernel": per_chunk}
   want = wkv.wkv6_bwd_reference(r, k, v, w, u, state, dout, ds_final,
                                 chunk=chunk)
   torch.cuda.synchronize()

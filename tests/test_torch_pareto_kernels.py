@@ -144,6 +144,22 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     kernel.block_dominance_counts(bad, 2048)
 
 
+@pytest.mark.parametrize("n,sms,want", [
+    (4096, 132, 16), (65536, 132, 2), (256, 132, 1), (512, 132, 2),
+    (1 << 20, 132, 1), (4096, 114, 15), (8192, 132, 9)])
+def test_pair_splits_cover_the_card_twice(n, sms, want):
+  """K2's j tiles split over the fewest blocks that put two blocks on
+  every SM, never more than a split a j tile; the tile is the CUDA
+  source's."""
+  assert kernel.PAIR_TILE == _build.csrc_constant("pareto_front",
+                                                   "kPairTile")
+  splits = kernel.pair_splits(n, sms)
+  assert splits == want
+  tiles = n // kernel.PAIR_TILE
+  assert 1 <= splits <= tiles
+  assert tiles * splits >= kernel.PAIR_BLOCKS_PER_SM * sms or splits == tiles
+
+
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
   monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
   monkeypatch.setattr(_build.shutil, "which", lambda name: None)

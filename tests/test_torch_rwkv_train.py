@@ -66,7 +66,7 @@ from repro.train import checkpoint as ref_ckpt
 from repro.train import optimizer as ref_opt
 from repro.train import train_step as ref_ts
 
-from repro_torch import convert
+from repro_torch import _build, convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import (DataCursor, MarkovTokenStream,
                                         TokenStreamConfig, token_batches)
@@ -81,6 +81,7 @@ from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts_lib
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from wkv_bwd_split import wkv6_bwd_split
 from wkv_grad_scale import dlogw_scale
 
 ARCH = "rwkv6-1.6b"
@@ -217,6 +218,40 @@ def test_plain_backward_matches_the_reference_vjp(case, tiny_w):
                                       jnp.asarray(x["ds"])))]
   got = _plain_bwd(_torch(x), chunk)
   _assert_grads_close(got, want, x, chunk, 1e-4, 1e-5)
+
+
+# (b, h, t, d, chunk): the kernel pads a chunk to 16, 32 or 64 rows and
+# cuts it into 16-row sub-chunks; chunks 20 and 48 leave pad rows in a
+# sub-chunk
+SPLIT_CASES = BWD_CASES + [(1, 2, 70, 16, 20), (1, 2, 150, 16, 48)]
+
+
+@pytest.mark.parametrize("tiny_w", [False, True])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_the_backward_kernels_schedule_keeps_the_function(case, tiny_w):
+  """``wkv6_bwd_split``, the backward kernel's three launches (local
+  sums, the folds across chunks, each chunk's gradients from S_c and dS_c
+  with the plane factored by sub-chunks of the kernel's kPart rows) in
+  plain torch, against the plain backward in float64: 1e-10 of each
+  gradient's largest |value| (the same function; every exponent <= 0, so
+  w at the floor gives no inf or nan)."""
+  b, h, t, d, chunk = case
+  part = _build.csrc_constant("rwkv6_scan", "kPart")
+  x = _torch(_wkv_inputs(t + d + 3, b, h, t, d, tiny_w, dtype=np.float64,
+                         chunk=chunk))
+  args = [x[n] for n in ("r", "k", "v", "w", "u", "s0", "dout", "ds")]
+  got = wkv6_bwd_split(*args, chunk, part)
+  _assert_grads_close(got, _plain_bwd(x, chunk), x, chunk, 1e-10, 1e-10)
+
+
+@pytest.mark.parametrize("b,h,t,d,chunk,nc", [
+    (8, 32, 512, 64, 64, 8), (2, 4, 300, 64, 64, 5), (1, 2, 1, 16, 16, 1),
+    (2, 3, 100, 32, 20, 5), (1, 1, 0, 64, 64, 0)])
+def test_the_backward_kernels_scratch(b, h, t, d, chunk, nc):
+  """The host's scratch for the backward's launches: per (batch, head)
+  and chunk two D x D and two D floats (none without a chunk)."""
+  assert wkv_kernel.bwd_scratch_floats(b, h, t, d, chunk) == \
+      b * h * nc * (2 * d * d + 2 * d)
 
 
 def test_the_floor_takes_half_the_gradient():
