@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep,
-serving qwen3-0.6b with an int8 KV cache, serving rwkv6-1.6b, and
+serving qwen3-0.6b with an int8 KV cache, serving rwkv6-1.6b, serving
+and training the model zoo (qwen2-moe-a2.7b, olmo-1b and the rest), and
 deploying qwen3-0.6b under each PE type's codec.
 
 Run from the root of a checkout on a machine with an H100 (or another
@@ -62,25 +63,38 @@ full-width, 28-layer qwen3-0.6b (bf16, seed 0) is packed with
 ``quant.pack_params`` under each PE type and every packed matmul leaf of
 every layer runs through K3 or K4 at a decode and a prefill shape, and a
 two-layer float32 copy is packed on the card and on the CPU and held
-byte for byte.  Training follows: K6's backward kernel is held against
-its plain version at the training shape and its edges, full-width
-qwen3-0.6b (bf16 compute, f32 master weights) trains through
-``python -m repro_torch.launch.train``'s ``main`` for the launcher's 200
-steps of 8 x 512 tokens and 5 steps each with int8 optimizer states,
-LightPE-2 QAT and two microbatches, a two-layer float32 copy is held
-card against CPU (loss, gradients, one AdamW step), and a restart from a
-checkpoint is held bit for bit against an uninterrupted run.  rwkv6
-training follows: K7's backward kernel against its plain version at the
-training shape and its edges, full-width rwkv6-1.6b trained through the
-launcher's ``main`` for 200 steps of 8 x 512 tokens and 5 under
-LightPE-2 QAT, and its two-layer float32 copy held card against CPU.
-Any failure raises, so the
-exit code is non-zero; without a CUDA device, or without the package
-beside it, the script stops before printing any result.  The last line of its output is one JSON object
+byte for byte.  Slice 8a's zoo follows the serving of qwen3 and rwkv6:
+K6 and K5 at the zoo's heads (K5 at G = 3, 6 and 48), full-width
+qwen2-moe-a2.7b (60 experts top-4 and 4 shared; bf16, int8 KV) serving
+the same eight requests twice, its two-layer float32 copy held card
+against CPU with its MoE routing, olmo-1b, minitron-4b and pixtral-12b
+at full width and depth, mixtral-8x22b and granite-34b at full width and
+a cut depth served two requests each, and all six held card against CPU
+at two layers and a narrower width.  Training follows: K6's backward
+kernel is held against its plain version at the training shape and its
+edges, qwen3-0.6b at full width and 8 of its layers (bf16 compute, f32
+master weights) trains for the launcher's recipe of 200 steps of 8 x 512
+tokens, a two-layer float32 copy is held card against CPU (loss,
+gradients, one AdamW step), and a restart from a checkpoint is held bit
+for bit against an uninterrupted run; then ``python -m
+repro_torch.launch.train``'s ``main`` trains its default arch, full-width
+olmo-1b, for 200 steps of 8 x 512 tokens and 5 steps each with int8
+optimizer states, LightPE-2 QAT and two microbatches, two layers of
+full-width qwen2-moe-a2.7b train 5 steps, and olmo-1b, qwen2-moe-a2.7b,
+granite-34b and pixtral-12b (with image embeddings) are held card
+against CPU at two layers.  rwkv6 training follows: K7's backward kernel
+against its plain version at the training shape and its edges,
+rwkv6-1.6b at full width and 8 of its layers trained with the launcher's
+recipe for 200 steps of 8 x 512 tokens and 5 under LightPE-2 QAT, and its
+two-layer float32 copy held card against CPU.  Any failure raises, so
+the exit code is non-zero; without a CUDA device, or without the package
+beside it, the script stops before printing any result.  The last line
+of its output is one JSON object
 naming the device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -287,6 +301,30 @@ SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_ENGINE = dict(batch_slots=4, max_len=2048, prompt_bucket=512)
 PARITY_LAYERS = 2
+# slice 8a: K6 and K5 at the zoo's (H, Hkv) beyond qwen3's: granite-34b's
+# multi-query (48, 1), minitron-4b's (24, 8) and mixtral-8x22b's (48, 8);
+# K5 (G = 3, 6, 48) over a 2,048-position cache at these lengths, cycling
+# through caches of at least this many bytes in all (cold in the L2)
+K6_ZOO_HEADS = ((48, 1), (24, 8), (48, 8))
+K5_ZOO_HEADS = ((24, 8), (48, 8), (48, 1))
+K5_ZOO_LENGTHS = (1, 300, 2048)
+K5_COLD_BYTES = 64e6
+# qwen2-moe-a2.7b served at full width and depth ([serve-moe]); the zoo
+# served once each, 2 requests x 8 new tokens, at full width with the depth
+# cut of each arch (None: all its layers; mixtral-8x22b's 56 layers of
+# 8 x 16,384-wide experts are 281 GB of bf16 weights, granite-34b's 88
+# layers 68.7 GB); each held card against CPU at 2 layers and the width
+# below, the config's own heads and head dim kept
+SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
+SERVE_ZOO = (("olmo-1b", None), ("minitron-4b", None), ("pixtral-12b", None),
+             ("mixtral-8x22b", 4), ("granite-34b", 8))
+SERVE_ZOO_REQUESTS = 2
+SERVE_ZOO_NEW_TOKENS = 8
+ZOO_ARCHS = ("olmo-1b", "granite-34b", "minitron-4b", "mixtral-8x22b",
+             "qwen2-moe-a2.7b", "pixtral-12b")
+ZOO_PARITY_WIDTH = dict(d_model=512, d_ff=1024, vocab_size=4096)
+ZOO_PARITY_EXPERTS = dict(max_experts=8, d_ff_expert=512, d_ff_shared=1024)
+ZOO_PARITY_WINDOW = 32   # mixtral's ring, shorter than every prompt
 # training: K6's backward at the training shape (B = 8 sequences of 512
 # tokens of qwen3-0.6b) in bf16 and f32, a window, ragged S and D = 64
 # with G = 2; the launcher's run at full width; 5 steps of each variant;
@@ -302,17 +340,35 @@ K6_BWD_CASES = ((8, 512, 16, 8, 128, "bfloat16", 0),
                 (2, 300, 8, 4, 64, "float32", 0))
 # the bf16 backward's earlier design, f32 FMAs on the CUDA cores, on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): its time at
-# B = 8, S = 512, and its device time in one profiled [train] step of
-# 241.36 ms
-K6_BWD_CUDA_CORE = {"ms": 2.1993, "train_ms": 61.64,
-                    "train_device_ms": 241.36}
-# 200 steps, the launcher's default: in 40 the reference's recipe (lr
-# 3e-3, 20 warm-up steps, cosine decay) does not get a loss below the
-# uniform guess at a 151,936-token vocab (PERF.md section 6)
-TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "200", "--batch", "8",
-              "--seq", "512"]
+# B = 8, S = 512
+K6_BWD_CUDA_CORE = {"ms": 2.1993}
+# the launcher's recipe at 200 steps, its default, of 8 x 512 tokens: in
+# 40 the reference's recipe (lr 3e-3, 20 warm-up steps, cosine decay) does
+# not get a loss below the uniform guess at a 151,936-token vocab (PERF.md
+# section 6)
+TRAIN_RECIPE = dict(steps=200, batch=8, seq=512)
+# [train]'s qwen3-0.6b runs 8 of its 28 layers (the recipe kept), to pay
+# for slice 8a's phases in the script's time
+TRAIN_QWEN3_LAYERS = 8
+# [train-olmo]: the launcher's default arch through its main(argv), the
+# same recipe; the three 5-step variants run on olmo-1b
+TRAIN_OLMO_ARGV = ["--steps", "200", "--batch", "8", "--seq", "512"]
 TRAIN_VARIANT_STEPS = 5
 TRAIN_PARITY_BATCH = (2, 128)
+# [train-moe]: qwen2-moe-a2.7b at full width, 2 layers
+TRAIN_MOE = dict(n_layers=2, steps=5, batch=8, seq=512)
+# [train-parity] for slice 8a, 2 layers f32 card vs CPU: (arch, the width
+# cut where the CPU's side at full width takes more than ~30 s: 2 layers
+# of full-width qwen2-moe-a2.7b took 212.8 s, pixtral-12b at d_model 2,048
+# 55.4 s, granite-34b 38.2 s, on the card's host; heads, head dim and
+# experts kept); pixtral-12b's batch opens with n_image_tokens image
+# embeddings
+TRAIN_PARITY_ZOO = (
+    ("olmo-1b", {}),
+    ("qwen2-moe-a2.7b", dict(d_model=1024, d_ff_expert=512,
+                             d_ff_shared=2048, vocab_size=32768)),
+    ("granite-34b", dict(d_model=1024, d_ff=4096)),
+    ("pixtral-12b", dict(d_model=1024, d_ff=4096, vocab_size=32768)))
 # [train-rwkv-parity]'s bound on each gradient leaf, of its largest
 # |value|.  An rwkv6 gradient is ill-conditioned where qwen3's is not: the
 # per-head group norm divides a WKV output by its RMS, which is small for
@@ -324,9 +380,8 @@ TRAIN_PARITY_BATCH = (2, 128)
 RWKV_PARITY_GRAD_TOL = 3e-3
 # K7's backward's first design (one block per (batch, head), CUDA-core
 # FMAs) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table): its
-# time at B = 8, T = 512 bf16, and its device time in one profiled
-# [train-rwkv] step of 421.56 ms
-K7_BWD_FIRST = {"ms": 1.8629, "train_ms": 44.30, "train_device_ms": 421.56}
+# time at B = 8, T = 512 bf16
+K7_BWD_FIRST = {"ms": 1.8629}
 TRAIN_RESUME = dict(n_layers=4, steps=12, ckpt_every=3, batch=8, seq=512)
 # K7's backward: (B, T, H, D, chunk, dtype, s0 and ds_final, w down to
 # 1e-30): the rwkv6-1.6b training shape in bf16 and f32, a ragged T with a
@@ -339,10 +394,11 @@ K7_BWD_CASES = ((8, 512, 32, 64, 64, "bfloat16", False, False),
                 (2, 300, 8, 32, 32, "bfloat16", True, False),
                 (2, 300, 8, 16, 16, "float32", True, False),
                 (2, 300, 32, 64, 64, "bfloat16", True, True))
-# rwkv6-1.6b's training run: the launcher's default recipe (200 steps) at
-# batches of 8 x 512, then 5 steps under LightPE-2 QAT
-TRAIN_RWKV_ARGV = ["--arch", "rwkv6-1.6b", "--steps", "200", "--batch", "8",
-                   "--seq", "512"]
+# rwkv6-1.6b's training run: TRAIN_RECIPE, then 5 steps under LightPE-2
+# QAT; at full width and 8 of its 24 layers, to pay for slice 8a's phases
+# in the script's time (at 24 layers the phase took 218.7 s of a
+# 1,095.4-s run)
+TRAIN_RWKV_LAYERS = 8
 # K7 at the rwkv6-1.6b prefill shape (one 512-token bucket), a ragged T,
 # and a T of more chunks than K7's cluster has blocks (4 chunks a block)
 K7_SHAPE = (1, 512, 32, 64, 64)        # B, T, H, D, chunk
@@ -2744,13 +2800,100 @@ def _reference_bf16_rounding(q, k, v):
   return out.transpose(1, 2).to(torch.bfloat16)
 
 
+def _k6_case(rng, b, s, h, hkv, d, dtype, causal, window, label=""):
+  """K6 on seeded q, k, v (v a strided view, as the model passes it)
+  against its plain version at 1e-4 of the largest |out|, timed as a graph
+  replay beside the plain version and SDPA (not timed with a window), with
+  its bound; logs its ``[K6]`` line.  Returns (q, k, v, K6's output, the
+  record for the kernels line)."""
+  import torch
+  import torch.nn.functional as F
+  from repro_torch.kernels.flash_attention import ops as fa
+  q = _randn(rng, (b, s, h, d), dtype)
+  kv = _randn(rng, (b, s, 2, hkv, d), dtype)
+  k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model passes v
+  got = fa.flash_attention(q, k, v, causal=causal, window=window)
+  want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+  torch.cuda.synchronize()
+  err = float((got - want).abs().max())
+  scale = float(want.abs().max())
+  if not err <= 1e-4 * scale:
+    raise AssertionError(f"K6 differs from its plain version at H={h} "
+                         f"Hkv={hkv}: {err} (max |out| {scale})")
+  ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                          window=window))
+  plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+      q, k, v, causal=causal, window=window), inner=2)
+  es = q.element_size()
+  n_bytes = (b * s * h * d + 2 * b * s * hkv * d) * es + b * s * h * d * 4
+  n_ops = 4 * _live_pairs(s, causal, window) * b * h * d
+  peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+  b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
+  lib_ms = None
+  if not window:
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+  mask = (f"window {window}" if window else
+          "causal" if causal else "full")
+  tag = f"{str(dtype).split('.')[-1]} {mask}"
+  log(f"[K6] B={b} S={s} H={h} Hkv={hkv}{label} D={d} {tag}: max_abs_err "
+      f"{err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of it); kernel "
+      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+      f"({b_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP), "
+      f"library (scaled_dot_product_attention) "
+      f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not timed (window)'}")
+  return q, k, v, got, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def _k5_case(q, caches, n, label=""):
+  """K5 over ``caches[0]`` at fill ``n`` against its plain version at 1e-4
+  of the largest |out|, both timed over every cache in turn (cold in L2),
+  with its bound; logs its ``[K5]`` line and returns its record."""
+  import torch
+  from repro_torch.kernels.quant_decode_attn import ops as qda
+  b, h, d = q.shape
+  _, hkv, s, _ = caches[0][0].shape
+  lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+  got = qda.quant_decode_attn(q, *caches[0], lens)
+  want = qda.quant_decode_attn_reference(q, *caches[0], lens)
+  torch.cuda.synchronize()
+  err = float((got - want).abs().max())
+  scale = float(want.abs().max())
+  if not err <= 1e-4 * scale:
+    raise AssertionError(f"K5 differs from its plain version at H={h} "
+                         f"Hkv={hkv}, length {n}: {err} (max |out| {scale})")
+  ms = cuda_ms(lambda: [qda.quant_decode_attn(q, *c, lens)
+                        for c in caches], inner=1) / len(caches)
+  plain_ms = cuda_ms(lambda: [qda.quant_decode_attn_reference(q, *c, lens)
+                              for c in caches], inner=1) / len(caches)
+  n_bytes = (b * h * d * 2 + 2 * b * hkv * n * (d + 4) + b * 4
+             + b * h * d * 4)
+  n_ops = 4 * b * h * n * d + 2 * b * hkv * n * d
+  b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
+  log(f"[K5] B={b} H={h} Hkv={hkv}{label} S={s} D={d} bf16 q, length {n}: "
+      f"max_abs_err {err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of "
+      f"it); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (each over "
+      f"{len(caches)} caches in turn: cold in L2), bound {b_ms:.3g} ms "
+      f"({b_by}: {n_bytes / 1e6:.3f} MB)")
+  return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by)
+
+
+def _k5_caches(rng, b, hkv, s, d, count):
+  """``count`` int8 caches (B, Hkv, S, D) of seeded K and V."""
+  import torch
+  from repro_torch.kernels.quant_decode_attn import ops as qda
+  return [qda.quantize_kv(_randn(rng, (b, hkv, s, d), torch.float32),
+                          _randn(rng, (b, hkv, s, d), torch.float32))
+          for _ in range(count)]
+
+
 def phase_attention_kernels():
   """K6 and K5 vs their plain versions on the card, at serving shapes."""
   import numpy as np
   import torch
-  import torch.nn.functional as F
-  from repro_torch.kernels.flash_attention import ops as fa
-  from repro_torch.kernels.quant_decode_attn import ops as qda
   results = {}
   b, s, h, hkv, d = K6_SHAPE
   rng = np.random.RandomState(6)
@@ -2760,41 +2903,8 @@ def phase_attention_kernels():
                                 (torch.float32, True, 0),
                                 (torch.bfloat16, True, K6_WINDOW),
                                 (torch.bfloat16, False, 0)):
-    q = _randn(rng, (b, s, h, d), dtype)
-    kv = _randn(rng, (b, s, 2, hkv, d), dtype)
-    k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model passes v
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    want = fa.flash_attention_reference(q, k, v, causal=causal,
-                                        window=window)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not err <= 1e-4 * scale:
-      raise AssertionError(f"K6 differs from its plain version: {err} "
-                           f"(max |out| {scale})")
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                            window=window))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=causal, window=window), inner=2)
-    es = q.element_size()
-    n_bytes = (b * s * h * d + 2 * b * s * hkv * d) * es + b * s * h * d * 4
-    n_ops = 4 * _live_pairs(s, causal, window) * b * h * d
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
-    b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
-    lib_ms = None
-    if not window:
-      qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-      lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-          qt, kt, vt, is_causal=causal, enable_gqa=True))
-    mask = (f"window {window}" if window else
-            "causal" if causal else "full")
-    tag = f"{str(dtype).split('.')[-1]} {mask}"
-    log(f"[K6] B={b} S={s} H={h} Hkv={hkv} D={d} {tag}: max_abs_err "
-        f"{err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of it); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP), "
-        f"library (scaled_dot_product_attention) "
-        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'not timed (window)'}")
+    q, k, v, got, record = _k6_case(rng, b, s, h, hkv, d, dtype, causal,
+                                    window)
     if dtype == torch.bfloat16 and causal and not window:
       model_out = got.to(torch.bfloat16).float()   # as the model casts it
       ref_out = _reference_bf16_rounding(q, k, v).float()
@@ -2811,9 +2921,7 @@ def phase_attention_kernels():
           source="src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention.cu",
           replaces="src/repro/kernels/flash_attention/kernel.py:78",
-          on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-          redesigned="PR 15")
+          on_main_path=True, **record, redesigned="PR 15")
 
   b, h, hkv, s, d = K5_SHAPE
   q = _randn(rng, (b, h, d), torch.bfloat16)
@@ -2821,47 +2929,52 @@ def phase_attention_kernels():
   # the other layers' caches and 1.2 GB of weights read since: K5 finds it
   # cold.  So the timings cycle through enough caches to overflow the
   # 50 MB L2 and count one call on each.
-  caches = [qda.quantize_kv(_randn(rng, (b, hkv, s, d), torch.float32),
-                            _randn(rng, (b, hkv, s, d), torch.float32))
-            for _ in range(K5_COLD_CACHES)]
-  cache = caches[0]
+  caches = _k5_caches(rng, b, hkv, s, d, K5_COLD_CACHES)
   for n in K5_LENGTHS:
-    lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
-    got = qda.quant_decode_attn(q, *cache, lens)
-    want = qda.quant_decode_attn_reference(q, *cache, lens)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not err <= 1e-4 * scale:
-      raise AssertionError(f"K5 differs from its plain version at length "
-                           f"{n}: {err} (max |out| {scale})")
-    ms = cuda_ms(lambda: [qda.quant_decode_attn(q, *c, lens)
-                          for c in caches], inner=1) / len(caches)
-    plain_ms = cuda_ms(lambda: [qda.quant_decode_attn_reference(q, *c, lens)
-                                for c in caches], inner=1) / len(caches)
-    n_bytes = (b * h * d * 2 + 2 * b * hkv * n * (d + 4) + b * 4
-               + b * h * d * 4)
-    n_ops = 4 * b * h * n * d + 2 * b * hkv * n * d
-    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_FP32_PER_S)
-    log(f"[K5] B={b} H={h} Hkv={hkv} S={s} D={d} bf16 q, length {n}: "
-        f"max_abs_err {err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of "
-        f"it); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (each over "
-        f"{len(caches)} caches in turn: cold in L2), bound {b_ms:.3g} ms "
-        f"({b_by}: {n_bytes / 1e6:.3f} MB)")
+    record = _k5_case(q, caches, n)
     if n == s:
       results["quant_decode_attn"] = dict(
           name="quant_decode_attn (K5)", route="cuda",
           source="src/repro_torch/kernels/quant_decode_attn/csrc/"
                  "quant_decode_attn.cu",
           replaces="src/repro/kernels/quant_decode_attn/kernel.py:68",
-          on_main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+          on_main_path=True, **record, library_ms=None,
           library_note="no single PyTorch call attends over int8 codes "
                        "with per-position scales",
           redesigned="PR 15")
   log("[K5] library: none (no single PyTorch call attends over int8 codes "
       "with per-position scales)")
   return results
+
+
+def phase_attention_zoo():
+  """K6 and K5 at slice 8a's heads: K6 bf16 causal at (H, Hkv) = (48, 1),
+  (24, 8) and (48, 8), S = 512; K5 at G = 3, 6 and 48 (48 query heads on
+  one kv head, in sub-groups of 8 on the grid) over a 2,048-position cache
+  at lengths 1, 300 and 2,048, cycling through caches of
+  ``K5_COLD_BYTES`` in all.  Returns {"K6": {"H/Hkv": record}, "K5":
+  {"G": record}} for the kernels line."""
+  import numpy as np
+  import torch
+  rng = np.random.RandomState(8)
+  out = {"K6": {}, "K5": {}}
+  b, s, _, _, d = K6_SHAPE
+  for h, hkv in K6_ZOO_HEADS:
+    *_, record = _k6_case(rng, b, s, h, hkv, d, torch.bfloat16, True, 0,
+                          f" (G = {h // hkv})")
+    out["K6"][f"{h}/{hkv}"] = record
+  b, _, _, s, d = K5_SHAPE
+  for h, hkv in K5_ZOO_HEADS:
+    q = _randn(rng, (b, h, d), torch.bfloat16)
+    cache_bytes = 2 * b * hkv * s * (d + 4)
+    caches = _k5_caches(rng, b, hkv, s, d, max(
+        K5_COLD_CACHES, math.ceil(K5_COLD_BYTES / cache_bytes)))
+    for n in K5_ZOO_LENGTHS:
+      record = _k5_case(q, caches, n, f" (G = {h // hkv})")
+      if n == s:
+        out["K5"][str(h // hkv)] = record
+    del caches
+  return out
 
 
 def _k7_counts(b, t, h, d, elem_bytes, with_s0):
@@ -3006,10 +3119,15 @@ def _describe(cfg) -> str:
             f"{cfg.n_heads} wkv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
             f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
             f"{cfg.dtype}, {cfg.norm}, chunk {cfg.ssm_chunk}")
+  moe = (f", {cfg.n_experts} experts of {cfg.d_ff_expert} top-"
+         f"{cfg.n_experts_active}"
+         + (f" + {cfg.n_shared_experts} shared ({cfg.d_ff_shared})"
+            if cfg.n_shared_experts else "")
+         + f", groups of {cfg.moe_group_size}" if cfg.n_experts else "")
   return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, "
           f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}, "
-          f"kv_quant {cfg.kv_quant}")
+          f"kv_quant {cfg.kv_quant}{moe}")
 
 
 def phase_serve():
@@ -3033,6 +3151,21 @@ def phase_serve_rwkv():
   want = {"flash_attention": 0, "quant_decode_attn": 0,
           "wkv6": cfg.n_layers * SERVE_REQUESTS}
   return serve_twice("serve-rwkv", cfg, want)
+
+
+def phase_serve_moe():
+  """Slice 8a's serving main path: full-width qwen2-moe-a2.7b (24 layers,
+  60 routed experts top-4 and 4 shared), bf16, int8 KV cache, the eight
+  requests through ServeEngine, twice; each 512-token prefill bucket is
+  one MoE group, each decode step the dense path."""
+  import dataclasses
+  from repro_torch.configs import get_config
+  cfg = dataclasses.replace(get_config(SERVE_MOE_ARCH), kv_quant="int8")
+  want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
+          "quant_decode_attn": (cfg.n_layers * SERVE_REQUESTS
+                                * (SERVE_NEW_TOKENS - 1)),
+          "wkv6": 0}
+  return serve_twice("serve-moe", cfg, want)
 
 
 def serve_twice(tag, cfg, want):
@@ -3234,7 +3367,45 @@ def phase_serve_rwkv_parity():
   return serve_parity("serve-rwkv-parity", cfg, "K7 prefill", 1e-4)
 
 
-def serve_parity(tag, cfg, what, tol):
+@contextlib.contextmanager
+def _recording_routing(calls):
+  """Each MoE routing of the block inside, appended to ``calls``: its
+  top-k experts, its dispatch slots and the least gap between a token's
+  k-th and (k+1)-th router probability (how close a flip of its experts
+  was); nothing when ``calls`` is None."""
+  import torch
+  from repro_torch.models import ffn
+  if calls is None:
+    yield
+    return
+  real_route, real_dc = ffn.route_topk, ffn._dispatch_combine
+
+  def route(logits, k):
+    gates, idx = real_route(logits, k)
+    probs = torch.sort(torch.softmax(logits.float(), dim=-1), dim=-1,
+                       descending=True).values
+    calls.append({"idx": idx.cpu(), "gap": float(
+        (probs[..., k - 1] - probs[..., k]).min())})
+    return gates, idx
+
+  def dispatch_combine(gates, idx, e, cap):
+    out = real_dc(gates, idx, e, cap)
+    calls[-1]["dispatch"] = out[0].cpu()
+    return out
+  ffn.route_topk, ffn._dispatch_combine = route, dispatch_combine
+  try:
+    yield
+  finally:
+    ffn.route_topk, ffn._dispatch_combine = real_route, real_dc
+
+
+def serve_parity(tag, cfg, what, tol, routing=False, width="at full width"):
+  """``cfg`` from seed-0 weights on the card and the same weights on the
+  CPU, TF32 off: a bucketed prompt's prefill and 4 greedy decode steps
+  (logits within ``tol`` of the largest |logit|, the same argmax), then
+  the engine's greedy tokens for 2 requests x 8.  With ``routing`` the
+  prefill's MoE routings (top-k experts, kept capacity slots) are held
+  equal too, layer by layer."""
   import numpy as np
   import torch
   from repro_torch.models import build_model
@@ -3251,9 +3422,30 @@ def serve_parity(tag, cfg, what, tol):
   toks = torch.from_numpy(np.concatenate(
       [np.full(bucket - len(p), p[0]), p])[None].astype(np.int32))
   errs = []
-  want, cpu_cache = cpu_model.prefill(cpu_params, toks, SERVE_ENGINE["max_len"])
-  got, gpu_cache = gpu_model.prefill(gpu_params, toks.cuda(),
-                                     SERVE_ENGINE["max_len"])
+  cpu_routes, gpu_routes = ([], []) if routing else (None, None)
+  with _recording_routing(cpu_routes):
+    want, cpu_cache = cpu_model.prefill(cpu_params, toks,
+                                        SERVE_ENGINE["max_len"])
+  with _recording_routing(gpu_routes):
+    got, gpu_cache = gpu_model.prefill(gpu_params, toks.cuda(),
+                                       SERVE_ENGINE["max_len"])
+  if routing:
+    same_idx = [torch.equal(a["idx"], c["idx"])
+                for a, c in zip(gpu_routes, cpu_routes)]
+    same_slots = [torch.equal(a["dispatch"], c["dispatch"])
+                  for a, c in zip(gpu_routes, cpu_routes)]
+    kept = [int(c["dispatch"].sum()) for c in cpu_routes]
+    log(f"[{tag}] {cfg.name} prefill routing, {len(cpu_routes)} MoE "
+        f"layers of {bucket} tokens, top-{cfg.n_experts_active} of "
+        f"{cfg.n_experts}: "
+        f"top-k experts card vs CPU equal {same_idx}, kept capacity slots "
+        f"equal {same_slots} ({kept} of "
+        f"{bucket * cfg.n_experts_active} token-expert pairs kept a layer); "
+        f"the least gap between a token's k-th and (k+1)-th router "
+        f"probability {['%.3g' % c['gap'] for c in cpu_routes]} (CPU)")
+    if len(cpu_routes) != cfg.n_layers or not (all(same_idx)
+                                                and all(same_slots)):
+      raise AssertionError("the card and the CPU route the MoE differently")
   errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
   same = [int(got.argmax()) == int(want.argmax())]
   for _ in range(4):
@@ -3270,7 +3462,7 @@ def serve_parity(tag, cfg, what, tol):
     for q in prompts[:2]:
       engine.submit(q, max_new_tokens=8)
     runs[device] = engine.run_until_drained()
-  log(f"[{tag}] {cfg.name} at full width, float32, {cfg.n_layers} "
+  log(f"[{tag}] {cfg.name} {width}, float32, {cfg.n_layers} "
       f"layers, {what}, TF32 off: card vs CPU logits, prefill then 4 decode "
       f"steps, max |diff| / max |logit| = {[f'{e:.3g}' for e in errs]} "
       f"(tolerance {tol:g}); greedy tokens equal {same}; engine, 2 requests "
@@ -3278,6 +3470,125 @@ def serve_parity(tag, cfg, what, tol):
   if max(errs) > tol or not all(same) or runs["cuda"] != runs["cpu"]:
     raise AssertionError("the card and the CPU disagree on serving")
   return max(errs)
+
+
+def phase_serve_moe_parity():
+  """Full-width qwen2-moe-a2.7b in float32, 2 layers, int8 KV: the card
+  against the CPU on the same weights, TF32 off, at the int8-KV bound
+  (1e-3 of the largest |logit|); the prefill's top-k experts and kept
+  capacity slots equal."""
+  import dataclasses
+  from repro_torch.configs import get_config
+  cfg = dataclasses.replace(get_config(SERVE_MOE_ARCH), kv_quant="int8",
+                            dtype="float32", n_layers=PARITY_LAYERS)
+  return serve_parity("serve-moe-parity", cfg, "int8 KV, MoE", 1e-3,
+                      routing=True)
+
+
+def phase_serve_zoo():
+  """Slice 8a's dense archs and mixtral at full width, bf16, int8 KV: two
+  requests of [serve]'s traffic, 8 new tokens each, through ServeEngine,
+  once an arch, with the depth cut of ``SERVE_ZOO``; K5 runs at each
+  arch's own G (3, 4, 6, 48) and K6 at its heads."""
+  import dataclasses
+  import gc
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  from repro_torch.serve import EngineConfig, ServeEngine
+  counters = _launch_counters()
+  for arch, depth in SERVE_ZOO:
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, kv_quant="int8",
+                              n_layers=depth or full.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    engine = ServeEngine(model, params, EngineConfig(**SERVE_ENGINE))
+    prompts = serve_prompts(cfg.vocab_size)[:SERVE_ZOO_REQUESTS]
+    for p in prompts:
+      engine.submit(p, max_new_tokens=SERVE_ZOO_NEW_TOKENS)
+    for mod in counters.values():
+      mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
+    want = {"flash_attention": cfg.n_layers * len(prompts),
+            "quant_decode_attn": (cfg.n_layers * len(prompts)
+                                  * (SERVE_ZOO_NEW_TOKENS - 1)),
+            "wkv6": 0}
+    n_tokens = sum(len(t) for t in out.values())
+    log(f"[serve-zoo] {arch}: {_describe(cfg)}, {cfg.mlp_variant}, "
+        f"{cfg.norm}, {cfg.pos_embed} positions"
+        + (f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+        + f"; depth {cfg.n_layers} of {full.n_layers} layers"
+        + (" (cut)" if depth else " (full)")
+        + f"; {n_params:,} parameters from seed 0 in {t_init:.2f} s; "
+        f"{len(prompts)} requests (prompts {[len(p) for p in prompts]}) x "
+        f"{SERVE_ZOO_NEW_TOKENS} tokens: {n_tokens} tokens in {wall:.3f} s = "
+        f"{n_tokens / wall:.2f} tokens/s; K6 launches "
+        f"{launches['flash_attention']}, K5 launches "
+        f"{launches['quant_decode_attn']} (G = "
+        f"{cfg.n_heads // cfg.n_kv_heads}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first tokens "
+        f"{[out[u][:4] for u in sorted(out)]}")
+    if launches != want:
+      raise AssertionError(f"{arch}: expected launches {want}, got "
+                           f"{launches}")
+    if sorted(out) != list(range(1, len(prompts) + 1)) or any(
+        len(t) != SERVE_ZOO_NEW_TOKENS or not all(0 <= x < cfg.vocab_size
+                                                  for x in t)
+        for t in out.values()):
+      raise AssertionError(f"{arch}: bad generations: {out}")
+    del engine, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_parity_config(arch):
+  """``arch`` in float32 at 2 layers and ``ZOO_PARITY_WIDTH``'s width,
+  its own heads and head dim, at most 8 experts, mixtral's window cut to
+  ``ZOO_PARITY_WINDOW``, int8 KV."""
+  import dataclasses
+  from repro_torch.configs import get_config
+  cfg = get_config(arch)
+  changes = dict(ZOO_PARITY_WIDTH, dtype="float32", kv_quant="int8",
+                 n_layers=PARITY_LAYERS)
+  if cfg.n_experts:
+    changes.update(n_experts=min(cfg.n_experts,
+                                 ZOO_PARITY_EXPERTS["max_experts"]),
+                   d_ff_expert=ZOO_PARITY_EXPERTS["d_ff_expert"])
+    if cfg.n_shared_experts:
+      changes["d_ff_shared"] = ZOO_PARITY_EXPERTS["d_ff_shared"]
+  if cfg.sliding_window:
+    changes["sliding_window"] = ZOO_PARITY_WINDOW
+  return dataclasses.replace(cfg, **changes)
+
+
+def phase_serve_zoo_parity():
+  """Each of slice 8a's six archs, card against CPU (``serve_parity``) at
+  ``zoo_parity_config``'s size: greedy tokens equal, logits within the
+  int8-KV bound; mixtral's 32-position ring wraps in prefill and decode."""
+  errs = {}
+  for arch in ZOO_ARCHS:
+    cfg = zoo_parity_config(arch)
+    errs[arch] = serve_parity(
+        "serve-zoo-parity", cfg,
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}"
+        + (f", {cfg.n_experts} experts of {cfg.d_ff_expert}"
+           if cfg.n_experts else "")
+        + (f", window {cfg.sliding_window} (the ring wraps)"
+           if cfg.sliding_window else "") + ", int8 KV", 1e-3,
+        routing=bool(cfg.n_experts),
+        width=f"narrowed to d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}")
+  return errs
 
 
 # ---------------------------------------------------------------------------
@@ -3476,19 +3787,20 @@ def _train_batch(cfg, b, s, step=0):
           "labels": torch.from_numpy(labels).cuda()}
 
 
-def phase_train(smi):
-  """The main path of training: ``python -m repro_torch.launch.train`` at
-  full width (qwen3-0.6b, 28 layers, bf16 compute, f32 master weights), 40
-  steps of 8 x 512 tokens, run through its ``main(argv)``; then 5 steps
-  each of int8 optimizer states, LightPE-2 QAT and 2 microbatches."""
-  import dataclasses
-  import shutil
+def _train_run(tag, smi, start, b, s):
+  """One launcher-recipe training run on the card at batches of b x s:
+  ``start(ckpt_dir)`` builds and runs the Trainer.  Checks finite losses,
+  the last 5 below the first 5 and ln V, 2 K6 launches a layer a step (the
+  forward and its remat recompute) and one K6-backward, and a nonzero
+  gradient for every leaf; prints ms a step, tokens/s, the model-FLOPs
+  share, peak memory and one step's device time by kernel group
+  (``[{tag}-profile]``).  Returns (the kernel counts, the Trainer, its
+  checkpoint directory)."""
   import tempfile
   import torch
-  from repro_torch.launch import train as launch_train
   from repro_torch.train import train_step as ts_lib
   (ROOT / "build").mkdir(exist_ok=True)
-  ckpt = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+  ckpt = tempfile.mkdtemp(prefix=f"{tag}_", dir=ROOT / "build")
   rows = []
   real_step = ts_lib.train_step
   ts_lib.train_step = _timed(real_step, rows)
@@ -3496,7 +3808,7 @@ def phase_train(smi):
   _reset_kernel_counts()
   t0 = time.perf_counter()
   try:
-    trainer = launch_train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt])
+    trainer = start(ckpt)
   finally:
     ts_lib.train_step = real_step
   wall = time.perf_counter() - t0
@@ -3505,21 +3817,21 @@ def phase_train(smi):
   cfg = trainer.model.cfg
   steps = len(trainer.history)
   losses = [r["loss"] for r in trainer.history]
-  b, s = int(TRAIN_ARGV[5]), int(TRAIN_ARGV[7])
   host = statistics.median(r[0] for r in rows[1:])
   ev = statistics.median(r[1] for r in rows[1:])
   tok_s = b * s / (ev / 1e3)
   mfu = cfg.train_flops_per_token() * tok_s / PEAK_BF16_PER_S
   n_params = sum(p.numel() for p in trainer.state["params"].parameters())
-  log(f"[train] {cfg.name}: {_describe(cfg)}, d_ff {cfg.d_ff}, tied "
-      f"embeddings, {n_params:,} parameters (param_count "
-      f"{cfg.param_count():,}), f32 master weights, bf16 compute, remat; "
-      f"{steps} steps of {b} x {s} tokens in {wall:.1f} s (set-up "
-      "included)")
-  log(f"[train] losses {losses[0]:.4f} -> {losses[-1]:.4f}: first 5 "
+  log(f"[{tag}] {cfg.name}: {_describe(cfg)}, d_ff {cfg.d_ff}, "
+      f"{cfg.mlp_variant}, {cfg.norm}, "
+      f"{'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
+      f"{n_params:,} parameters (param_count {cfg.param_count():,}), f32 "
+      f"master weights, bf16 compute, remat; {steps} steps of {b} x {s} "
+      f"tokens in {wall:.1f} s (set-up included)")
+  log(f"[{tag}] losses {losses[0]:.4f} -> {losses[-1]:.4f}: first 5 "
       f"{[round(x, 4) for x in losses[:5]]}, last 5 "
       f"{[round(x, 4) for x in losses[-5:]]}")
-  log(f"[train] step (median of steps 2-{steps}): host {host:.2f} ms, "
+  log(f"[{tag}] step (median of steps 2-{steps}): host {host:.2f} ms, "
       f"events {ev:.2f} ms (first step {rows[0][0]:.1f} ms host); "
       f"{tok_s:,.1f} tokens/s; model FLOPs "
       f"{cfg.train_flops_per_token() / 1e9:.3f} GFLOP/token x tokens/s = "
@@ -3537,12 +3849,13 @@ def phase_train(smi):
     raise AssertionError(f"a loss is not finite: {losses}")
   first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
   uniform, floor = math.log(cfg.vocab_size), _unigram_entropy(cfg)
-  log(f"[train] losses every 10 steps {[round(x, 3) for x in losses[::10]]}"
-      f"; mean of the first 5 {first:.4f}, of the last 5 {last:.4f} (fell "
-      f"by {first - last:.4f}; tests/test_train.py asks 0.3 of its small "
-      f"model); the uniform guess ln {cfg.vocab_size} = {uniform:.4f}, the "
-      f"stream's unigram entropy {floor:.4f} (the floor without learning "
-      "its 151,936 x 6 transitions)")
+  log(f"[{tag}] losses every 10 steps "
+      f"{[round(x, 3) for x in losses[::10]]}; mean of the first 5 "
+      f"{first:.4f}, of the last 5 {last:.4f} (fell by {first - last:.4f}; "
+      f"tests/test_train.py asks 0.3 of its small model); the uniform guess "
+      f"ln {cfg.vocab_size} = {uniform:.4f}, the stream's unigram entropy "
+      f"{floor:.4f} (the floor without learning its {cfg.vocab_size:,} x 6 "
+      "transitions)")
   if not last < min(first, uniform):
     raise AssertionError(f"the last 5 losses ({last:.4f}) are not below the "
                          f"first 5 ({first:.4f}) and the uniform guess "
@@ -3551,7 +3864,7 @@ def phase_train(smi):
   batch = _train_batch(cfg, b, s, step=1000)
   zero = _nonzero_grad_leaves(trainer.model, trainer.tcfg,
                               trainer.state["params"], batch)
-  log(f"[train] every one of the "
+  log(f"[{tag}] every one of the "
       f"{len(list(trainer.state['params'].parameters()))} trainable leaves "
       "gets a nonzero gradient" if not zero else f"ZERO GRADIENTS: {zero}")
   if zero:
@@ -3559,20 +3872,65 @@ def phase_train(smi):
   stage = []
   timed_stage(stage, "step", lambda: trainer.run(1))
   by_group = {}
-  device_ms = _device_profile("train", "one full-width step",
+  device_ms = _device_profile(tag, "one full-width step",
                               lambda: trainer.run(1), by_group)
-  log(f"[train-profile] one step: {stage[0][1]:.2f} ms (host), "
+  log(f"[{tag}-profile] one step: {stage[0][1]:.2f} ms (host), "
       f"{stage[0][2]:.2f} ms (events); the card busy "
       + (f"{device_ms / stage[0][2]:.1%} of it" if device_ms else
          "not measured")
-      + "; K6's backward "
-      + (f"{by_group['K6-bwd']:.3f} ms of device time" if "K6-bwd" in by_group
-         else "not measured")
-      + f" (the CUDA-core design: {K6_BWD_CUDA_CORE['train_ms']} ms, of "
-      f"{K6_BWD_CUDA_CORE['train_device_ms']} ms of device time)")
+      + "; K6 " + (f"{by_group['K6']:.3f} ms" if "K6" in by_group
+                   else "not measured")
+      + ", K6's backward "
+      + (f"{by_group['K6-bwd']:.3f} ms" if "K6-bwd" in by_group
+         else "not measured") + " of device time")
+  return counts, trainer, ckpt
+
+
+def phase_train(smi):
+  """LM training at full width on qwen3-0.6b cut to ``TRAIN_QWEN3_LAYERS``
+  of its 28 layers (bf16 compute, f32 master weights): the launcher's
+  recipe and Trainer (``launch.train.make_trainer``), 200 steps of 8 x
+  512 tokens."""
+  import dataclasses
+  import shutil
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.launch import train as launch_train
+  cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                            n_layers=TRAIN_QWEN3_LAYERS)
+  steps, b, s = (TRAIN_RECIPE[k] for k in ("steps", "batch", "seq"))
+
+  def start(ckpt):
+    trainer = launch_train.make_trainer(cfg, launch_train.recipe(steps),
+                                        steps, b, s, ckpt)
+    trainer.run()
+    return trainer
+  counts, trainer, ckpt = _train_run("train", smi, start, b, s)
   del trainer
   torch.cuda.empty_cache()
+  shutil.rmtree(ckpt, ignore_errors=True)
+  return counts
 
+
+def phase_train_olmo(smi):
+  """Slice 8a's training main path: ``python -m repro_torch.launch.train``
+  with its default arch, olmo-1b, at full width and depth (16 layers,
+  non-parametric layernorm, bf16 compute, f32 master weights), 200 steps
+  of 8 x 512 tokens through its ``main(argv)``; then 5 steps each of int8
+  optimizer states, LightPE-2 QAT and 2 microbatches."""
+  import dataclasses
+  import shutil
+  import torch
+  from repro_torch.launch import train as launch_train
+  b, s = int(TRAIN_OLMO_ARGV[3]), int(TRAIN_OLMO_ARGV[5])
+  counts, trainer, ckpt = _train_run(
+      "train-olmo", smi,
+      lambda ckpt: launch_train.main(TRAIN_OLMO_ARGV + ["--ckpt-dir", ckpt]),
+      b, s)
+  cfg = trainer.model.cfg
+  n_params = sum(p.numel() for p in trainer.state["params"].parameters())
+  del trainer
+  torch.cuda.empty_cache()
   base = launch_train.recipe(TRAIN_VARIANT_STEPS)
   variants = (
       ("int8 optimizer states", dataclasses.replace(
@@ -3597,7 +3955,7 @@ def phase_train(smi):
              "x less; the reference claims ~3.5x)"
              if tcfg.optimizer.quantize_state else "")
     losses = [r["loss"] for r in hist]
-    log(f"[train] {name}: {len(hist)} steps, losses "
+    log(f"[train-olmo] {name}: {len(hist)} steps, losses "
         f"{[round(x, 4) for x in losses]}, host ms a step "
         f"{statistics.median(r['sec'] for r in hist[1:]) * 1e3:.2f} "
         f"(median of steps 2-{len(hist)}), peak memory "
@@ -3610,13 +3968,80 @@ def phase_train(smi):
   return counts
 
 
-def phase_train_parity(arch="qwen3-0.6b", tag="train-parity"):
-  """``arch`` at full width, 2 layers, f32, TF32 off: the train loss,
-  every gradient and one AdamW step (f32 and int8 states) on the card
-  against the CPU from the same weights and batch.
+def phase_train_moe(smi):
+  """qwen2-moe-a2.7b at full width, 2 layers, through the launcher's
+  recipe and Trainer: 5 steps of 8 x 512 tokens (eight MoE groups of
+  512).  Checks finite losses and aux losses, and a nonzero gradient for
+  every leaf, the router, the stacked experts and the shared expert among
+  them."""
+  import dataclasses
+  import shutil
+  import tempfile
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.launch import train as launch_train
+  from repro_torch.train import train_step as ts_lib
+  r = TRAIN_MOE
+  cfg = dataclasses.replace(get_config(SERVE_MOE_ARCH),
+                            n_layers=r["n_layers"])
+  ckpt = tempfile.mkdtemp(prefix="train_moe_", dir=ROOT / "build")
+  aux, rows = [], []
+  real_step = ts_lib.train_step
+  timed = _timed(real_step, rows)
 
-  Each gradient leaf is held to 1e-4 of its largest |value| for qwen3,
-  and to ``RWKV_PARITY_GRAD_TOL`` for rwkv6 (see there)."""
+  def step(*args):
+    state, metrics = timed(*args)
+    aux.append(float(metrics["aux"]))
+    return state, metrics
+  torch.cuda.reset_peak_memory_stats()
+  _reset_kernel_counts()
+  ts_lib.train_step = step
+  try:
+    trainer = launch_train.make_trainer(cfg, launch_train.recipe(r["steps"]),
+                                        r["steps"], r["batch"], r["seq"],
+                                        ckpt)
+    hist = trainer.run()
+  finally:
+    ts_lib.train_step = real_step
+  counts = _kernel_counts()
+  losses = [x["loss"] for x in hist]
+  batch = _train_batch(cfg, r["batch"], r["seq"], step=1000)
+  zero = _nonzero_grad_leaves(trainer.model, trainer.tcfg,
+                              trainer.state["params"], batch)
+  names = [n for n, _ in trainer.state["params"].named_parameters()]
+  moe_leaves = [n for n in names if ".ffn." in n]
+  ev = statistics.median(x[1] for x in rows[1:])
+  log(f"[train-moe] {cfg.name}: {_describe(cfg)}, full width, "
+      f"{cfg.n_layers} of 24 layers; {len(hist)} steps of {r['batch']} x "
+      f"{r['seq']} tokens: losses {[round(x, 4) for x in losses]}, aux "
+      f"losses {[round(x, 4) for x in aux]} (k = {cfg.n_experts_active} for a "
+      f"balanced router that drops no token); "
+      f"step (median of steps 2-{len(hist)}) {ev:.2f} ms between events; "
+      f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+      f"launches {counts}; leaves with an all-zero gradient: "
+      f"{zero or 'none'} of {len(names)} ({len(moe_leaves)} MoE leaves: "
+      f"{sorted({n.split('.ffn.')[1] for n in moe_leaves})}); card: {smi}")
+  want = {"flash_attention": 2 * cfg.n_layers * len(hist),
+          "flash_attention_bwd": cfg.n_layers * len(hist)}
+  if any(counts[k] != n for k, n in want.items()):
+    raise AssertionError(f"expected K6 launches {want}, got {counts}")
+  if not all(math.isfinite(x) for x in losses + aux) or zero:
+    raise AssertionError("MoE training: a loss or aux loss is not finite, "
+                         "or a leaf has no gradient")
+  del trainer
+  torch.cuda.empty_cache()
+  shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_train_parity(arch="qwen3-0.6b", tag="train-parity", changes=None):
+  """``arch`` at full width (or with the width ``changes``), 2 layers, f32,
+  TF32 off: the train loss, every gradient and one AdamW step (f32 and
+  int8 states) on the card against the CPU from the same weights and
+  batch; a vlm's batch opens with its ``n_image_tokens`` image
+  embeddings.
+
+  Each gradient leaf is held to 1e-4 of its largest |value|, and to
+  ``RWKV_PARITY_GRAD_TOL`` for rwkv6 (see there)."""
   import dataclasses
   import numpy as np
   import torch
@@ -3626,7 +4051,7 @@ def phase_train_parity(arch="qwen3-0.6b", tag="train-parity"):
   from repro_torch.train import optimizer as opt_lib
   from repro_torch.train import train_step as ts_lib
   cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                            n_layers=PARITY_LAYERS)
+                            n_layers=PARITY_LAYERS, **(changes or {}))
   tcfg = ts_lib.TrainConfig()
   gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
   gpu_params = gpu_model.init(0, param_dtype="float32")
@@ -3634,6 +4059,11 @@ def phase_train_parity(arch="qwen3-0.6b", tag="train-parity"):
       {k: v.cpu() for k, v in gpu_params.state_dict().items()},
       param_dtype="float32")
   batch = _train_batch(cfg, *TRAIN_PARITY_BATCH)
+  if cfg.family == "vlm":
+    batch["img_embeds"] = _randn(
+        np.random.RandomState(12),
+        (TRAIN_PARITY_BATCH[0], cfg.n_image_tokens, cfg.d_model),
+        torch.float32)
   cpu_batch = {k: v.cpu() for k, v in batch.items()}
   ssm = cfg.family == "ssm"
   grad_tol = RWKV_PARITY_GRAD_TOL if ssm else 1e-4
@@ -3651,9 +4081,16 @@ def phase_train_parity(arch="qwen3-0.6b", tag="train-parity"):
   worst = max(grad_errs, key=grad_errs.get)
   zero = [n for n, g in zip(names, grads_g) if not bool(g.abs().max() > 0)]
   wkv = (f"; {counts['wkv6']} K7 and {counts['wkv6_bwd']} K7-backward "
-         "launches on the card" if ssm else "")
-  log(f"[{tag}] {cfg.name} at full width, float32, "
-      f"{cfg.n_layers} layers, TF32 off, batch {TRAIN_PARITY_BATCH}: "
+         "launches on the card" if ssm else
+         f"; {counts['flash_attention']} K6 and "
+         f"{counts['flash_attention_bwd']} K6-backward launches on the card")
+  width = ("at full width" if not changes else "narrowed to " + ", ".join(
+      f"{k} {v}" for k, v in changes.items()) + f" ({cfg.n_heads} heads / "
+      f"{cfg.n_kv_heads} kv heads x {cfg.head_dim} kept)")
+  extra = (f", {cfg.n_image_tokens} image embeddings first"
+           if "img_embeds" in batch else "")
+  log(f"[{tag}] {cfg.name} {width}, float32, "
+      f"{cfg.n_layers} layers, TF32 off, batch {TRAIN_PARITY_BATCH}{extra}: "
       f"loss card {float(loss_g):.7f} vs CPU {float(loss_c):.7f}, relative "
       f"{loss_err:.3g} (tolerance 1e-5); {len(names)} gradient leaves, "
       f"worst {worst} at {grad_errs[worst]:.3g} of its max |value| "
@@ -3896,18 +4333,23 @@ def phase_k7_backward():
 
 
 def phase_train_rwkv(smi):
-  """rwkv6 training's main path: ``python -m repro_torch.launch.train
-  --arch rwkv6-1.6b`` at full width (24 layers, bf16 compute, f32 master
-  weights), the launcher's 200 steps of 8 x 512 tokens, run through its
-  ``main(argv)``; then one step's device operations and 5 steps under
-  LightPE-2 QAT."""
+  """rwkv6 training's main path: the launcher's recipe and Trainer
+  (``launch.train.make_trainer``) on rwkv6-1.6b at full width and
+  ``TRAIN_RWKV_LAYERS`` of its 24 layers (bf16 compute, f32 master
+  weights), 200 steps of 8 x 512 tokens; then one step's device
+  operations and 5 steps under LightPE-2 QAT."""
+  import dataclasses
   import shutil
   import tempfile
   import torch
+  from repro_torch.configs import get_config
   from repro_torch.launch import train as launch_train
   from repro_torch.train import train_step as ts_lib
   (ROOT / "build").mkdir(exist_ok=True)
   ckpt = tempfile.mkdtemp(prefix="train_rwkv_", dir=ROOT / "build")
+  steps, b, s = (TRAIN_RECIPE[k] for k in ("steps", "batch", "seq"))
+  cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                            n_layers=TRAIN_RWKV_LAYERS)
   rows = []
   real_step = ts_lib.train_step
   ts_lib.train_step = _timed(real_step, rows)
@@ -3915,16 +4357,16 @@ def phase_train_rwkv(smi):
   _reset_kernel_counts()
   t0 = time.perf_counter()
   try:
-    trainer = launch_train.main(TRAIN_RWKV_ARGV + ["--ckpt-dir", ckpt])
+    trainer = launch_train.make_trainer(cfg, launch_train.recipe(steps),
+                                        steps, b, s, ckpt)
+    trainer.run()
   finally:
     ts_lib.train_step = real_step
   wall = time.perf_counter() - t0
   counts = _kernel_counts()
   peak = torch.cuda.max_memory_allocated()
-  cfg = trainer.model.cfg
   steps = len(trainer.history)
   losses = [r["loss"] for r in trainer.history]
-  b, s = int(TRAIN_RWKV_ARGV[5]), int(TRAIN_RWKV_ARGV[7])
   host = statistics.median(r[0] for r in rows[1:])
   ev = statistics.median(r[1] for r in rows[1:])
   tok_s = b * s / (ev / 1e3)
@@ -3982,9 +4424,8 @@ def phase_train_rwkv(smi):
                    else "not measured")
       + ", K7's backward " + (
           f"{by_group['K7-bwd']:.3f} ms ({by_group['K7-bwd'] / device_ms:.1%}"
-          f" of the step's device time; the first design: "
-          f"{K7_BWD_FIRST['train_ms']} ms of {K7_BWD_FIRST['train_device_ms']}"
-          " ms)" if "K7-bwd" in by_group and device_ms else "not measured")
+          " of the step's device time)" if "K7-bwd" in by_group and device_ms
+          else "not measured")
       + " of device time")
   del trainer
   torch.cuda.empty_cache()
@@ -4345,6 +4786,14 @@ def phase_codecs_parity():
   return worst
 
 
+def _phase(name, fn, *args):
+  """``fn(*args)``, its wall time printed as ``[time] name``."""
+  t0 = time.perf_counter()
+  out = fn(*args)
+  log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+  return out
+
+
 def main() -> int:
   if not (ROOT / "src" / "repro_torch").is_dir():
     sys.exit("chip_smoke.py: src/repro_torch is not beside this script; "
@@ -4371,6 +4820,8 @@ def main() -> int:
   co_parity = phase_coexplore_parity()
   phase_coexplore_poly(poly_backend, smi)
   del poly_backend
+  log(f"[time] [setup] through [coexplore-poly]: "
+      f"{time.perf_counter() - t0:.1f} s")
   t_search = time.perf_counter()
   guided = phase_search(smi)
   phase_search_hw(layers)
@@ -4410,25 +4861,51 @@ def main() -> int:
       f"{model_launches} (QAT and the supernet run convolutions, batch "
       "norm and fake quantization outside any of them; fig 12's joint "
       "front is a staircase)")
+  t_serve = time.perf_counter()
   kernels.update(phase_attention_kernels())
-  launches.update(phase_serve())
-  phase_serve_parity()
+  zoo_kernels = _phase("[K6] and [K5] at the zoo's heads", phase_attention_zoo)
+  kernels["flash_attention"]["heads"] = zoo_kernels["K6"]
+  kernels["quant_decode_attn"]["groups"] = zoo_kernels["K5"]
+  launches.update(_phase("[serve]", phase_serve))
+  _phase("[serve-parity]", phase_serve_parity)
   kernels.update(phase_wkv_kernel())
-  launches.update(phase_serve_rwkv())
-  phase_serve_rwkv_parity()
+  launches.update(_phase("[serve-rwkv]", phase_serve_rwkv))
+  _phase("[serve-rwkv-parity]", phase_serve_rwkv_parity)
+  moe_launches = _phase("[serve-moe]", phase_serve_moe)
+  kernels["flash_attention"]["launches_serve_moe"] = \
+      moe_launches["flash_attention"]
+  kernels["quant_decode_attn"]["launches_serve_moe"] = \
+      moe_launches["quant_decode_attn"]
+  _phase("[serve-moe-parity]", phase_serve_moe_parity)
+  _phase("[serve-zoo]", phase_serve_zoo)
+  _phase("[serve-zoo-parity]", phase_serve_zoo_parity)
+  log(f"[time] [K6] through [serve-zoo-parity]: "
+      f"{time.perf_counter() - t_serve:.1f} s")
   t_train = time.perf_counter()
-  kernels.update(phase_k6_backward())
-  train_launches = phase_train(smi)
+  kernels.update(_phase("[K6-bwd]", phase_k6_backward))
+  train_launches = _phase("[train]", phase_train, smi)
   launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
   kernels["flash_attention"]["launches_train"] = \
       train_launches["flash_attention"]
-  phase_train_parity()
-  phase_train_resume()
+  _phase("[train-parity]", phase_train_parity)
+  _phase("[train-resume]", phase_train_resume)
   log(f"[train-resume] [K6-bwd] through [train-resume]: "
       f"{time.perf_counter() - t_train:.1f} s")
+  t_zoo = time.perf_counter()
+  olmo_launches = _phase("[train-olmo]", phase_train_olmo, smi)
+  kernels["flash_attention"]["launches_train_olmo"] = \
+      olmo_launches["flash_attention"]
+  kernels["flash_attention_bwd"]["launches_train_olmo"] = \
+      olmo_launches["flash_attention_bwd"]
+  _phase("[train-moe]", phase_train_moe, smi)
+  for arch, changes in TRAIN_PARITY_ZOO:
+    _phase(f"[train-parity] {arch}", phase_train_parity, arch,
+           "train-parity", changes)
+  log(f"[train-parity] [train-olmo] through the zoo's [train-parity]: "
+      f"{time.perf_counter() - t_zoo:.1f} s")
   t_rwkv = time.perf_counter()
   kernels.update(phase_k7_backward())
-  rwkv_launches = phase_train_rwkv(smi)
+  rwkv_launches = _phase("[train-rwkv]", phase_train_rwkv, smi)
   launches["wkv6_bwd"] = rwkv_launches["wkv6_bwd"]
   kernels["wkv6"]["launches_train_rwkv"] = rwkv_launches["wkv6"]
   phase_train_parity("rwkv6-1.6b", "train-rwkv-parity")
@@ -4441,9 +4918,16 @@ def main() -> int:
     entry["launches"] = launches[name]
   log(f"[done] {time.perf_counter() - t0:.1f} s; each kernel held against "
       "its plain version on the card, with its launches during its path's "
-      "run (K1, K2: the sweep; K5, K6: the first serve run; K6's "
+      "run (K1, K2: the sweep; K5, K6: the first serve run, and in the "
+      "first [serve-moe] run K5 "
+      f"{kernels['quant_decode_attn']['launches_serve_moe']} and K6 "
+      f"{kernels['flash_attention']['launches_serve_moe']} times; K6's "
       "backward: the [train] run, where K6 launched "
-      f"{kernels['flash_attention']['launches_train']} times; K7: the first "
+      f"{kernels['flash_attention']['launches_train']} times, and in "
+      "[train-olmo] K6 "
+      f"{kernels['flash_attention']['launches_train_olmo']} and its "
+      f"backward {kernels['flash_attention_bwd']['launches_train_olmo']} "
+      "times; K7: the first "
       "serve-rwkv run; K7's backward: the [train-rwkv] run, where K7 "
       f"launched {kernels['wkv6']['launches_train_rwkv']} times; K3, K4: "
       "the codecs run); on the co-exploration "

@@ -16,14 +16,8 @@ VOCAB_PAD_MULTIPLE = 256  # Megatron-style padding of the vocab
 # the architectures of the reference that the port does not serve yet,
 # with the slice of the port that brings each (ROADMAP.md, Queue 1)
 LATER_SLICES: Dict[str, str] = {
-    "olmo-1b": "slice 8 (the rest of the model zoo)",
-    "granite-34b": "slice 8 (the rest of the model zoo)",
-    "minitron-4b": "slice 8 (the rest of the model zoo)",
-    "mixtral-8x22b": "slice 8 (the rest of the model zoo: MoE)",
-    "qwen2-moe-a2.7b": "slice 8 (the rest of the model zoo: MoE)",
-    "jamba-1.5-large": "slice 8 (the rest of the model zoo: mamba hybrid)",
-    "whisper-base": "slice 8 (the rest of the model zoo: encoder-decoder)",
-    "pixtral-12b": "slice 8 (the rest of the model zoo: vlm)",
+    "jamba-1.5-large": "slice 8b (the mamba scan and the hybrid layers)",
+    "whisper-base": "slice 8b (the encoder and cross-attention)",
 }
 
 

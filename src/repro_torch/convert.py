@@ -89,19 +89,20 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
   checkpoint restores them), ``blocks`` leaves stacked on a leading
   ``n_blocks`` axis.
 
-  Matmul weights, the embedding and the LM head are cast once to
-  ``dtype``: by default the model dtype, for serving (the reference casts
-  its float32 copies at every use: the same rounding); float32 (or
-  bfloat16) for a trainable model.  Norm scales and biases and rwkv's
-  lerps, decay base, bonus and group-norm scale stay float32.
+  Matmul weights (a MoE's router, stacked (E, d_in, d_out) experts and
+  shared MLP among them), the embedding, the LM head and a learned
+  position table are cast once to ``dtype``: by default the model dtype,
+  for serving (the reference casts its float32 copies at every use: the
+  same rounding); float32 (or bfloat16) for a trainable model.  Norm
+  scales and biases and rwkv's lerps, decay base, bonus and group-norm
+  scale stay float32; a ``layernorm_np`` norm's empty dict gives no
+  entry.
   """
   if cfg.family == "encdec":
-    raise NotImplementedError("encoder-decoder models come with slice 8 of "
-                              "the port")
-  for kind, is_moe in cfg.block_pattern():
-    if kind == "mamba" or is_moe:
-      raise NotImplementedError(f"{'MoE' if is_moe else kind} layers "
-                                "come with slice 8 of the port")
+    raise NotImplementedError("encoder-decoder models come with slice 8b "
+                              "of the port")
+  if any(kind == "mamba" for kind, _ in cfg.block_pattern()):
+    raise NotImplementedError("mamba layers come with slice 8b of the port")
   dt = model_dtype(cfg) if dtype is None else dtype
 
   def tensor(a, cast: bool) -> torch.Tensor:

@@ -9,7 +9,15 @@
 // blocks of positions; f32 out.  The TPU walks the sequence blocks on a
 // sequential grid axis with (m, l, acc) in VMEM scratch.  Here the
 // sequence is split over the blocks of a thread-block cluster (flash
-// decoding), in one launch, grid (B * Hkv, n_splits):
+// decoding), in one launch, grid (B * Hkv, n_splits, G / Gs):
+//
+//  * A block takes Gs query heads of its kv head: all G of them for G in
+//    {1, 2, 3, 4, 6, 8} (one template instance each), sub-groups of
+//    Gs = 8 for a G that is a multiple of 8 (16, or granite's 48 heads on
+//    one kv head), one sub-group a grid row z.  The sub-groups of a kv
+//    head read the same codes: a query head's registers (acc[Gs][8]) and
+//    shared memory (partials of Gs x D) stay those of G = 8, and the
+//    re-reads go to the cache a single kv head keeps small.
 //
 //  * n_splits = min(8, ceil(S / 128)) comes from the cache's capacity S,
 //    which the host knows, never from `length`, which stays on the
@@ -134,7 +142,8 @@ __global__ void __launch_bounds__(kThreads) qda_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k_codes,
     const float* __restrict__ k_scale, const int8_t* __restrict__ v_codes,
     const float* __restrict__ v_scale, const int32_t* __restrict__ length,
-    float* __restrict__ out, int64_t hkv, int64_t s, float sm_scale) {
+    float* __restrict__ out, int64_t hkv, int64_t g_all, int64_t s,
+    float sm_scale) {
   using L = Smem<G, D>;
   constexpr int kChunks = D / 16;      // 16-byte chunks of a code row
   constexpr int kCols = D / 8;         // 8-column slices of a PV row
@@ -151,6 +160,8 @@ __global__ void __launch_bounds__(kThreads) qda_kernel(
   const int lane = tid % 32, warp = tid / 32;
   const int64_t bh = blockIdx.x;
   const int rank = blockIdx.y;          // the block's rank in its cluster
+  // the first of this block's G query heads among the kv head's g_all
+  const int64_t head0 = bh * g_all + static_cast<int64_t>(blockIdx.z) * G;
   const int blocks = gridDim.y;
   const int64_t fill = length[bh / hkv];
   const int64_t n = fill < 0 ? 0 : (fill < s ? fill : s);
@@ -183,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) qda_kernel(
 
   if (mine > 0) issue(0);
   for (int i = tid; i < G * D; i += kThreads)
-    qs[i] = to_f32(q[bh * G * D + i]);
+    qs[i] = to_f32(q[head0 * D + i]);
 
   const int col = (tid % kCols) * 8;
   const int lane_row = tid / kCols;
@@ -347,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) qda_kernel(
         ll = fmaf(w, l_r[r], ll);
         aa = fmaf(w, a_r[r], aa);
       }
-      out[bh * G * D + i] = aa / fmaxf(ll, 1e-30f);
+      out[head0 * D + i] = aa / fmaxf(ll, 1e-30f);
     }
   }
   cluster.sync();  // every block's shared memory outlives block 0's reads
@@ -356,8 +367,8 @@ __global__ void __launch_bounds__(kThreads) qda_kernel(
 template <typename T, int G, int D>
 int launch(const void* q, const int8_t* kc, const float* ks,
            const int8_t* vc, const float* vs, const int32_t* length,
-           float* out, int64_t bh, int64_t hkv, int64_t s, float sm_scale,
-           cudaStream_t stream) {
+           float* out, int64_t bh, int64_t hkv, int64_t g_all, int64_t s,
+           float sm_scale, cudaStream_t stream) {
   static_assert(kThreads % (D / 8) == 0, "D / 8 must divide the block");
   constexpr size_t smem = Smem<G, D>::bytes;
   // The attribute belongs to the current device, so it is set on every
@@ -375,7 +386,8 @@ int launch(const void* q, const int8_t* kc, const float* ks,
   attr[0].val.clusterDim.y = n_splits;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(bh), n_splits);
+  cfg.gridDim = dim3(static_cast<unsigned>(bh), n_splits,
+                     static_cast<unsigned>(g_all / G));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -383,7 +395,7 @@ int launch(const void* q, const int8_t* kc, const float* ks,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, qda_kernel<T, G, D>,
                            static_cast<const T*>(q), kc, ks, vc, vs, length,
-                           out, hkv, s, sm_scale);
+                           out, hkv, g_all, s, sm_scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -391,28 +403,33 @@ int launch(const void* q, const int8_t* kc, const float* ks,
 template <typename T, int G>
 int dispatch_d(int64_t d, const void* q, const int8_t* kc, const float* ks,
                const int8_t* vc, const float* vs, const int32_t* length,
-               float* out, int64_t bh, int64_t hkv, int64_t s,
+               float* out, int64_t bh, int64_t hkv, int64_t g_all, int64_t s,
                float sm_scale, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, G, 16>(q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 32: return launch<T, G, 32>(q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 64: return launch<T, G, 64>(q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 128: return launch<T, G, 128>(q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
+    case 16: return launch<T, G, 16>(q, kc, ks, vc, vs, length, out, bh, hkv, g_all, s, sm_scale, st);
+    case 32: return launch<T, G, 32>(q, kc, ks, vc, vs, length, out, bh, hkv, g_all, s, sm_scale, st);
+    case 64: return launch<T, G, 64>(q, kc, ks, vc, vs, length, out, bh, hkv, g_all, s, sm_scale, st);
+    case 128: return launch<T, G, 128>(q, kc, ks, vc, vs, length, out, bh, hkv, g_all, s, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// G in {1, 2, 3, 4, 6, 8}: one block row of G heads; a multiple of 8
+// above 8: G / 8 rows of 8
 template <typename T>
 int dispatch_g(int64_t g, int64_t d, const void* q, const int8_t* kc,
                const float* ks, const int8_t* vc, const float* vs,
                const int32_t* length, float* out, int64_t bh, int64_t hkv,
                int64_t s, float sm_scale, cudaStream_t st) {
   switch (g) {
-    case 1: return dispatch_d<T, 1>(d, q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 2: return dispatch_d<T, 2>(d, q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 4: return dispatch_d<T, 4>(d, q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    case 8: return dispatch_d<T, 8>(d, q, kc, ks, vc, vs, length, out, bh, hkv, s, sm_scale, st);
-    default: return cudaErrorInvalidValue;
+    case 1: return dispatch_d<T, 1>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
+    case 2: return dispatch_d<T, 2>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
+    case 3: return dispatch_d<T, 3>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
+    case 4: return dispatch_d<T, 4>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
+    case 6: return dispatch_d<T, 6>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
+    default:
+      if (g < 8 || g % 8 || g / 8 > 65535) return cudaErrorInvalidValue;
+      return dispatch_d<T, 8>(d, q, kc, ks, vc, vs, length, out, bh, hkv, g, s, sm_scale, st);
   }
 }
 
@@ -423,7 +440,8 @@ extern "C" {
 // q (b * hkv, g, d) float32 (q_is_bf16 = 0) or bf16 (1); k/v codes
 // (b * hkv, s, d) int8 and scales (b * hkv, s) f32, all contiguous, the
 // codes 16-byte aligned; length (b,) int32 on the device; out
-// (b * hkv, g, d) f32.  g in {1, 2, 4, 8}, d in {16, 32, 64, 128}.
+// (b * hkv, g, d) f32.  g in {1, 2, 3, 4, 6} or a multiple of 8, d in
+// {16, 32, 64, 128}.
 int qda_forward(const void* q, const int8_t* k_codes, const float* k_scale,
                 const int8_t* v_codes, const float* v_scale,
                 const int32_t* length, float* out, int64_t b, int64_t hkv,

@@ -9,7 +9,11 @@ refused.  ``length`` stays on the device: the kernel reads it there, so a
 call captures into a CUDA graph whose replays follow it.  The kernel
 splits the cache into chunks of ``kSplit`` positions dealt to at most
 ``kMaxSplits`` blocks per (batch, kv head), one thread-block cluster that
-merges its partials in shared memory.  ``LAUNCHES`` counts its launches.
+merges its partials in shared memory.  A block takes all G = H / Hkv
+query heads of its kv head for G up to 8 (``GROUPS`` holds 1, 2, 3, 4, 6
+and 8); a group of 16 or 48 (granite-34b's multi-query heads) is split
+into sub-groups of 8 on a third grid axis, each reading the same codes.
+``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ from repro_torch import _build
 from repro_torch.kernels._checks import expect
 
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+# H / Hkv the kernel takes: every group the model zoo uses (qwen3 2,
+# minitron 3, pixtral 4, mixtral 6, granite 48, and 1), and 8 and 16
+GROUPS = (1, 2, 3, 4, 6, 8, 16, 48)
 
 LAUNCHES: Dict[str, int] = {"quant_decode_attn": 0}
 

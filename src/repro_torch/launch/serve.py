@@ -6,7 +6,8 @@ KV cache, on one card (the port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 It serves a narrow copy of the architecture (``--smoke``, always on, as
-in the reference).  ``--kv-quant`` has no effect on rwkv6-1.6b, which
+in the reference): any of ``configs.list_archs()``, MoE (qwen2-moe-a2.7b,
+mixtral-8x22b) and the vlm's text backbone (pixtral-12b) included.  ``--kv-quant`` has no effect on rwkv6-1.6b, which
 keeps no KV cache.  ``--device`` defaults to ``cuda`` and the launcher
 raises without a card; pass ``--device cpu`` to run on the CPU.
 """

@@ -8,14 +8,19 @@ cosine decay over ``--steps``, on ``MarkovTokenStream`` batches
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
       --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b
 
-``--arch`` defaults to qwen3-0.6b; rwkv6-1.6b trains too (through K7 and
-its backward; ``--smoke`` gives it heads of 16, a size K7 takes).  The
-reference's default, olmo-1b, comes with slice 8.  ``--device`` defaults
-to ``cuda`` and the launcher raises without a card.  The port trains on
-one device: ``--model-parallel`` above 1, ``--production-mesh`` and
-``--profile fsdp`` raise, naming slice 7d.  The run resumes from the
-newest checkpoint in ``--ckpt-dir`` when there is one.
+``--arch`` defaults to olmo-1b, the reference's default; every arch the
+port serves trains (``configs.list_archs()``): rwkv6-1.6b through K7 and
+its backward (``--smoke`` gives it heads of 16, a size K7 takes), the
+others through K6 and its backward, a MoE's aux loss in the loss, and a
+vlm on text (``train_loss`` takes ``img_embeds`` when a caller gives
+them); jamba-1.5-large and whisper-base raise, naming slice 8b.
+``--device`` defaults to ``cuda`` and the launcher raises without a
+card.  The port trains on one device: ``--model-parallel`` above 1,
+``--production-mesh`` and ``--profile fsdp`` raise, naming slice 7d.  The
+run resumes from the newest checkpoint in ``--ckpt-dir`` when there is
+one.
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ def make_trainer(cfg: ModelConfig, tcfg: ts_lib.TrainConfig, steps: int,
 
 def main(argv: Optional[List[str]] = None) -> Trainer:
   ap = argparse.ArgumentParser()
-  ap.add_argument("--arch", default="qwen3-0.6b")
+  ap.add_argument("--arch", default="olmo-1b")
   ap.add_argument("--steps", type=int, default=200)
   ap.add_argument("--batch", type=int, default=8)
   ap.add_argument("--seq", type=int, default=128)

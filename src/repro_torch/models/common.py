@@ -1,5 +1,7 @@
-"""Shared model components: device and dtype, initializers, norms, RoPE
-(the port of ``repro.models.common``: rmsnorm and layernorm).
+"""Shared model components: device and dtype, initializers, norms
+(rmsnorm, layernorm and olmo's non-parametric layernorm), RoPE and
+sinusoidal positions, and the MLP activations (the port of
+``repro.models.common``).
 
 Every function keeps the reference's float32 internals and casts back to
 its input's dtype at the end, so bf16 activations round where the
@@ -8,9 +10,10 @@ reference rounds them.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -60,38 +63,50 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
 # norms
 # ---------------------------------------------------------------------------
 
-def apply_norm(scale: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
-               eps: float = 1e-5,
+def make_norm_params(cfg: ModelConfig, d: Optional[int] = None,
+                     device: Device = None) -> Dict[str, torch.Tensor]:
+  """A pre-norm's float32 parameters: ``scale`` (rmsnorm), ``scale`` and
+  ``bias`` (layernorm), none (olmo's non-parametric ``layernorm_np``)."""
+  d = d or cfg.d_model
+  if cfg.norm == "rmsnorm":
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+  if cfg.norm == "layernorm":
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+  if cfg.norm == "layernorm_np":
+    return {}
+  raise ValueError(cfg.norm)
+
+
+def apply_norm(scale: Optional[torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig, eps: float = 1e-5,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
   """rmsnorm, or layernorm with the population variance (``jnp.var``),
-  in float32; the result takes x's dtype."""
+  scaled and shifted unless it is ``layernorm_np``; in float32, the result
+  in x's dtype."""
   xf = x.float()
   if cfg.norm == "rmsnorm":
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
-  if cfg.norm != "layernorm":
-    raise NotImplementedError(
-        f"norm {cfg.norm!r} comes with slice 8 of the port (the rest of "
-        "the model zoo)")
   centered = xf - torch.mean(xf, dim=-1, keepdim=True)
   var = torch.mean(centered * centered, dim=-1, keepdim=True)
-  return (centered * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+  y = centered * torch.rsqrt(var + eps)
+  if cfg.norm == "layernorm":
+    y = y * scale + bias
+  return y.to(x.dtype)
 
 
 class Norm(nn.Module):
-  """Pre-norm over d_model with a float32 scale (and a float32 bias for
-  layernorm): the reference's ``make_norm_params`` and ``apply_norm`` as
-  one module."""
+  """Pre-norm over d_model: the reference's ``make_norm_params`` and
+  ``apply_norm`` as one module, its parameters (none for
+  ``layernorm_np``) in float32."""
 
   def __init__(self, cfg: ModelConfig, device: Device = None):
     super().__init__()
     self.cfg = cfg
-    self.scale = frozen(torch.ones(cfg.d_model, dtype=torch.float32,
-                                   device=device))
-    self.bias = None
-    if cfg.norm == "layernorm":
-      self.bias = frozen(torch.zeros(cfg.d_model, dtype=torch.float32,
-                                     device=device))
+    params = make_norm_params(cfg, device=device)
+    self.scale = frozen(params["scale"]) if "scale" in params else None
+    self.bias = frozen(params["bias"]) if "bias" in params else None
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(self.scale, x, self.cfg, bias=self.bias)
@@ -134,3 +149,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
   """x: (..., S, H, D) or (..., H, D) with positions (..., S) / (...)."""
   cos, sin = rope_tables(positions, x.shape[-1], theta)
   return apply_rope(x, cos, sin)
+
+
+def sinusoidal_positions(n: int, d: int, device: Device = None
+                         ) -> torch.Tensor:
+  """(n, d) float32: sin on the even columns, cos on the odd ones."""
+  pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+  div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                  * (-math.log(10000.0) / d))
+  pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+  pe[:, 0::2] = torch.sin(pos * div)
+  pe[:, 1::2] = torch.cos(pos * div)
+  return pe
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def mlp_act(x: torch.Tensor, variant: str) -> torch.Tensor:
+  """The reference's activations.  ``jax.nn.gelu`` is the tanh form by
+  default, ``F.gelu`` the erf form (they differ by up to 4e-4), so gelu
+  asks for the tanh form."""
+  if variant == "gelu":
+    return F.gelu(x, approximate="tanh")
+  if variant == "relu2":
+    r = F.relu(x)
+    return r * r
+  if variant == "swiglu":  # applied to the gate half only; see ffn.py
+    return F.silu(x)
+  raise ValueError(variant)

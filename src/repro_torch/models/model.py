@@ -1,6 +1,7 @@
 """Model facade: ``build_model(cfg) -> Model`` with the reference's API
-for the decoder family, attention (qwen3-0.6b) and RWKV-6 (rwkv6-1.6b)
-layers (the port of ``repro.models.model``).
+for the decoder family: attention layers with dense MLPs or MoE (qwen3,
+olmo, granite, minitron, mixtral, qwen2-moe, pixtral's text backbone) and
+RWKV-6 (rwkv6-1.6b) layers (the port of ``repro.models.model``).
 
   init(seed[, param_dtype])         -> params (a Transformer module)
   from_state(state[, param_dtype])  -> params from a state dict
@@ -54,7 +55,8 @@ class Model:
                                      transformer.Tree],
                  batch: Mapping[str, torch.Tensor], remat: bool = True):
     """(xent + 0.01 aux, {"xent", "aux", "tokens"}) of a batch of tokens
-    and labels (B, S) on the model's device."""
+    and labels (B, S), and for a vlm optionally ``img_embeds`` (B, I, d),
+    on the model's device."""
     if isinstance(params, transformer.Transformer):
       params = transformer.param_tree(params)
     return transformer.train_loss(params, batch, self.cfg, remat=remat)

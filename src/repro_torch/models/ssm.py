@@ -14,8 +14,8 @@ the reference's ``make_train_state`` also rounds the 2-D lerps, ``u`` and
 ``ln_x`` to bf16; the port keeps these float32 leaves as serving keeps
 them.)  The functions take a layer's leaves by name, from an
 :class:`RWKVMix` or from :func:`transformer.param_tree`'s per-layer dict,
-so serving and training run the same code.  Mamba comes with slice 8 of
-the port (``transformer.check_supported`` names it).
+so serving and training run the same code.  Mamba comes with slice 8b
+of the port (``transformer.check_supported`` names it).
 """
 from __future__ import annotations
 

@@ -1,12 +1,16 @@
 """Decoder-only LM (the port of ``repro.models.transformer``): parameters
 as ``nn.Module``s and two layer kinds, for serving, and the training
-forward and loss for both.  Attention layers (with a dense SwiGLU MLP)
-keep a per-layer KV cache, optionally int8 (QUIDAM's precision axis
-applied to serving), and run prefill through K6 and decode through K5;
-training runs them through K6 and its backward.  RWKV-6 layers (time mix
-+ channel mix, attention-free) keep a recurrent state and run prefill
+forward and loss for both.  Attention layers keep a per-layer KV cache,
+optionally int8 (QUIDAM's precision axis applied to serving), and run
+prefill through K6 and decode through K5; training runs them through K6
+and its backward.  Their feed-forward is a dense MLP (swiglu, gelu or
+relu2) or, on the layers ``cfg.block_pattern()`` marks, a capacity-routed
+MoE whose aux loss enters the train loss.  RWKV-6 layers (time mix +
+channel mix, attention-free) keep a recurrent state and run prefill
 through K7 and decode through the per-token WKV6 update; training runs
-them through K7 and its backward.
+them through K7 and its backward.  Norms are rmsnorm, layernorm or olmo's
+non-parametric layernorm; positions RoPE, a learned table or sinusoids;
+a vlm's training batch may open with image embeddings.
 
 Differences from the reference, none of them in the numbers:
   * the reference scans over stacked blocks; here the layers are a
@@ -26,8 +30,8 @@ Differences from the reference, none of them in the numbers:
     the reference's tree, whose ``blocks/sub{i}`` leaves are stacked on
     ``n_blocks``.
 
-Mamba, MoE and encoder-decoder raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+Mamba (jamba's hybrid layers) and encoder-decoder models raise
+``NotImplementedError`` naming slice 8b, which brings them.
 """
 from __future__ import annotations
 
@@ -45,8 +49,8 @@ from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.common import (Device, Norm, apply_norm,
                                        apply_rope, dense_init, embed_init,
                                        frozen, model_dtype, rms_head_norm,
-                                       rope_tables)
-from repro_torch.models.ffn import MLP, swiglu
+                                       rope_tables, sinusoidal_positions)
+from repro_torch.models.ffn import MLP, MoE, apply_mlp, apply_moe
 
 Cache = Dict[str, Any]
 Tree = Dict[str, Any]
@@ -56,22 +60,12 @@ PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def check_supported(cfg: ModelConfig) -> None:
   """Raise NotImplementedError for what this slice of the port lacks."""
-  reasons = []
   if cfg.family == "hybrid":
-    reasons.append("mamba layers come with slice 8 (the rest of the zoo)")
+    raise NotImplementedError(f"{cfg.name}: mamba layers come with slice 8b "
+                              "of the port")
   if cfg.family == "encdec":
-    reasons.append("encoder-decoder models come with slice 8")
-  if cfg.n_experts:
-    reasons.append("MoE layers come with slice 8")
-  if cfg.pos_embed not in ("rope", "none"):
-    reasons.append(f"{cfg.pos_embed} positions come with slice 8")
-  if cfg.norm not in ("rmsnorm", "layernorm"):
-    reasons.append(f"{cfg.norm} comes with slice 8")
-  # an rwkv layer has no MLP: its channel mix ignores mlp_variant
-  if cfg.family != "ssm" and cfg.mlp_variant != "swiglu":
-    reasons.append(f"{cfg.mlp_variant} MLPs come with slice 8")
-  if reasons:
-    raise NotImplementedError(f"{cfg.name}: " + "; ".join(reasons))
+    raise NotImplementedError(f"{cfg.name}: encoder-decoder models come "
+                              "with slice 8b of the port")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -224,20 +218,23 @@ def prefill_attn_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-  """Attention + dense MLP, or an RWKV layer, whose channel mix lives in
+  """One entry of :func:`layer_pattern`: attention with a dense MLP or,
+  where ``is_moe``, a MoE; or an RWKV layer, whose channel mix lives in
   its ``mix`` (``cm_*``), with no ``ffn``."""
 
-  def __init__(self, cfg: ModelConfig, device: Device = None,
-               dtype: Optional[torch.dtype] = None):
+  def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool,
+               device: Device = None, dtype: Optional[torch.dtype] = None):
     super().__init__()
-    self.kind = cfg.layer_kinds()[0]
+    self.kind, self.is_moe = kind, is_moe
     self.mix_norm = Norm(cfg, device)
-    if self.kind == "rwkv":
+    if kind == "rwkv":
       self.mix = ssm.RWKVMix(cfg, device, dtype)
     else:
       self.mix = Attention(cfg, device, dtype)
     self.ffn_norm = Norm(cfg, device)
-    if self.kind != "rwkv":
+    if self.is_moe:
+      self.ffn = MoE(cfg, device, dtype)
+    elif kind != "rwkv":
       self.ffn = MLP(cfg, cfg.d_ff, device, dtype)
 
   def init_(self, gen: torch.Generator) -> "Layer":
@@ -245,6 +242,23 @@ class Layer(nn.Module):
     if self.kind != "rwkv":
       self.ffn.init_(gen)
     return self
+
+  def feed_forward(self, h: torch.Tensor) -> torch.Tensor:
+    """The serving path's ffn on (B, S, d) or, for decode, (B, d)."""
+    if not self.is_moe:
+      return self.ffn(h)
+    if h.dim() == 2:
+      return self.ffn(h[:, None, :])[0][:, 0, :]
+    return self.ffn(h)[0]
+
+
+def layer_pattern(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+  """(kind, is_moe) of each of the ``n_layers`` layers: layer ``l`` is
+  position ``l % P`` of the block pattern of ``P`` layers; an rwkv layer
+  is never MoE (it builds no ffn, as the reference's ``init_layer``)."""
+  pattern = [(kind, is_moe and kind != "rwkv")
+             for kind, is_moe in cfg.block_pattern()]
+  return [pattern[l % len(pattern)] for l in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -277,11 +291,14 @@ class Transformer(nn.Module):
     self.embed = frozen(torch.empty((cfg.padded_vocab, cfg.d_model),
                                     dtype=dt, device=device))
     self.final_norm = Norm(cfg, device)
-    self.layers = nn.ModuleList(Layer(cfg, device, dt)
-                                for _ in range(cfg.n_layers))
+    self.layers = nn.ModuleList(Layer(cfg, kind, is_moe, device, dt)
+                                for kind, is_moe in layer_pattern(cfg))
     if not cfg.tie_embeddings:
       self.lm_head = frozen(torch.empty((cfg.d_model, cfg.padded_vocab),
                                         dtype=dt, device=device))
+    if cfg.pos_embed == "learned":
+      self.pos_embed = frozen(torch.empty((cfg.max_position, cfg.d_model),
+                                          dtype=dt, device=device))
     if param_dtype is not None:
       self.requires_grad_(True)
 
@@ -295,6 +312,8 @@ class Transformer(nn.Module):
       layer.init_(gen)
     if not cfg.tie_embeddings:
       self.lm_head.copy_(dense_init(gen, cfg.d_model, cfg.padded_vocab))
+    if cfg.pos_embed == "learned":
+      self.pos_embed.copy_(embed_init(gen, cfg.max_position, cfg.d_model))
     return self
 
 
@@ -310,6 +329,20 @@ def lm_head_weight(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
   if cfg.tie_embeddings:
     return params.embed.T
   return params.lm_head
+
+
+def _add_positions(pos_embed: Optional[torch.Tensor], x: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+  """x (B, S, d) plus the learned table's rows at ``positions`` or the
+  sinusoids of S positions; RoPE and no positions add nothing here."""
+  if cfg.pos_embed == "learned":
+    return x + pos_embed[positions].to(x.dtype)
+  if cfg.pos_embed == "sinusoidal":
+    pe = sinusoidal_positions(int(positions.shape[-1]), cfg.d_model,
+                              x.device)
+    return x + pe.to(x.dtype)
+  return x
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +441,12 @@ def param_tree(params: Transformer) -> Tree:
 # training: the full-sequence forward and the chunked vocab loss
 # ---------------------------------------------------------------------------
 
-def _norm(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  return apply_norm(p["scale"], x, cfg, bias=p.get("bias"))
+def _norm(p: Optional[Tree], x: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+  """A pre-norm from its tree node, absent for ``layernorm_np``, which
+  has no parameters."""
+  p = p or {}
+  return apply_norm(p.get("scale"), x, cfg, bias=p.get("bias"))
 
 
 def apply_attn_train(p: Tree, x: torch.Tensor, cfg: ModelConfig,
@@ -429,21 +466,24 @@ def apply_attn_train(p: Tree, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_layer_train(p: Tree, x: torch.Tensor, cfg: ModelConfig,
-                      rope_cs) -> Tuple[torch.Tensor, torch.Tensor]:
-  """One pre-norm layer: attention + dense MLP, or the RWKV time mix +
-  channel mix (no MLP); returns (x, aux loss)."""
+                      kind: str, is_moe: bool, rope_cs
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """One pre-norm layer: attention + a dense MLP or a MoE, or the RWKV
+  time mix + channel mix (no ffn); returns (x, aux loss)."""
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
-  if cfg.layer_kinds()[0] == "rwkv":
-    out, _ = ssm.apply_rwkv_time_mix(p["mix"], _norm(p["mix_norm"], x, cfg),
-                                     cfg)
+  if kind == "rwkv":
+    out, _ = ssm.apply_rwkv_time_mix(p["mix"],
+                                     _norm(p.get("mix_norm"), x, cfg), cfg)
     x = x + out
     return x + ssm.apply_rwkv_channel_mix(
-        p["mix"], _norm(p["ffn_norm"], x, cfg), cfg), aux
-  x = x + apply_attn_train(p["mix"], _norm(p["mix_norm"], x, cfg), cfg,
+        p["mix"], _norm(p.get("ffn_norm"), x, cfg), cfg), aux
+  x = x + apply_attn_train(p["mix"], _norm(p.get("mix_norm"), x, cfg), cfg,
                            rope_cs)
-  h = _norm(p["ffn_norm"], x, cfg)
-  ffn = p["ffn"]
-  return x + swiglu(h, ffn["wi"], ffn["wg"], ffn["wo"]), aux
+  h = _norm(p.get("ffn_norm"), x, cfg)
+  if is_moe:
+    out, aux = apply_moe(p["ffn"], h, cfg)
+    return x + out, aux
+  return x + apply_mlp(p["ffn"], h, cfg), aux
 
 
 def backbone(tree: Tree, x: torch.Tensor, cfg: ModelConfig, rope_cs,
@@ -452,14 +492,15 @@ def backbone(tree: Tree, x: torch.Tensor, cfg: ModelConfig, rope_cs,
   ``remat`` each layer is checkpointed (the reference's ``jax.checkpoint``
   of a block): its activations are recomputed in the backward."""
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
-  for p in tree["layers"]:
+  for p, (kind, is_moe) in zip(tree["layers"], layer_pattern(cfg)):
     if remat:
       x, a = torch.utils.checkpoint.checkpoint(
-          apply_layer_train, p, x, cfg, rope_cs, use_reentrant=False)
+          apply_layer_train, p, x, cfg, kind, is_moe, rope_cs,
+          use_reentrant=False)
     else:
-      x, a = apply_layer_train(p, x, cfg, rope_cs)
+      x, a = apply_layer_train(p, x, cfg, kind, is_moe, rope_cs)
     aux = aux + a
-  return _norm(tree["final_norm"], x, cfg), aux
+  return _norm(tree.get("final_norm"), x, cfg), aux
 
 
 def chunked_xent(tree: Tree, x: torch.Tensor, labels: torch.Tensor,
@@ -498,15 +539,26 @@ def train_loss(tree: Tree, batch: Mapping[str, torch.Tensor],
                cfg: ModelConfig, remat: bool = True
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """``tree`` (:func:`param_tree`'s form), ``batch`` tokens and labels (B,
-  S) -> (xent + 0.01 aux, {"xent", "aux", "tokens"})."""
+  S) and, for a vlm, optionally ``img_embeds`` (B, I, d) -> (xent + 0.01
+  aux, {"xent", "aux", "tokens"}).  Image embeddings go first, with zero
+  labels and mask, and positions run over the whole sequence."""
   check_trainable(cfg)
   tokens, labels = batch["tokens"], batch["labels"]
   x = F.embedding(tokens, tree["embed"]).to(model_dtype(cfg))
   mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+  if cfg.family == "vlm" and "img_embeds" in batch:
+    img = batch["img_embeds"].to(x.dtype)
+    b, n_img = img.shape[:2]
+    x = torch.cat([img, x], dim=1)
+    labels = torch.cat([torch.zeros((b, n_img), dtype=labels.dtype,
+                                    device=x.device), labels], dim=1)
+    mask = torch.cat([torch.zeros((b, n_img), dtype=torch.float32,
+                                  device=x.device), mask], dim=1)
+  positions = torch.arange(x.shape[1], device=x.device)
   rope_cs = None
   if cfg.pos_embed == "rope":
-    positions = torch.arange(x.shape[1], device=x.device)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+  x = _add_positions(tree.get("pos_embed"), x, positions, cfg)
   x, aux = backbone(tree, x, cfg, rope_cs, remat=remat)
   loss, denom = chunked_xent(tree, x, labels, mask, cfg)
   return loss + 0.01 * aux, {"xent": loss, "aux": aux, "tokens": denom}
@@ -536,6 +588,8 @@ def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
   b = tokens.shape[0]
   dev = tokens.device
   x = F.embedding(tokens, params.embed).to(model_dtype(cfg))
+  if cfg.pos_embed == "learned":
+    x = x + params.pos_embed[length].to(x.dtype)[None]
   rope_cs = None
   if cfg.pos_embed == "rope":
     pos = torch.full((b,), length, dtype=torch.int32, device=dev)
@@ -555,7 +609,7 @@ def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
       continue
     out, _ = apply_attn_decode(layer.mix, h, c, length, cfg, rope_cs, lens)
     x = x + out
-    x = x + layer.ffn(layer.ffn_norm(x))
+    x = x + layer.feed_forward(layer.ffn_norm(x))
   x = params.final_norm(x)
   logits = x @ lm_head_weight(params, cfg).to(x.dtype)
   cache["length"] = length + 1
@@ -567,9 +621,10 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
   """Run the full prompt, build the cache; returns (last logits, cache)."""
   b, s = tokens.shape
   x = F.embedding(tokens, params.embed).to(model_dtype(cfg))
+  positions = torch.arange(s, device=tokens.device)
+  x = _add_positions(getattr(params, "pos_embed", None), x, positions, cfg)
   rope_cs = None
   if cfg.pos_embed == "rope":
-    positions = torch.arange(s, device=tokens.device)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
   layer_caches = []
   for layer in params.layers:
@@ -592,7 +647,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     x = x + out.reshape(b, s, -1) @ mix.wo.to(x.dtype)
     layer_caches.append(prefill_attn_cache(cfg, k, v, max_len))
-    x = x + layer.ffn(layer.ffn_norm(x))
+    x = x + layer.feed_forward(layer.ffn_norm(x))
   x = params.final_norm(x)
   logits = x[:, -1, :] @ lm_head_weight(params, cfg).to(x.dtype)
   cache = {"layers": layer_caches, "length": s}

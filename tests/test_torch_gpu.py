@@ -344,7 +344,11 @@ FLASH_CASES = [(1, 512, 16, 8, 128, True, 0), (1, 512, 16, 8, 128, True, 128),
                (1, 300, 8, 2, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
                (1, 70, 8, 1, 16, True, 24), (1, 63, 16, 8, 128, True, 0),
                (1, 64, 16, 8, 128, True, 0), (1, 65, 16, 8, 128, True, 0),
-               (1, 513, 16, 8, 128, True, 0), (2, 200, 8, 4, 64, True, 0)]
+               (1, 513, 16, 8, 128, True, 0), (2, 200, 8, 4, 64, True, 0),
+               # the zoo's heads: granite-34b's multi-query 48 / 1 and
+               # minitron-4b's 24 / 8 (G = 3)
+               (1, 512, 48, 1, 128, True, 0), (1, 512, 24, 8, 128, True, 0),
+               (1, 129, 48, 1, 128, True, 0)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
@@ -379,7 +383,9 @@ FLASH_BWD_CASES = [(2, 512, 16, 8, 128, True, 0),
                    (1, 300, 8, 4, 64, True, 0), (2, 96, 4, 4, 32, False, 0),
                    (1, 70, 8, 1, 16, True, 24),
                    (1, 64, 16, 8, 128, True, 0), (1, 128, 16, 8, 128, True, 0),
-                   (1, 256, 8, 8, 128, True, 0), (1, 256, 16, 2, 128, True, 0)]
+                   (1, 256, 8, 8, 128, True, 0), (1, 256, 16, 2, 128, True, 0),
+                   (1, 512, 48, 1, 128, True, 0), (1, 512, 24, 8, 128, True, 0),
+                   (2, 129, 48, 1, 128, True, 0)]
 
 
 def _bwd_bound(dtype, s, g):
@@ -601,6 +607,65 @@ def test_decode_kernel_matches_plain_version(cuda, case, dtype):
   assert _rel_err(got, want) < 1e-4
 
 
+# the zoo's groups: minitron-4b's 24 / 8 (G = 3), mixtral-8x22b's 48 / 8
+# (G = 6) and granite-34b's 48 / 1 (G = 48, sub-groups of 8 on the grid
+# reading one kv head's codes), over a 2,048-position cache at lengths 1,
+# the chunk edges 127 / 128 / 129 and 2,048, and a batch whose rows hold 0
+# and 2,048 positions
+ZOO_GROUPS = [(24, 8), (48, 8), (48, 1)]
+ZOO_LENGTHS = [(1,), (127,), (128,), (129,), (2048,), (0, 2048)]
+
+
+@pytest.mark.parametrize("heads", ZOO_GROUPS, ids=str)
+@pytest.mark.parametrize("lengths", ZOO_LENGTHS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_takes_the_zoos_groups(cuda, heads, lengths, dtype):
+  (h, hkv), b, s, d = heads, len(lengths), 2048, 128
+  rng = np.random.RandomState(h + hkv + sum(lengths))
+  q = _normal(rng, (b, h, d), cuda, dtype)
+  cache = qda.quantize_kv(_normal(rng, (b, hkv, s, d), cuda),
+                          _normal(rng, (b, hkv, s, d), cuda))
+  lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+  qda_kernel.reset_launch_counts()
+  got = qda.quant_decode_attn(q, *cache, lens)
+  assert qda_kernel.LAUNCHES["quant_decode_attn"] == 1
+  want = qda.quant_decode_attn_reference(q, *cache, lens)
+  torch.cuda.synchronize()
+  assert got.shape == (b, h, d)
+  assert _rel_err(got, want) < 1e-4
+  for row, n in enumerate(lengths):
+    if n == 0:
+      assert torch.equal(got[row], torch.zeros_like(got[row]))
+
+
+def test_decode_kernel_replays_in_a_cuda_graph_at_48_heads_on_one(cuda):
+  """granite-34b's decode shape captured once: each replay after an
+  in-place change of ``length`` equals the plain version."""
+  rng = np.random.RandomState(48)
+  b, h, hkv, s, d = 1, 48, 1, 2048, 128
+  q = _normal(rng, (b, h, d), cuda, torch.bfloat16)
+  cache = qda.quantize_kv(_normal(rng, (b, hkv, s, d), cuda),
+                          _normal(rng, (b, hkv, s, d), cuda))
+  lens = torch.tensor([513], dtype=torch.int32, device=cuda)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    qda.quant_decode_attn(q, *cache, lens)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = qda.quant_decode_attn(q, *cache, lens)
+  for new in ([514], [1], [2048], [129], [0], [127]):
+    lens.copy_(torch.tensor(new, dtype=torch.int32))
+    graph.replay()
+    want = qda.quant_decode_attn_reference(q, *cache, lens)
+    torch.cuda.synchronize()
+    if new == [0]:
+      assert torch.equal(out, torch.zeros_like(out))
+    else:
+      assert _rel_err(out, want) < 1e-4, new
+
+
 def test_decode_kernel_gives_zero_for_an_empty_cache(cuda):
   rng = np.random.RandomState(0)
   q = _normal(rng, (1, 4, 32), cuda)
@@ -679,7 +744,9 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                  .transpose(2, 3), scales, codes, scales,
                                  lens, 0.1)
   with pytest.raises(ValueError, match="must be one of"):
-    qda_kernel.quant_decode_attn(q[:, 0, :3], codes[:, :1].contiguous(),
+    # G = 5 is no group of the zoo's (3, 6 and 48 are taken)
+    qda_kernel.quant_decode_attn(torch.zeros((1, 5, 32), device=cuda),
+                                 codes[:, :1].contiguous(),
                                  scales[:, :1].contiguous(),
                                  codes[:, :1].contiguous(),
                                  scales[:, :1].contiguous(), lens, 0.1)
@@ -727,6 +794,36 @@ def test_serve_engine_on_the_card_matches_the_cpu(cuda, kv_quant):
   assert fa_kernel.LAUNCHES["flash_attention"] == cfg.n_layers * 4
   assert qda_kernel.LAUNCHES["quant_decode_attn"] == (
       cfg.n_layers * 4 * 5 if kv_quant == "int8" else 0)
+
+
+def test_moe_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+  """Full-width qwen2-moe-a2.7b at 2 layers, float32, int8 KV, TF32 off:
+  a 512-token prefill (one MoE group, its routing through the capacity
+  dispatch) and a decode step (the dense path) on the card against the
+  CPU from the same weights; the int8-KV bound on the decode step."""
+  from repro_torch.core.cnn import exact_f32
+  cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=2,
+                            dtype="float32", kv_quant="int8")
+  gpu_model = build_model(cfg)
+  gpu_params = gpu_model.init(0)
+  cpu_model = build_model(cfg, device="cpu")
+  cpu_params = cpu_model.from_state({k: v.cpu() for k, v in
+                                     gpu_params.state_dict().items()})
+  toks = torch.from_numpy(np.random.RandomState(5).randint(
+      0, cfg.vocab_size, (1, 512)).astype(np.int32))
+  with exact_f32():
+    fa_kernel.reset_launch_counts()
+    qda_kernel.reset_launch_counts()
+    got, got_cache = gpu_model.prefill(gpu_params, toks.to(cuda), 1024)
+    want, want_cache = cpu_model.prefill(cpu_params, toks, 1024)
+    assert _rel_err(got.cpu(), want) < 1e-4
+    nxt = want.argmax(-1).to(torch.int32)
+    assert torch.equal(got.argmax(-1).cpu(), nxt)
+    got, _ = gpu_model.decode_step(gpu_params, nxt.to(cuda), got_cache)
+    want, _ = cpu_model.decode_step(cpu_params, nxt, want_cache)
+    assert _rel_err(got.cpu(), want) < 1e-3
+  assert fa_kernel.LAUNCHES["flash_attention"] == 2
+  assert qda_kernel.LAUNCHES["quant_decode_attn"] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -122,8 +122,10 @@ def test_layernorm_matches_reference():
   xb = torch.from_numpy(x).to(torch.bfloat16)
   assert norm(xb).dtype == torch.bfloat16
   np_cfg = dataclasses.replace(cfg, norm="layernorm_np")
-  with pytest.raises(NotImplementedError, match="slice 8"):
-    common.apply_norm(torch.from_numpy(scale), torch.from_numpy(x), np_cfg)
+  got = common.apply_norm(None, torch.from_numpy(x), np_cfg)
+  want = ref_common.apply_norm({}, x, np_cfg)
+  assert rel_err(got.numpy(), want) < 1e-6
+  assert not list(common.Norm(np_cfg, "cpu").parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -446,10 +448,33 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     launch_serve.main(["--arch", ARCH, "--requests", "1"])
 
 
-@pytest.mark.parametrize("change", [dict(family="hybrid", attn_period=2),
-                                    dict(n_experts=4, n_experts_active=2),
-                                    dict(norm="layernorm_np")], ids=str)
+@pytest.mark.parametrize("change", [dict(family="hybrid", attn_period=2)],
+                         ids=str)
 def test_rwkv_variants_still_to_port_name_their_slice(change):
   cfg = dataclasses.replace(reduce_for_smoke(get_config(ARCH)), **change)
-  with pytest.raises(NotImplementedError, match="slice 8"):
+  with pytest.raises(NotImplementedError, match="slice 8b"):
     build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(n_experts=4, n_experts_active=2,
+                                         d_ff_expert=32),
+                                    dict(norm="layernorm_np")], ids=str)
+def test_rwkv_variants_build_like_the_reference(change):
+  """An rwkv layer marked MoE builds no ffn, as the reference's
+  ``init_layer``; under ``layernorm_np`` its norms have no parameters:
+  the port's leaves are the reference's, and prefill matches it."""
+  cfg = dataclasses.replace(reduce_for_smoke(get_config(ARCH)), **change)
+  ref_cfg = dataclasses.replace(ref_reduce(ref_get_config(ARCH)), **change)
+  ref_model = ref_build_model(ref_cfg)
+  ref_params = ref_model.init(jax.random.PRNGKey(0))
+  model = build_model(cfg, device="cpu")
+  state = convert.params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
+                                                              ref_params))
+  assert set(state) == set(model.init(0).state_dict())
+  assert not any(".ffn." in name for name in state)
+  params = model.from_state(state)
+  toks = np.random.RandomState(5).randint(0, cfg.vocab_size, (1, 20))
+  toks = toks.astype(np.int32)
+  want, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(toks)}, 32)
+  got, _ = model.prefill(params, torch.from_numpy(toks), 32)
+  assert rel_err(got.numpy(), want) < 1e-4

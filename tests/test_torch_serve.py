@@ -35,7 +35,9 @@ from repro_torch.models import build_model, common, transformer
 from repro_torch.serve import EngineConfig, ServeEngine
 
 ARCH = "qwen3-0.6b"
-SERVED = ("qwen3-0.6b", "rwkv6-1.6b")   # the archs the port serves
+# the archs the port serves (list_archs' order)
+SERVED = ("granite-34b", "minitron-4b", "mixtral-8x22b", "olmo-1b",
+          "pixtral-12b", "qwen2-moe-a2.7b", "qwen3-0.6b", "rwkv6-1.6b")
 
 
 def ref_and_port(kv_quant="int8", **overrides):
@@ -72,17 +74,23 @@ def test_config_is_a_copy(arch):
 
 @pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - set(SERVED)))
 def test_other_archs_name_the_slice_that_brings_them(arch):
-  with pytest.raises(NotImplementedError, match="slice"):
+  with pytest.raises(NotImplementedError, match="slice 8b"):
     get_config(arch)
 
 
 def test_unported_layer_kinds_raise():
+  """Mamba (jamba's hybrid) and encoder-decoder raise naming slice 8b;
+  slice 8a's MoE, learned positions, non-parametric layernorm and gelu
+  MLPs build."""
   cfg = reduce_for_smoke(get_config(ARCH))
-  for change in (dict(n_experts=4), dict(family="hybrid", attn_period=2),
-                 dict(pos_embed="learned"), dict(norm="layernorm_np"),
-                 dict(mlp_variant="gelu"), dict(family="encdec")):
-    with pytest.raises(NotImplementedError, match="slice"):
+  for change in (dict(family="hybrid", attn_period=2),
+                 dict(family="encdec")):
+    with pytest.raises(NotImplementedError, match="slice 8b"):
       build_model(dataclasses.replace(cfg, **change), device="cpu")
+  for change in (dict(n_experts=4, n_experts_active=2, d_ff_expert=32),
+                 dict(pos_embed="learned", max_position=64),
+                 dict(norm="layernorm_np"), dict(mlp_variant="gelu")):
+    build_model(dataclasses.replace(cfg, **change), device="cpu").init(0)
   # qwen3 and rwkv6 train (tests/test_torch_train.py,
   # tests/test_torch_rwkv_train.py): a reduced rwkv6 gives a finite loss,
   # and its trainable init builds leaves that require grad

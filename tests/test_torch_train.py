@@ -662,7 +662,7 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     (["--model-parallel", "2"], "slice 7d"),
     (["--production-mesh"], "slice 7d"),
     (["--profile", "fsdp"], "slice 7d"),
-    (["--arch", "olmo-1b"], "slice 8"),
+    (["--arch", "jamba-1.5-large"], "slice 8b"),
 ])
 def test_launcher_names_the_slice_of_what_it_lacks(argv, match):
   with pytest.raises(NotImplementedError, match=match):
