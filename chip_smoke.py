@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card: the design-space sweep,
 serving qwen3-0.6b with an int8 KV cache, serving rwkv6-1.6b, serving
-and training the model zoo (qwen2-moe-a2.7b, olmo-1b and the rest), and
-deploying qwen3-0.6b under each PE type's codec.
+and training the model zoo (qwen2-moe-a2.7b, olmo-1b and the rest),
+serving whisper-base and jamba-1.5-large, and deploying qwen3-0.6b under
+each PE type's codec.
 
 Run from the root of a checkout on a machine with an H100 (or another
 sm_90a card), the CUDA toolkit and PyTorch built for CUDA:
@@ -65,20 +66,27 @@ every layer runs through K3 or K4 at a decode and a prefill shape, and a
 two-layer float32 copy is packed on the card and on the CPU and held
 byte for byte.  Slice 8a's zoo follows the serving of qwen3 and rwkv6:
 K6 and K5 at the zoo's heads (K5 at G = 3, 6 and 48), full-width
-qwen2-moe-a2.7b (60 experts top-4 and 4 shared; bf16, int8 KV) serving
-the same eight requests twice, its two-layer float32 copy held card
+qwen2-moe-a2.7b at 6 of its 24 layers (60 experts top-4 and 4 shared;
+bf16, int8 KV) serving the same eight requests twice, its two-layer float32 copy held card
 against CPU with its MoE routing, olmo-1b, minitron-4b and pixtral-12b
 at full width and depth, mixtral-8x22b and granite-34b at full width and
 a cut depth served two requests each, and all six held card against CPU
-at two layers and a narrower width.  Training follows: K6's backward
-kernel is held against its plain version at the training shape and its
+at two layers and a narrower width.  Slice 8b's two archs follow: K6
+with fewer or more keys than queries (whisper's cross-attention) against
+its plain version, full-width, full-depth whisper-base (its encoder over
+1,500 frames, cross-attention through K6) serving four requests through
+``Model.prefill`` and ``decode_step`` twice, jamba-1.5-large at every
+published width, one 8-layer period of its layers and 8 of its 16
+experts, serving four requests through ServeEngine twice, and both held
+card against CPU in float32 (jamba's mamba caches too).  Training
+follows: K6's backward kernel is held against its plain version at the training shape and its
 edges, qwen3-0.6b at full width and 8 of its layers (bf16 compute, f32
 master weights) trains for the launcher's recipe of 200 steps of 8 x 512
 tokens, a two-layer float32 copy is held card against CPU (loss,
 gradients, one AdamW step), and a restart from a checkpoint is held bit
-for bit against an uninterrupted run; then ``python -m
-repro_torch.launch.train``'s ``main`` trains its default arch, full-width
-olmo-1b, for 200 steps of 8 x 512 tokens and 5 steps each with int8
+for bit against an uninterrupted run; then the launcher's recipe and
+Trainer train its default arch, olmo-1b at full width and 4 of its 16
+layers, for 200 steps of 8 x 512 tokens and 5 steps each with int8
 optimizer states, LightPE-2 QAT and two microbatches, two layers of
 full-width qwen2-moe-a2.7b train 5 steps, and olmo-1b, qwen2-moe-a2.7b,
 granite-34b and pixtral-12b (with image embeddings) are held card
@@ -309,13 +317,16 @@ K6_ZOO_HEADS = ((48, 1), (24, 8), (48, 8))
 K5_ZOO_HEADS = ((24, 8), (48, 8), (48, 1))
 K5_ZOO_LENGTHS = (1, 300, 2048)
 K5_COLD_BYTES = 64e6
-# qwen2-moe-a2.7b served at full width and depth ([serve-moe]); the zoo
+# qwen2-moe-a2.7b served at full width and SERVE_MOE_LAYERS of its 24
+# layers ([serve-moe]; all 24 took 35.2-40.2 s a phase, 12 took 23.9 s: a
+# cut paying for slice 8b's phases in the script's time); the zoo
 # served once each, 2 requests x 8 new tokens, at full width with the depth
 # cut of each arch (None: all its layers; mixtral-8x22b's 56 layers of
 # 8 x 16,384-wide experts are 281 GB of bf16 weights, granite-34b's 88
 # layers 68.7 GB); each held card against CPU at 2 layers and the width
 # below, the config's own heads and head dim kept
 SERVE_MOE_ARCH = "qwen2-moe-a2.7b"
+SERVE_MOE_LAYERS = 6
 SERVE_ZOO = (("olmo-1b", None), ("minitron-4b", None), ("pixtral-12b", None),
              ("mixtral-8x22b", 4), ("granite-34b", 8))
 SERVE_ZOO_REQUESTS = 2
@@ -325,6 +336,28 @@ ZOO_ARCHS = ("olmo-1b", "granite-34b", "minitron-4b", "mixtral-8x22b",
 ZOO_PARITY_WIDTH = dict(d_model=512, d_ff=1024, vocab_size=4096)
 ZOO_PARITY_EXPERTS = dict(max_experts=8, d_ff_expert=512, d_ff_shared=1024)
 ZOO_PARITY_WINDOW = 32   # mixtral's ring, shorter than every prompt
+# slice 8b: K6 with S_q != S_k, whisper-base's cross-attention (H = Hkv =
+# 8, D = 64, non-causal, B = the 4 requests of [serve-whisper]): queries
+# of a decode-like row, the 64-row tile's edges and whisper's 448-token
+# decoder context against its 1,500 encoder frames, and the encoder's own
+# self-attention at S_q = S_k = 1,500
+K6_CROSS = dict(b=4, h=8, hkv=8, d=64, sk=1500)
+K6_CROSS_SQ = (1, 63, 65, 448, 1500)
+# [serve-whisper]: full-width, full-depth whisper-base (bf16, int8 self-
+# attention KV), 4 requests of enc_frames (4, 1,500, 512) and 16-token
+# prompts from the seed, 32 decode steps, twice; [serve-whisper-parity] at
+# 2 encoder and 2 decoder layers in float32
+WHISPER_SERVE = dict(batch=4, prompt=16, steps=32, max_len=64, seed=30)
+# [serve-jamba]: jamba-1.5-large at every published width, one 8-layer
+# period of its 72 layers (attention + 7 mamba, MoE at 1, 3, 5, 7) and 8
+# of its 16 experts (72 layers are 797 GB of bf16 weights, one period
+# with 16 experts ~90 GB, with 8 ~52 GB), 4 requests through ServeEngine
+# (64-token bucket, 16 new tokens), twice; [serve-jamba-parity] at one
+# period and ZOO_PARITY_WIDTH in float32
+JAMBA_CUT = dict(n_layers=8, n_experts=8)
+JAMBA_REQUESTS = 4
+JAMBA_NEW_TOKENS = 16
+JAMBA_ENGINE = dict(batch_slots=4, max_len=128, prompt_bucket=64)
 # training: K6's backward at the training shape (B = 8 sequences of 512
 # tokens of qwen3-0.6b) in bf16 and f32, a window, ragged S and D = 64
 # with G = 2; the launcher's run at full width; 5 steps of each variant;
@@ -350,9 +383,13 @@ TRAIN_RECIPE = dict(steps=200, batch=8, seq=512)
 # [train]'s qwen3-0.6b runs 8 of its 28 layers (the recipe kept), to pay
 # for slice 8a's phases in the script's time
 TRAIN_QWEN3_LAYERS = 8
-# [train-olmo]: the launcher's default arch through its main(argv), the
-# same recipe; the three 5-step variants run on olmo-1b
-TRAIN_OLMO_ARGV = ["--steps", "200", "--batch", "8", "--seq", "512"]
+# [train-olmo]: the launcher's default arch, olmo-1b, with the same recipe
+# and Trainer as [train], at full width and TRAIN_OLMO_LAYERS of its 16
+# layers (all 16 through the launcher's main(argv) took 117.0-136.1 s a
+# phase, 8 layers 59.9-69.6 s: a cut paying for slice 8b's phases in the
+# script's time); the three 5-step variants run on the same cut
+TRAIN_OLMO_ARCH = "olmo-1b"
+TRAIN_OLMO_LAYERS = 4
 TRAIN_VARIANT_STEPS = 5
 TRAIN_PARITY_BATCH = (2, 128)
 # [train-moe]: qwen2-moe-a2.7b at full width, 2 layers
@@ -2800,17 +2837,20 @@ def _reference_bf16_rounding(q, k, v):
   return out.transpose(1, 2).to(torch.bfloat16)
 
 
-def _k6_case(rng, b, s, h, hkv, d, dtype, causal, window, label=""):
-  """K6 on seeded q, k, v (v a strided view, as the model passes it)
-  against its plain version at 1e-4 of the largest |out|, timed as a graph
-  replay beside the plain version and SDPA (not timed with a window), with
-  its bound; logs its ``[K6]`` line.  Returns (q, k, v, K6's output, the
-  record for the kernels line)."""
+def _k6_case(rng, b, s, h, hkv, d, dtype, causal, window, label="", sk=None,
+             tag="K6"):
+  """K6 on seeded q (B, S, H, D) and k, v (B, Sk, Hkv, D), Sk = ``sk`` or
+  S (v a strided view, as the model passes it) against its plain version
+  at 1e-4 of the largest |out|, timed as a graph replay beside the plain
+  version and SDPA (not timed with a window), with its bound; logs its
+  ``[tag]`` line.  Returns (q, k, v, K6's output, the record for the
+  kernels line)."""
   import torch
   import torch.nn.functional as F
   from repro_torch.kernels.flash_attention import ops as fa
+  sk = s if sk is None else sk
   q = _randn(rng, (b, s, h, d), dtype)
-  kv = _randn(rng, (b, s, 2, hkv, d), dtype)
+  kv = _randn(rng, (b, sk, 2, hkv, d), dtype)
   k, v = kv[:, :, 0], kv[:, :, 1]   # strided views, as the model passes v
   got = fa.flash_attention(q, k, v, causal=causal, window=window)
   want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
@@ -2819,14 +2859,16 @@ def _k6_case(rng, b, s, h, hkv, d, dtype, causal, window, label=""):
   scale = float(want.abs().max())
   if not err <= 1e-4 * scale:
     raise AssertionError(f"K6 differs from its plain version at H={h} "
-                         f"Hkv={hkv}: {err} (max |out| {scale})")
+                         f"Hkv={hkv} S={s} Sk={sk}: {err} (max |out| "
+                         f"{scale})")
   ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                           window=window))
   plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
       q, k, v, causal=causal, window=window), inner=2)
   es = q.element_size()
-  n_bytes = (b * s * h * d + 2 * b * s * hkv * d) * es + b * s * h * d * 4
-  n_ops = 4 * _live_pairs(s, causal, window) * b * h * d
+  n_bytes = (b * s * h * d + 2 * b * sk * hkv * d) * es + b * s * h * d * 4
+  pairs = _live_pairs(s, causal, window) if sk == s else s * sk
+  n_ops = 4 * pairs * b * h * d
   peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
   b_ms, b_by = bound_ms(n_bytes, n_ops, peak)
   lib_ms = None
@@ -2836,8 +2878,9 @@ def _k6_case(rng, b, s, h, hkv, d, dtype, causal, window, label=""):
         qt, kt, vt, is_causal=causal, enable_gqa=True))
   mask = (f"window {window}" if window else
           "causal" if causal else "full")
-  tag = f"{str(dtype).split('.')[-1]} {mask}"
-  log(f"[K6] B={b} S={s} H={h} Hkv={hkv}{label} D={d} {tag}: max_abs_err "
+  mask_tag = f"{str(dtype).split('.')[-1]} {mask}"
+  log(f"[{tag}] B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h} "
+      f"Hkv={hkv}{label} D={d} {mask_tag}: max_abs_err "
       f"{err:.3g} (max |out| {scale:.3g}, tolerance 1e-4 of it); kernel "
       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
       f"({b_by}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP), "
@@ -3154,13 +3197,15 @@ def phase_serve_rwkv():
 
 
 def phase_serve_moe():
-  """Slice 8a's serving main path: full-width qwen2-moe-a2.7b (24 layers,
-  60 routed experts top-4 and 4 shared), bf16, int8 KV cache, the eight
-  requests through ServeEngine, twice; each 512-token prefill bucket is
-  one MoE group, each decode step the dense path."""
+  """Slice 8a's serving main path: full-width qwen2-moe-a2.7b
+  (``SERVE_MOE_LAYERS`` of its 24 layers, 60 routed experts top-4 and 4
+  shared), bf16, int8 KV cache, the eight requests through ServeEngine,
+  twice; each 512-token prefill bucket is one MoE group, each decode step
+  the dense path."""
   import dataclasses
   from repro_torch.configs import get_config
-  cfg = dataclasses.replace(get_config(SERVE_MOE_ARCH), kv_quant="int8")
+  cfg = dataclasses.replace(get_config(SERVE_MOE_ARCH), kv_quant="int8",
+                            n_layers=SERVE_MOE_LAYERS)
   want = {"flash_attention": cfg.n_layers * SERVE_REQUESTS,
           "quant_decode_attn": (cfg.n_layers * SERVE_REQUESTS
                                 * (SERVE_NEW_TOKENS - 1)),
@@ -3405,10 +3450,13 @@ def serve_parity(tag, cfg, what, tol, routing=False, width="at full width"):
   (logits within ``tol`` of the largest |logit|, the same argmax), then
   the engine's greedy tokens for 2 requests x 8.  With ``routing`` the
   prefill's MoE routings (top-k experts, kept capacity slots) are held
-  equal too, layer by layer."""
+  equal too, layer by layer; a mamba layer's cache (the state ``h`` and
+  the conv window) is held within 1e-4 of its largest |value| after the
+  prefill and after the decode steps."""
   import numpy as np
   import torch
   from repro_torch.models import build_model
+  from repro_torch.models.transformer import layer_pattern
   from repro_torch.serve import EngineConfig, ServeEngine
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -3443,17 +3491,37 @@ def serve_parity(tag, cfg, what, tol, routing=False, width="at full width"):
         f"{bucket * cfg.n_experts_active} token-expert pairs kept a layer); "
         f"the least gap between a token's k-th and (k+1)-th router "
         f"probability {['%.3g' % c['gap'] for c in cpu_routes]} (CPU)")
-    if len(cpu_routes) != cfg.n_layers or not (all(same_idx)
-                                                and all(same_slots)):
+    n_moe = sum(is_moe for _, is_moe in layer_pattern(cfg))
+    if len(cpu_routes) != n_moe or not (all(same_idx) and all(same_slots)):
       raise AssertionError("the card and the CPU route the MoE differently")
   errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
   same = [int(got.argmax()) == int(want.argmax())]
+
+  def mamba_gaps():
+    """Each mamba cache leaf's max |diff| / max |value|, card vs CPU."""
+    return {key: max(float((g[key].cpu() - c[key]).abs().max()
+                           / c[key].abs().max())
+                     for g, c in zip(gpu_cache["layers"], cpu_cache["layers"])
+                     if "conv" in c)
+            for key in ("h", "conv")}
+  has_mamba = any(kind == "mamba" for kind, _ in layer_pattern(cfg))
+  gaps = [mamba_gaps()] if has_mamba else []
   for _ in range(4):
     nxt = want.argmax(-1).to(torch.int32)
     want, _ = cpu_model.decode_step(cpu_params, nxt, cpu_cache)
     got, _ = gpu_model.decode_step(gpu_params, nxt.cuda(), gpu_cache)
     errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
     same.append(int(got.argmax()) == int(want.argmax()))
+  if has_mamba:
+    gaps.append(mamba_gaps())
+    n_mamba = sum(kind == "mamba" for kind, _ in layer_pattern(cfg))
+    log(f"[{tag}] {cfg.name} mamba caches card vs CPU, max |diff| / max "
+        f"|value| over the {n_mamba} mamba layers, after the prefill and "
+        f"after 4 decode steps: "
+        f"{[{k: f'{v:.3g}' for k, v in g.items()} for g in gaps]} "
+        "(tolerance 1e-4)")
+    if max(v for g in gaps for v in g.values()) > 1e-4:
+      raise AssertionError("the card's and the CPU's mamba caches differ")
   runs = {}
   for device, model, params in (("cuda", gpu_model, gpu_params),
                                 ("cpu", cpu_model, cpu_params)):
@@ -3589,6 +3657,274 @@ def phase_serve_zoo_parity():
         width=f"narrowed to d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
               f"{cfg.vocab_size}")
   return errs
+
+
+def phase_k6_cross():
+  """K6 at S_q != S_k, whisper-base's cross-attention (``K6_CROSS``,
+  non-causal, bf16 and f32): S_q in ``K6_CROSS_SQ`` against 1,500 keys,
+  and S_q = S_k = 1,500 (the encoder's self-attention), each held against
+  the plain version and timed beside it and SDPA.  Returns {"S_q x S_k
+  dtype": record} for the kernels line."""
+  import numpy as np
+  import torch
+  rng = np.random.RandomState(81)
+  c = K6_CROSS
+  out = {}
+  for dtype in (torch.bfloat16, torch.float32):
+    for sq in K6_CROSS_SQ:
+      *_, record = _k6_case(rng, c["b"], sq, c["h"], c["hkv"], c["d"], dtype,
+                            False, 0, sk=c["sk"], tag="K6-cross")
+      out[f"{sq}x{c['sk']} {str(dtype).split('.')[-1]}"] = record
+  return out
+
+
+def phase_serve_whisper(smi):
+  """Full-width, full-depth whisper-base (6 encoder and 6 decoder layers,
+  d_model 512, 8 heads, vocab 51,865; bf16, int8 self-attention KV) from
+  seed-0 weights: 4 requests of seeded ``enc_frames`` (4, 1,500, 512) and
+  16-token prompts through ``Model.prefill`` and 32 ``decode_step``s,
+  twice, the tokens equal; K6 launches a prefill (the encoder's, the
+  decoder's self- and cross-attention) and K5 launches a decode step
+  held to their counts.  Returns the first run's launches as the counters
+  read them (the prefill's and the decode steps' summed)."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  w = WHISPER_SERVE
+  cfg = dataclasses.replace(get_config("whisper-base"), kv_quant="int8")
+  model = build_model(cfg)
+  t0 = time.perf_counter()
+  params = model.init(0)
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in params.parameters())
+  log(f"[serve-whisper] {cfg.name}: {cfg.n_encoder_layers} encoder layers "
+      f"over {cfg.encoder_seq} frames; decoder {_describe(cfg)}; "
+      f"{cfg.mlp_variant}, {cfg.norm}; {n_params:,} parameters from seed 0 in "
+      f"{time.perf_counter() - t0:.2f} s ({smi})")
+  rng = np.random.RandomState(w["seed"])
+  frames = torch.from_numpy(rng.standard_normal(
+      (w["batch"], cfg.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()
+  prompt = torch.from_numpy(rng.randint(
+      0, cfg.vocab_size, (w["batch"], w["prompt"])).astype(np.int32)).cuda()
+  batch = {"tokens": prompt, "enc_frames": frames}
+  counters = _launch_counters()
+  per_prefill = {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                 "quant_decode_attn": 0, "wkv6": 0}
+  per_step = {"flash_attention": 0, "quant_decode_attn": cfg.n_layers,
+              "wkv6": 0}
+  runs = []
+  for run in (1, 2):
+    torch.cuda.reset_peak_memory_stats()
+    pre, dec = [], []
+    prefill = _timed(model.prefill, pre)
+    step = _timed(model.decode_step, dec)
+    for mod in counters.values():
+      mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, w["max_len"])
+    launches = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
+    if launches != per_prefill:
+      raise AssertionError(f"[serve-whisper] prefill launched {launches}, "
+                           f"expected {per_prefill}")
+    total = dict(launches)
+    toks = [logits.argmax(-1)]
+    for i in range(w["steps"]):
+      for mod in counters.values():
+        mod.reset_launch_counts()
+      logits, cache = step(params, toks[-1].to(torch.int32), cache)
+      got = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
+      if got != per_step:
+        raise AssertionError(f"[serve-whisper] decode step {i} launched "
+                             f"{got}, expected {per_step}")
+      total = {k: total[k] + got[k] for k in total}
+      toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = torch.stack(toks, 1).cpu()
+    if not bool(torch.isfinite(logits).all()) or out.shape != (
+        w["batch"], w["steps"] + 1) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+      raise AssertionError(f"[serve-whisper] bad generations: {out}")
+    runs.append(out)
+    if run == 1:
+      first = total
+    n_tokens = out.numel()
+    log(f"[serve-whisper] run {run}: {w['batch']} requests, enc_frames "
+        f"{tuple(frames.shape)}, {w['prompt']}-token prompts, {n_tokens} "
+        f"tokens (the prefill's and {w['steps']} decode steps') in "
+        f"{wall:.3f} s = {n_tokens / wall:.2f} tokens/s; prefill host "
+        f"{pre[0][0]:.3f} ms, events {pre[0][1]:.3f} ms; decode step host "
+        f"{statistics.median(r[0] for r in dec):.3f} ms, events "
+        f"{statistics.median(r[1] for r in dec):.3f} ms (medians of "
+        f"{len(dec)}); launches a prefill {per_prefill['flash_attention']} "
+        f"K6 ({cfg.n_encoder_layers} encoder, {cfg.n_layers} decoder self, "
+        f"{cfg.n_layers} cross), a decode step {per_step['quant_decode_attn']}"
+        f" K5 (cross-attention: the plain decode path); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+  if not torch.equal(runs[0], runs[1]):
+    raise AssertionError("[serve-whisper] a second run gave other tokens")
+  log(f"[serve-whisper] the second run gave the same {runs[0].numel()} "
+      f"tokens; first tokens {runs[0][:, :4].tolist()}")
+  return {k: first[k] for k in ("flash_attention", "quant_decode_attn")}
+
+
+def phase_serve_whisper_parity():
+  """whisper-base in float32 at 2 encoder and 2 decoder layers, its own
+  width, int8 self-attention KV: the card against the CPU on the same
+  seed-0 weights and inputs, TF32 off: prefill and 4 greedy decode
+  steps' logits within 1e-3 of the largest |logit| (the int8-KV bound),
+  greedy tokens equal, and the cross K/V the prefill keeps within 1e-4."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  torch.backends.cuda.matmul.allow_tf32 = False
+  w = WHISPER_SERVE
+  cfg = dataclasses.replace(get_config("whisper-base"), kv_quant="int8",
+                            dtype="float32", n_layers=PARITY_LAYERS,
+                            n_encoder_layers=PARITY_LAYERS)
+  gpu_model, cpu_model = build_model(cfg), build_model(cfg, device="cpu")
+  gpu_params = gpu_model.init(0)
+  cpu_params = cpu_model.from_state(
+      {k: v.cpu() for k, v in gpu_params.state_dict().items()})
+  rng = np.random.RandomState(w["seed"])
+  batch = {"enc_frames": torch.from_numpy(rng.standard_normal(
+               (w["batch"], cfg.encoder_seq, cfg.d_model)).astype(np.float32)),
+           "tokens": torch.from_numpy(rng.randint(
+               0, cfg.vocab_size, (w["batch"], w["prompt"])).astype(np.int32))}
+  want, cpu_cache = cpu_model.prefill(cpu_params, batch, w["max_len"])
+  got, gpu_cache = gpu_model.prefill(
+      gpu_params, {k: v.cuda() for k, v in batch.items()}, w["max_len"])
+  errs = [float((got.cpu() - want).abs().max() / want.abs().max())]
+  same = [torch.equal(got.argmax(-1).cpu(), want.argmax(-1))]
+  cross = max(float((g[key].cpu() - c[key]).abs().max() / c[key].abs().max())
+              for g, c in zip(gpu_cache["layers"], cpu_cache["layers"])
+              for key in ("cross_k", "cross_v"))
+  for _ in range(4):
+    nxt = want.argmax(-1).to(torch.int32)
+    want, _ = cpu_model.decode_step(cpu_params, nxt, cpu_cache)
+    got, _ = gpu_model.decode_step(gpu_params, nxt.cuda(), gpu_cache)
+    errs.append(float((got.cpu() - want).abs().max() / want.abs().max()))
+    same.append(torch.equal(got.argmax(-1).cpu(), want.argmax(-1)))
+  log(f"[serve-whisper-parity] {cfg.name} at full width, float32, "
+      f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, int8 KV, TF32 off, "
+      f"{w['batch']} requests: card vs CPU logits, prefill then 4 decode "
+      f"steps, max |diff| / max |logit| = {[f'{e:.3g}' for e in errs]} "
+      f"(tolerance 1e-3); greedy tokens equal {same}; the cross K/V max "
+      f"|diff| / max |value| {cross:.3g} (tolerance 1e-4)")
+  if max(errs) > 1e-3 or not all(same) or cross > 1e-4:
+    raise AssertionError("the card and the CPU disagree on whisper-base")
+  return max(errs)
+
+
+def phase_serve_jamba(smi):
+  """jamba-1.5-large at every published width (d_model 8,192, 64 heads and
+  8 kv heads of 128, d_inner 16,384, d_state 16, d_conv 4, d_ff and
+  d_ff_expert 24,576, vocab 65,536, top-2) cut to ``JAMBA_CUT``: bf16,
+  int8 KV, seed-0 weights, ``JAMBA_REQUESTS`` requests through
+  ServeEngine twice, the tokens equal, each run's K6 and K5 launches held
+  to their counts.  Returns the first run's launches as the counters read
+  them."""
+  import dataclasses
+  import gc
+  import torch
+  from repro_torch.configs import get_config
+  from repro_torch.models import build_model
+  from repro_torch.models.transformer import layer_pattern
+  from repro_torch.serve import EngineConfig, ServeEngine
+  full = get_config("jamba-1.5-large")
+  cfg = dataclasses.replace(full, kv_quant="int8", **JAMBA_CUT)
+  torch.cuda.reset_peak_memory_stats()
+  model = build_model(cfg)
+  t0 = time.perf_counter()
+  params = model.init(0)
+  torch.cuda.synchronize()
+  n_params = sum(p.numel() for p in params.parameters())
+  kinds = [f"{kind}{'+moe' if moe else ''}" for kind, moe in
+           layer_pattern(cfg)]
+  log(f"[serve-jamba] {cfg.name}: {_describe(cfg)}, d_inner {cfg.d_inner}, "
+      f"d_state {cfg.mamba_d_state}, d_conv {cfg.mamba_d_conv}, d_ff "
+      f"{cfg.d_ff}, ssm chunk {cfg.ssm_chunk}; layers {kinds}; cut: "
+      f"{cfg.n_layers} of {full.n_layers} layers (one period of the "
+      f"pattern), {cfg.n_experts} of {full.n_experts} experts; "
+      f"{n_params:,} parameters ({n_params * 2 / 1e9:.1f} GB of bf16) from "
+      f"seed 0 in {time.perf_counter() - t0:.2f} s ({smi})")
+  prompts = serve_prompts(cfg.vocab_size)[:JAMBA_REQUESTS]
+  counters = _launch_counters()
+  n_attn = sum(kind == "attn" for kind, _ in layer_pattern(cfg))
+  want = {"flash_attention": n_attn * len(prompts),
+          "quant_decode_attn": n_attn * len(prompts) * (JAMBA_NEW_TOKENS - 1),
+          "wkv6": 0}
+  runs = []
+  for run in (1, 2):
+    engine = ServeEngine(model, params, EngineConfig(**JAMBA_ENGINE))
+    pre, dec = [], []
+    engine._prefill = _timed(engine._prefill, pre)
+    engine._decode = _timed(engine._decode, dec)
+    for p in prompts:
+      engine.submit(p, max_new_tokens=JAMBA_NEW_TOKENS)
+    for mod in counters.values():
+      mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES[name] for name, mod in counters.items()}
+    n_tokens = sum(len(t) for t in out.values())
+    log(f"[serve-jamba] run {run}: {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]} in a {JAMBA_ENGINE['prompt_bucket']}"
+        f"-token bucket) x {JAMBA_NEW_TOKENS} tokens: {n_tokens} tokens in "
+        f"{wall:.3f} s = {n_tokens / wall:.2f} tokens/s; prefill per request "
+        f"host {statistics.median(r[0] for r in pre):.3f} ms, events "
+        f"{statistics.median(r[1] for r in pre):.3f} ms; decode per token "
+        f"host {statistics.median(r[0] for r in dec):.3f} ms, events "
+        f"{statistics.median(r[1] for r in dec):.3f} ms (medians of "
+        f"{len(dec)}); K6 launches {launches['flash_attention']}, K5 "
+        f"launches {launches['quant_decode_attn']} (G = "
+        f"{cfg.n_heads // cfg.n_kv_heads}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want:
+      raise AssertionError(f"[serve-jamba] expected launches {want}, got "
+                           f"{launches}")
+    if sorted(out) != list(range(1, len(prompts) + 1)) or any(
+        len(t) != JAMBA_NEW_TOKENS or not all(0 <= x < cfg.vocab_size
+                                              for x in t)
+        for t in out.values()):
+      raise AssertionError(f"[serve-jamba] bad generations: {out}")
+    runs.append(out)
+    if run == 1:
+      first = {k: n for k, n in launches.items() if want[k]}
+  if runs[0] != runs[1]:
+    raise AssertionError("[serve-jamba] a second run gave other tokens")
+  log(f"[serve-jamba] the second run gave the same {len(prompts)} x "
+      f"{JAMBA_NEW_TOKENS} tokens; first tokens "
+      f"{[runs[0][u][:4] for u in sorted(runs[0])]}")
+  del engine, params, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return first
+
+
+def phase_serve_jamba_parity():
+  """jamba-1.5-large in float32 at one 8-layer period and
+  ``zoo_parity_config``'s width (8 experts of 512, int8 KV): the card
+  against the CPU through ``serve_parity`` (logits, greedy tokens, the
+  engine's tokens, the MoE routing) and its mamba caches."""
+  import dataclasses
+  cfg = dataclasses.replace(zoo_parity_config("jamba-1.5-large"),
+                            n_layers=JAMBA_CUT["n_layers"])
+  return serve_parity(
+      "serve-jamba-parity", cfg,
+      f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, "
+      f"d_inner {cfg.d_inner}, {cfg.n_experts} experts of "
+      f"{cfg.d_ff_expert}, int8 KV", 1e-3, routing=True,
+      width=f"narrowed to d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}")
 
 
 # ---------------------------------------------------------------------------
@@ -3913,21 +4249,27 @@ def phase_train(smi):
 
 
 def phase_train_olmo(smi):
-  """Slice 8a's training main path: ``python -m repro_torch.launch.train``
-  with its default arch, olmo-1b, at full width and depth (16 layers,
-  non-parametric layernorm, bf16 compute, f32 master weights), 200 steps
-  of 8 x 512 tokens through its ``main(argv)``; then 5 steps each of int8
-  optimizer states, LightPE-2 QAT and 2 microbatches."""
+  """Slice 8a's training main path: the launcher's default arch, olmo-1b,
+  at full width and ``TRAIN_OLMO_LAYERS`` of its 16 layers
+  (non-parametric layernorm, bf16 compute, f32 master weights) through
+  the launcher's recipe and Trainer (``launch.train.make_trainer``), 200
+  steps of 8 x 512 tokens; then 5 steps each of int8 optimizer states,
+  LightPE-2 QAT and 2 microbatches."""
   import dataclasses
   import shutil
   import torch
+  from repro_torch.configs import get_config
   from repro_torch.launch import train as launch_train
-  b, s = int(TRAIN_OLMO_ARGV[3]), int(TRAIN_OLMO_ARGV[5])
-  counts, trainer, ckpt = _train_run(
-      "train-olmo", smi,
-      lambda ckpt: launch_train.main(TRAIN_OLMO_ARGV + ["--ckpt-dir", ckpt]),
-      b, s)
-  cfg = trainer.model.cfg
+  cfg = dataclasses.replace(get_config(TRAIN_OLMO_ARCH),
+                            n_layers=TRAIN_OLMO_LAYERS)
+  steps, b, s = (TRAIN_RECIPE[k] for k in ("steps", "batch", "seq"))
+
+  def start(ckpt):
+    trainer = launch_train.make_trainer(cfg, launch_train.recipe(steps),
+                                        steps, b, s, ckpt)
+    trainer.run()
+    return trainer
+  counts, trainer, ckpt = _train_run("train-olmo", smi, start, b, s)
   n_params = sum(p.numel() for p in trainer.state["params"].parameters())
   del trainer
   torch.cuda.empty_cache()
@@ -4881,6 +5223,20 @@ def main() -> int:
   _phase("[serve-zoo-parity]", phase_serve_zoo_parity)
   log(f"[time] [K6] through [serve-zoo-parity]: "
       f"{time.perf_counter() - t_serve:.1f} s")
+  t_8b = time.perf_counter()
+  k6 = kernels["flash_attention"]
+  k5 = kernels["quant_decode_attn"]
+  k6["cross"] = _phase("[K6-cross]", phase_k6_cross)
+  whisper = _phase("[serve-whisper]", phase_serve_whisper, smi)
+  k6["launches_serve_whisper"] = whisper["flash_attention"]
+  k5["launches_serve_whisper"] = whisper["quant_decode_attn"]
+  _phase("[serve-whisper-parity]", phase_serve_whisper_parity)
+  jamba = _phase("[serve-jamba]", phase_serve_jamba, smi)
+  k6["launches_serve_jamba"] = jamba["flash_attention"]
+  k5["launches_serve_jamba"] = jamba["quant_decode_attn"]
+  _phase("[serve-jamba-parity]", phase_serve_jamba_parity)
+  log(f"[time] [K6-cross] through [serve-jamba-parity]: "
+      f"{time.perf_counter() - t_8b:.1f} s")
   t_train = time.perf_counter()
   kernels.update(_phase("[K6-bwd]", phase_k6_backward))
   train_launches = _phase("[train]", phase_train, smi)
@@ -4921,7 +5277,12 @@ def main() -> int:
       "run (K1, K2: the sweep; K5, K6: the first serve run, and in the "
       "first [serve-moe] run K5 "
       f"{kernels['quant_decode_attn']['launches_serve_moe']} and K6 "
-      f"{kernels['flash_attention']['launches_serve_moe']} times; K6's "
+      f"{kernels['flash_attention']['launches_serve_moe']} times, in "
+      f"[serve-whisper]'s first run K6 {k6['launches_serve_whisper']} "
+      f"(at S_q != S_k: its 6 cross-attention layers) and K5 "
+      f"{k5['launches_serve_whisper']}, in [serve-jamba]'s K6 "
+      f"{k6['launches_serve_jamba']} and K5 {k5['launches_serve_jamba']}; "
+      "K6's "
       "backward: the [train] run, where K6 launched "
       f"{kernels['flash_attention']['launches_train']} times, and in "
       "[train-olmo] K6 "

@@ -1,13 +1,13 @@
 """Architecture registry of the port: importing this package registers
-the configurations it serves (qwen3-0.6b, rwkv6-1.6b, and slice 8a's
-olmo-1b, granite-34b, minitron-4b, mixtral-8x22b, qwen2-moe-a2.7b and
-pixtral-12b).  ``ALL_ARCHS`` is the reference's tuple, the two that come
-with slice 8b included."""
-from repro_torch.configs import (granite_34b, minitron_4b,  # noqa: F401
-                                 mixtral_8x22b, olmo_1b, pixtral_12b,
-                                 qwen2_moe_a2_7b, qwen3_0_6b, rwkv6_1_6b)
-from repro_torch.configs.base import (LATER_SLICES, ModelConfig, get_config,
-                                      list_archs)
+the configurations it serves, every one of the reference's
+(``ALL_ARCHS``, the reference's tuple): qwen3-0.6b, rwkv6-1.6b, slice
+8a's olmo-1b, granite-34b, minitron-4b, mixtral-8x22b, qwen2-moe-a2.7b
+and pixtral-12b, and slice 8b's jamba-1.5-large and whisper-base."""
+from repro_torch.configs import (granite_34b, jamba_1_5_large,  # noqa: F401
+                                 minitron_4b, mixtral_8x22b, olmo_1b,
+                                 pixtral_12b, qwen2_moe_a2_7b, qwen3_0_6b,
+                                 rwkv6_1_6b, whisper_base)
+from repro_torch.configs.base import ModelConfig, get_config, list_archs
 from repro_torch.configs.shapes import reduce_for_smoke
 
 ALL_ARCHS = (
@@ -16,5 +16,5 @@ ALL_ARCHS = (
     "pixtral-12b",
 )
 
-__all__ = ["ALL_ARCHS", "LATER_SLICES", "ModelConfig", "get_config",
-           "list_archs", "reduce_for_smoke"]
+__all__ = ["ALL_ARCHS", "ModelConfig", "get_config", "list_archs",
+           "reduce_for_smoke"]

@@ -1,5 +1,5 @@
 """Model configuration schema and registry (the port's copy of
-``repro.configs.base``, with only the architectures the port serves).
+``repro.configs.base``).
 
 Field names, defaults, the derived properties and the parameter and FLOP
 accounting are the reference's, so a configuration compares field by
@@ -12,13 +12,6 @@ import dataclasses
 from typing import Callable, Dict, List, Tuple
 
 VOCAB_PAD_MULTIPLE = 256  # Megatron-style padding of the vocab
-
-# the architectures of the reference that the port does not serve yet,
-# with the slice of the port that brings each (ROADMAP.md, Queue 1)
-LATER_SLICES: Dict[str, str] = {
-    "jamba-1.5-large": "slice 8b (the mamba scan and the hybrid layers)",
-    "whisper-base": "slice 8b (the encoder and cross-attention)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +166,6 @@ def get_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (registers the configs)
   if name in _REGISTRY:
     return _REGISTRY[name]()
-  if name in LATER_SLICES:
-    raise NotImplementedError(
-        f"{name!r} is not served by the port yet; it comes with "
-        f"{LATER_SLICES[name]}")
   raise ValueError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 

@@ -81,28 +81,29 @@ def _stays_f32(name: str) -> bool:
       parts[-1] in _F32_LEAVES
 
 
+# an encoder-decoder's stacked leaves, and the config field counting them
+_ENCDEC_STACKS = {"enc_blocks": "n_encoder_layers", "dec_blocks": "n_layers"}
+
+
 def params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
                     dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
-  """The port's ``Transformer`` state dict (CPU tensors) from the
-  reference's parameter tree as numpy arrays (or bfloat16 tensors, as a
-  checkpoint restores them), ``blocks`` leaves stacked on a leading
-  ``n_blocks`` axis.
+  """The port's ``Transformer`` (or, for an encoder-decoder, ``EncDec``)
+  state dict (CPU tensors) from the reference's parameter tree as numpy
+  arrays (or bfloat16 tensors, as a checkpoint restores them): a
+  decoder's ``blocks`` leaves stacked on a leading ``n_blocks`` axis, an
+  encoder-decoder's ``enc_blocks`` and ``dec_blocks`` on their layer axis.
 
   Matmul weights (a MoE's router, stacked (E, d_in, d_out) experts and
-  shared MLP among them), the embedding, the LM head and a learned
-  position table are cast once to ``dtype``: by default the model dtype,
-  for serving (the reference casts its float32 copies at every use: the
-  same rounding); float32 (or bfloat16) for a trainable model.  Norm
-  scales and biases and rwkv's lerps, decay base, bonus and group-norm
-  scale stay float32; a ``layernorm_np`` norm's empty dict gives no
-  entry.
+  shared MLP among them, a Mamba layer's four projections), the
+  embedding, the LM head and a learned position table are cast once to
+  ``dtype``: by default the model dtype, for serving (the reference casts
+  its float32 copies at every use: the same rounding); float32 (or
+  bfloat16) for a trainable model.  Norm scales and biases, rwkv's lerps,
+  decay base, bonus and group-norm scale, and a Mamba layer's conv, dt
+  bias, A, skip and output-norm leaves stay float32; a ``layernorm_np``
+  norm's empty dict gives no entry.
   """
-  if cfg.family == "encdec":
-    raise NotImplementedError("encoder-decoder models come with slice 8b "
-                              "of the port")
-  if any(kind == "mamba" for kind, _ in cfg.block_pattern()):
-    raise NotImplementedError("mamba layers come with slice 8b of the port")
   dt = model_dtype(cfg) if dtype is None else dtype
 
   def tensor(a, cast: bool) -> torch.Tensor:
@@ -110,8 +111,13 @@ def params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
          torch.from_numpy(np.array(a, dtype=np.float32, copy=True)))
     return t.to(dt) if cast else t
 
-  flat = transformer.flatten(
-      transformer.unstack_blocks(cfg, params, unstack=list))
+  if cfg.family == "encdec":
+    tree = dict(params)
+    for key, n in _ENCDEC_STACKS.items():
+      tree[key] = transformer._unzip(params[key], list, getattr(cfg, n))
+  else:
+    tree = transformer.unstack_blocks(cfg, params, unstack=list)
+  flat = transformer.flatten(tree)
   return {name: tensor(a, not _stays_f32(name)) for name, a in flat.items()}
 
 
@@ -121,8 +127,16 @@ def params_to_tree(cfg: ModelConfig, params: torch.nn.Module
   the inverse of ``params_from_jax``.  Each layer's ``layers.{l}.mix.wq``
   and the like is stacked back onto ``blocks/sub{i}/mix/wq`` of shape
   ``(n_blocks, d_in, d_out)``; tensors keep the model's dtypes and device
-  (the stacks are new tensors, the rest are the model's own)."""
-  return transformer.stack_blocks(cfg, transformer.nest(params.state_dict()))
+  (the stacks are new tensors, the rest are the model's own).  An
+  encoder-decoder's ``enc_blocks.{l}`` and ``dec_blocks.{l}`` leaves are
+  stacked on their layer axis."""
+  tree = transformer.nest(params.state_dict())
+  if cfg.family != "encdec":
+    return transformer.stack_blocks(cfg, tree)
+  for key, n in _ENCDEC_STACKS.items():
+    tree[key] = transformer._zip_map(
+        torch.stack, [tree[key][str(l)] for l in range(getattr(cfg, n))])
+  return tree
 
 
 def _is_q8(node) -> bool:

@@ -22,10 +22,14 @@
 //    work and a window only its diagonal band.
 //  * GQA: the block reads kv head h / G directly instead of a repeated
 //    copy of K and V (the reference's ops.py materialises jnp.repeat).
-//  * Layout: q (B, S, H, D) and k/v (B, S, Hkv, D) are read through their
+//  * Layout: q (B, S, H, D) and k/v (B, Sk, Hkv, D) are read through their
 //    batch, sequence and head strides (the last dim contiguous), so no
-//    transpose copy is made.  The ragged end of the sequence is masked
-//    here, with no padding to a tile multiple.
+//    transpose copy is made.  The ragged ends of the queries and of the
+//    keys are masked here, with no padding to a tile multiple.
+//  * Keys may be fewer or more than queries in full attention (whisper's
+//    cross-attention: a prompt's queries against 1,500 encoder frames):
+//    Sk bounds the key-tile walk and masks its ragged end, S the query
+//    tiles and the output.
 //  * Guards as in the TPU kernel: masked scores are -1e30, a running max
 //    that is still -1e30 is treated as 0 in the exponent and masked
 //    probabilities are exactly 0, so an all-masked row gives acc = l = 0,
@@ -87,7 +91,7 @@ struct Params {
   const void* v;
   float* out;
   float* lse;   // (b, h, s) row log-sum-exp for the backward, or null
-  int64_t s, h, hkv;
+  int64_t s, sk, h, hkv;  // query and key lengths
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -174,7 +178,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(Params p) {
     for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
   }
 
-  const int64_t n_tiles = (p.s + kBK - 1) / kBK;
+  const int64_t n_tiles = (p.sk + kBK - 1) / kBK;
   for (int64_t kt = 0; kt < n_tiles; ++kt) {
     const int64_t k_lo = kt * kBK;
     if (!tile_live(p, q_lo, k_lo)) continue;  // uniform across the block
@@ -183,7 +187,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(Params p) {
     for (int i = tid; i < kBK * D; i += kF32Threads) {
       const int r = i / D, c = i % D;
       const int64_t pos = k_lo + r;
-      const bool in = pos < p.s;
+      const bool in = pos < p.sk;
       ks[r * (D + 1) + c] = in ? kg[pos * p.k_ss + c] : 0.f;
       vs[r * D + c] = in ? vg[pos * p.v_ss + c] : 0.f;
     }
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int64_t kpos = k_lo + tx + 16 * j;
-        bool ok = kpos < p.s;
+        bool ok = kpos < p.sk;
         if (p.causal) ok = ok && qpos >= kpos;
         if (p.window) ok = ok && kpos > qpos - p.window;
         if (!ok) sc[i][j] = kNegInf;
@@ -415,7 +419,7 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
                             + b * p.v_sb + kv_head * p.v_sh;
 
   // the live key tiles form one run [first, last]
-  const int64_t n_tiles = (p.s + kBK - 1) / kBK;
+  const int64_t n_tiles = (p.sk + kBK - 1) / kBK;
   int64_t first = 0, last = n_tiles - 1;
   while (first < n_tiles && !tile_live(p, q_lo, first * kBK)) ++first;
   while (last >= first && !tile_live(p, q_lo, last * kBK)) --last;
@@ -437,8 +441,8 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
   }
   if (mine > 0) {
     const int64_t k_lo = (first + walker) * kBK;
-    load_tile<D>(smem + L::kv(walker, 0, 0), kg, p.k_ss, k_lo, p.s, wtid);
-    load_tile<D>(smem + L::kv(walker, 0, 1), vg, p.v_ss, k_lo, p.s, wtid);
+    load_tile<D>(smem + L::kv(walker, 0, 0), kg, p.k_ss, k_lo, p.sk, wtid);
+    load_tile<D>(smem + L::kv(walker, 0, 1), vg, p.v_ss, k_lo, p.sk, wtid);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -468,9 +472,9 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
     if (j + 1 < mine) {
       const int64_t next = k_lo + kWalkers * kBK;
       load_tile<D>(smem + L::kv(walker, 1 - stage, 0), kg, p.k_ss, next,
-                   p.s, wtid);
+                   p.sk, wtid);
       load_tile<D>(smem + L::kv(walker, 1 - stage, 1), vg, p.v_ss, next,
-                   p.s, wtid);
+                   p.sk, wtid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -503,7 +507,7 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
     }
 
     // scale in f32, mask, online softmax on the registers
-    const bool full = k_lo + kBK <= p.s
+    const bool full = k_lo + kBK <= p.sk
                       && (!p.causal || k_lo + kBK - 1 <= q_lo)
                       && (!p.window || k_lo > q_lo + kBQ - 1 - p.window);
     float mx[2] = {kNegInf, kNegInf};
@@ -515,7 +519,7 @@ __global__ void __launch_bounds__(kWalkerThreads * kWalkers)
         if (!full) {
           const int64_t qpos = row0 + (e / 2) * 8;
           const int64_t kpos = k_lo + n * 8 + 2 * t + (e % 2);
-          bool ok = kpos < p.s;
+          bool ok = kpos < p.sk;
           if (p.causal) ok = ok && qpos >= kpos;
           if (p.window) ok = ok && kpos > qpos - p.window;
           if (!ok) x = kNegInf;
@@ -1666,23 +1670,28 @@ int dispatch_bwd(const BwdParams& p, int64_t b, int64_t d, int is_bf16,
 
 extern "C" {
 
-// q (b, s, h, d), k/v (b, s, hkv, d) of float32 (is_bf16 = 0) or bf16
+// q (b, s, h, d), k/v (b, sk, hkv, d) of float32 (is_bf16 = 0) or bf16
 // (is_bf16 = 1), each with the given batch/sequence/head strides in
 // elements and a contiguous last dim; out (b, s, h, d) contiguous f32;
 // lse, when not null, (b, h, s) contiguous f32: each row's log-sum-exp of
 // its scaled scores, m + log(l), which the backward reads.
 // d in {16, 32, 64, 128}, h % hkv == 0.  window 0 means full attention.
+// sk != s (cross-attention) only in full attention: causal and window
+// masks compare a query's position with a key's.
 // bf16 bases must be 16-byte aligned and their strides multiples of 8.
 int fa_forward(const void* q, const void* k, const void* v, float* out,
-               int64_t b, int64_t s, int64_t h, int64_t hkv, int64_t d,
+               int64_t b, int64_t s, int64_t sk, int64_t h, int64_t hkv,
+               int64_t d,
                int64_t q_sb, int64_t q_ss, int64_t q_sh,
                int64_t k_sb, int64_t k_ss, int64_t k_sh,
                int64_t v_sb, int64_t v_ss, int64_t v_sh,
                float sm_scale, int causal, int64_t window, int is_bf16,
                float* lse, void* stream) {
-  if (hkv <= 0 || h % hkv != 0 || window < 0) return cudaErrorInvalidValue;
+  if (hkv <= 0 || h % hkv != 0 || window < 0 || sk < 0
+      || ((causal || window) && sk != s))
+    return cudaErrorInvalidValue;
   if (b == 0 || s == 0 || h == 0) return cudaSuccess;
-  const Params p{q, k, v, out, lse, s, h, hkv,
+  const Params p{q, k, v, out, lse, s, sk, h, hkv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  sm_scale, causal, window};
   return dispatch(p, b * h, d, is_bf16, static_cast<cudaStream_t>(stream));

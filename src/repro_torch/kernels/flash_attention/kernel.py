@@ -2,14 +2,15 @@
 (``csrc/flash_attention.cu``, built and loaded through ``ctypes``): K6's
 forward, optionally with each row's log-sum-exp, and its backward.
 
-The forward takes q (B, S, H, D) and k/v (B, S, Hkv, D) on one CUDA
-device, float32 or bf16, in any strides whose last dim is contiguous,
-allocates the f32 output, launches on the current stream and raises if
-the launch was refused.  bf16 runs on the tensor cores and its tiles
+The forward takes q (B, Sq, H, D) and k/v (B, Sk, Hkv, D) on one CUDA
+device, float32 or bf16, in any strides whose last dim is contiguous (Sk
+!= Sq in full attention only: cross-attention), allocates the f32
+output, launches on the current stream and raises if the launch was
+refused.  bf16 runs on the tensor cores and its tiles
 arrive by 16-byte asynchronous copies, so bf16 bases must be 16-byte
 aligned and their batch, sequence and head strides multiples of 8
 elements (the model's q, k and the ``kv[:, :, 1]`` view of v are).
-The backward takes the same q, k, v, the forward's f32 output, its
+The backward takes q, k, v of one length S, the forward's f32 output, its
 gradient and the lse, and returns dq, dk and dv in the inputs' dtype;
 for bf16 inputs it runs on the tensor cores too, and allocates the
 gradient's bf16 hi and lo parts as scratch beside the f32 ``delta``.
@@ -43,7 +44,7 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
   lib = _build.load("flash_attention")
   p, i64 = ctypes.c_void_p, ctypes.c_int64
-  lib.fa_forward.argtypes = ([p, p, p, p] + [i64] * 14
+  lib.fa_forward.argtypes = ([p, p, p, p] + [i64] * 15
                              + [ctypes.c_float, ctypes.c_int, i64,
                                 ctypes.c_int, p, p])
   lib.fa_forward.restype = ctypes.c_int
@@ -70,7 +71,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                        f"contiguous last dim, got shape {tuple(t.shape)} "
                        f"strides {t.stride()}")
   b, s, h, d = q.shape
-  if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d:
+  if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
     raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
                      f"{tuple(q.shape)}")
   hkv = k.shape[2]
@@ -87,6 +88,15 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{t.stride()}")
 
 
+def check_lengths(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: int) -> None:
+  """Raise ValueError for causal or windowed attention at S_k != S_q:
+  their masks compare a query's position with a key's."""
+  if (causal or window) and k.shape[1] != q.shape[1]:
+    raise ValueError(f"causal or windowed attention takes as many keys as "
+                     f"queries: S_q = {q.shape[1]}, S_k = {k.shape[1]}")
+
+
 def _strides(*ts):
   return [st for t in ts for st in t.stride()[:3]]
 
@@ -94,13 +104,16 @@ def _strides(*ts):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float, causal: bool = True, window: int = 0,
                     return_lse: bool = False):
-  """K6: (B, S, H, D) x (B, S, Hkv, D) -> (B, S, H, D) float32, and with
-  ``return_lse`` also each row's log-sum-exp of its scaled scores, (B, H,
-  S) float32, for :func:`flash_attention_bwd`."""
+  """K6: (B, Sq, H, D) x (B, Sk, Hkv, D) -> (B, Sq, H, D) float32, and
+  with ``return_lse`` also each row's log-sum-exp of its scaled scores,
+  (B, H, Sq) float32, for :func:`flash_attention_bwd`.  Causal and
+  windowed attention take Sk = Sq."""
   check_inputs(q, k, v)
   if window < 0:
     raise ValueError(f"window must be >= 0, got {window}")
+  check_lengths(q, k, causal, window)
   b, s, h, d = q.shape
+  sk = k.shape[1]
   out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
   lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
          if return_lse else None)
@@ -108,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream().cuda_stream
     status = _lib().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, k.shape[2], d, *_strides(q, k, v),
+        b, s, sk, h, k.shape[2], d, *_strides(q, k, v),
         float(sm_scale), int(bool(causal)), int(window),
         int(q.dtype == torch.bfloat16),
         lse.data_ptr() if return_lse else None, stream)
@@ -130,6 +143,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   if window < 0:
     raise ValueError(f"window must be >= 0, got {window}")
   b, s, h, d = q.shape
+  if k.shape[1] != s:
+    raise ValueError(f"the backward takes as many keys as queries: S_q = "
+                     f"{s}, S_k = {k.shape[1]}")
   hkv = k.shape[2]
   for name, t, shape in (("out", out, (b, s, h, d)),
                          ("dout", dout, (b, s, h, d)),

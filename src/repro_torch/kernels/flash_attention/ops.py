@@ -10,6 +10,11 @@ tensor runs the plain torch version (``ref.py``) on a repeated,
 head-major copy, as the reference's wrapper does, differentiated by
 autograd.  There is no other choice and no fallback: a CUDA input whose
 kernel cannot build or launch raises, in either direction.
+
+Keys may be fewer or more than queries (cross-attention: S_k != S_q) in
+full attention; causal and windowed attention compare a query's position
+with a key's and take S_k = S_q.  The backward at S_k != S_q comes with
+slice 8c of the port (the training of whisper-base).
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ def _repeat_kv(q, k, v):
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
                               window: int = 0) -> torch.Tensor:
-  """The plain version: (B, S, H, D) x (B, S, Hkv, D) -> (B, S, H, D) f32."""
+  """The plain version: (B, Sq, H, D) x (B, Sk, Hkv, D) -> (B, Sq, H, D)
+  f32."""
+  _kernel.check_lengths(q, k, causal, window)
   b, s, h, d = q.shape
   k, v = _repeat_kv(q, k, v)
   out = _ref.flash_attention_ref(_flat(q), _flat(k), _flat(v),
@@ -94,6 +101,10 @@ class FlashAttention(torch.autograd.Function):
   @staticmethod
   def backward(ctx, dout):
     q, k, v, out, lse = ctx.saved_tensors
+    if k.shape[1] != q.shape[1]:
+      raise NotImplementedError(
+          f"K6's backward at S_k = {k.shape[1]} != S_q = {q.shape[1]} "
+          "(cross-attention) comes with slice 8c of the port")
     dq, dk, dv = _kernel.flash_attention_bwd(
         q, k, v, out, dout.contiguous(), lse, ctx.scale,
         causal=ctx.causal, window=ctx.window)
@@ -102,7 +113,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-  """GQA attention (B, S, H, D) x (B, S, Hkv, D) -> (B, S, H, D) f32."""
+  """GQA attention (B, Sq, H, D) x (B, Sk, Hkv, D) -> (B, Sq, H, D) f32."""
+  _kernel.check_lengths(q, k, causal, window)
   if q.shape[2] % k.shape[2]:
     raise ValueError(f"H = {q.shape[2]} is not a multiple of "
                      f"Hkv = {k.shape[2]}")

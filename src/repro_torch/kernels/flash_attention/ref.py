@@ -12,11 +12,14 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
-  """(S, S) bool, True where query i attends to key j."""
-  qpos = torch.arange(s, device=device)[:, None]
-  kpos = torch.arange(s, device=device)[None, :]
-  mask = torch.ones((s, s), dtype=torch.bool, device=device)
+def _mask(sq: int, sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+  """(Sq, Sk) bool, True where query i attends to key j (causal and
+  window masks compare the two positions as they are, so they are asked
+  for with Sq = Sk only)."""
+  qpos = torch.arange(sq, device=device)[:, None]
+  kpos = torch.arange(sk, device=device)[None, :]
+  mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
   if causal:
     mask = mask & (qpos >= kpos)
   if window:
@@ -26,14 +29,14 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def _scores(q, k, sm_scale, causal, window):
   scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
-  mask = _mask(q.shape[1], causal, window, q.device)
+  mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
   return torch.where(mask[None], scores, NEG_INF), mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: float, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-  """q/k/v (BH, S, D) -> (BH, S, D) float32."""
+  """q (BH, Sq, D), k/v (BH, Sk, D) -> (BH, Sq, D) float32."""
   scores, _ = _scores(q, k, sm_scale, causal, window)
   p = torch.softmax(scores, dim=-1)
   return torch.einsum("bqk,bkd->bqd", p, v.float())
@@ -42,8 +45,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             sm_scale: float, causal: bool = True,
                             window: int = 0) -> torch.Tensor:
-  """Each row's log-sum-exp of its scaled, masked scores: q/k (BH, S, D)
-  -> (BH, S) float32 (the forward kernel's ``lse``)."""
+  """Each row's log-sum-exp of its scaled, masked scores: q (BH, Sq, D),
+  k (BH, Sk, D) -> (BH, Sq) float32 (the forward kernel's ``lse``)."""
   scores, _ = _scores(q, k, sm_scale, causal, window)
   return torch.logsumexp(scores, dim=-1)
 
@@ -180,28 +183,45 @@ def flash_attention_bwd_bf16_order(q: torch.Tensor, k: torch.Tensor,
     dp = doh[:, :, rows] @ vt + dol[:, :, rows] @ vt
     return p, p * (dp - delta[:, :, rows, None])
 
-  everything = slice(0, s)
+  # the masked pairs add exact zeros to dK, dV and dQ: only the keys some
+  # query of a range attends to, and the queries that attend to some key
+  # of a range, are walked
+  def live_keys(q_lo, q_hi):
+    return (max(0, q_lo - window + 1) if window else 0,
+            min(s, q_hi) if causal else s)
+
+  def live_queries(k_lo, k_hi):
+    return (k_lo if causal else 0,
+            min(s, k_hi - 1 + window) if window else s)
+
   dk = torch.zeros((b, h, s, d), device=dev)
   dv = torch.zeros((b, h, s, d), device=dev)
   for q0 in range(0, s, step):
-    p, ds = p_ds(slice(q0, q0 + step), everything)
-    for c0 in range(0, p.shape[2], 16):
+    q1 = min(s, q0 + step)
+    k_lo, k_hi = live_keys(q0, q1)
+    p, ds = p_ds(slice(q0, q1), slice(k_lo, k_hi))
+    for c0 in range(0, q1 - q0, 16):
       rows = slice(q0 + c0, q0 + c0 + 16)
-      ph, pl = split(p[:, :, c0:c0 + 16].transpose(-1, -2))
-      sh, sl = split(ds[:, :, c0:c0 + 16].transpose(-1, -2))
-      dv = dv + ph @ doh[:, :, rows]
-      dk = dk + sh @ qf[:, :, rows]
-      dv = dv + ph @ dol[:, :, rows]
-      dk = dk + sl @ qf[:, :, rows]
-      dv = dv + pl @ doh[:, :, rows]
+      lo, hi = live_keys(q0 + c0, min(q1, q0 + c0 + 16))
+      keys = slice(lo - k_lo, hi - k_lo)
+      ph, pl = split(p[:, :, c0:c0 + 16, keys].transpose(-1, -2))
+      sh, sl = split(ds[:, :, c0:c0 + 16, keys].transpose(-1, -2))
+      dv[:, :, lo:hi] += ph @ doh[:, :, rows]
+      dk[:, :, lo:hi] += sh @ qf[:, :, rows]
+      dv[:, :, lo:hi] += ph @ dol[:, :, rows]
+      dk[:, :, lo:hi] += sl @ qf[:, :, rows]
+      dv[:, :, lo:hi] += pl @ doh[:, :, rows]
   dq = torch.zeros((b, h, s, d), device=dev)
   for k0 in range(0, s, step):
-    _, ds = p_ds(everything, slice(k0, k0 + step))
-    for c0 in range(0, ds.shape[3], 16):
+    k1 = min(s, k0 + step)
+    q_lo, q_hi = live_queries(k0, k1)
+    _, ds = p_ds(slice(q_lo, q_hi), slice(k0, k1))
+    for c0 in range(0, k1 - k0, 16):
       cols = slice(k0 + c0, k0 + c0 + 16)
-      sh, sl = split(ds[:, :, :, c0:c0 + 16])
-      dq = dq + sh @ kf[:, :, cols]
-      dq = dq + sl @ kf[:, :, cols]
+      lo, hi = live_queries(k0 + c0, min(k1, k0 + c0 + 16))
+      sh, sl = split(ds[:, :, lo - q_lo:hi - q_lo, c0:c0 + 16])
+      dq[:, :, lo:hi] += sh @ kf[:, :, cols]
+      dq[:, :, lo:hi] += sl @ kf[:, :, cols]
 
   def back(x, heads):  # (B, H, S, D) f32 -> (B, S, heads, D) bf16
     x = x.reshape(b, heads, h // heads, s, d).sum(2)

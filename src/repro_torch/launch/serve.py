@@ -6,10 +6,16 @@ KV cache, on one card (the port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 It serves a narrow copy of the architecture (``--smoke``, always on, as
-in the reference): any of ``configs.list_archs()``, MoE (qwen2-moe-a2.7b,
-mixtral-8x22b) and the vlm's text backbone (pixtral-12b) included.  ``--kv-quant`` has no effect on rwkv6-1.6b, which
-keeps no KV cache.  ``--device`` defaults to ``cuda`` and the launcher
-raises without a card; pass ``--device cpu`` to run on the CPU.
+in the reference): any decoder of ``configs.list_archs()``, MoE
+(qwen2-moe-a2.7b, mixtral-8x22b), the vlm's text backbone (pixtral-12b)
+and jamba-1.5-large's hybrid (one block of its 8-layer pattern, where
+the others take 4 layers) included. ``--kv-quant`` has no effect on
+rwkv6-1.6b, which keeps no KV cache. whisper-base raises ValueError: it
+serves through ``Model.prefill(params, {"tokens", "enc_frames"},
+max_len)`` and ``Model.decode_step``, and the engine, as the
+reference's, feeds tokens only. ``--device`` defaults to ``cuda`` and
+the launcher raises without a card; pass ``--device cpu`` to run on the
+CPU.
 """
 from __future__ import annotations
 
@@ -36,8 +42,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
   args = ap.parse_args(argv)
 
   cfg = get_config(args.arch)
+  if cfg.family == "encdec":
+    raise ValueError(f"{cfg.name} is an encoder-decoder: ServeEngine feeds "
+                     "a batch of tokens only, as the reference's does; serve "
+                     "it through Model.prefill(params, {'tokens', "
+                     "'enc_frames'}, max_len) and Model.decode_step")
   if args.smoke:
-    cfg = reduce_for_smoke(cfg, d_model=128, n_layers=4, vocab_size=2048)
+    cfg = reduce_for_smoke(cfg, d_model=128, vocab_size=2048,
+                           n_layers=max(4, len(cfg.layer_kinds())))
   cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant)
   model = build_model(cfg, device=args.device)
   params = model.init(0)

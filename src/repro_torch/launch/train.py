@@ -11,11 +11,12 @@ cosine decay over ``--steps``, on ``MarkovTokenStream`` batches
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b
 
 ``--arch`` defaults to olmo-1b, the reference's default; every arch the
-port serves trains (``configs.list_archs()``): rwkv6-1.6b through K7 and
-its backward (``--smoke`` gives it heads of 16, a size K7 takes), the
-others through K6 and its backward, a MoE's aux loss in the loss, and a
-vlm on text (``train_loss`` takes ``img_embeds`` when a caller gives
-them); jamba-1.5-large and whisper-base raise, naming slice 8b.
+port serves (``configs.list_archs()``) trains but two: rwkv6-1.6b
+through K7 and its backward (``--smoke`` gives it heads of 16, a size K7
+takes), the others through K6 and its backward, a MoE's aux loss in the
+loss, and a vlm on text (``train_loss`` takes ``img_embeds`` when a
+caller gives them); jamba-1.5-large and whisper-base, which serve since
+slice 8b, raise, naming slice 8c, which brings their training.
 ``--device`` defaults to ``cuda`` and the launcher raises without a
 card.  The port trains on one device: ``--model-parallel`` above 1,
 ``--production-mesh`` and ``--profile fsdp`` raise, naming slice 7d.  The
@@ -34,6 +35,7 @@ from repro_torch.data.synthetic import (DataCursor, MarkovTokenStream,
                                         TokenStreamConfig, token_batches)
 from repro_torch.models.common import Device
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import check_trainable
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts_lib
@@ -88,6 +90,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
       or args.profile == "fsdp"):
     raise NotImplementedError(SLICE_7D)
   cfg = get_config(args.arch)
+  check_trainable(cfg)
   if args.smoke:
     cfg = reduce_for_smoke(cfg, d_model=128, n_layers=4, d_ff=256,
                            vocab_size=2048)

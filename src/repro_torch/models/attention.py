@@ -1,9 +1,10 @@
 """Attention of the serving path (the port of ``repro.models.attention``):
-prefill attention through K6 and decode attention over the cache,
-through K5 when the cache is int8.
+prefill attention and cross-attention through K6, and decode attention
+over the cache, through K5 when the cache is int8.
 
 Layouts are the reference's: q (B, S, H, D) and k/v (B, S, Hkv, D) for
-prefill; q (B, H, D) and caches (B, Hkv, S, D) for decode.
+prefill (k/v (B, Sk, Hkv, D) for cross-attention); q (B, H, D) and
+caches (B, Hkv, S, D) for decode.
 """
 from __future__ import annotations
 
@@ -27,6 +28,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   """
   return flash_ops.flash_attention(q, k, v, causal=causal,
                                    window=window).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+  """q (B, Sq, H, D) over k/v (B, Sk, Hkv, D), every key visible (the
+  reference's ``causal=False, window=0``) -> (B, Sq, H, D) in q's dtype,
+  through K6."""
+  return flash_attention(q, k, v, causal=False, window=0)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,6 +1,6 @@
 """Decoder-only LM (the port of ``repro.models.transformer``): parameters
-as ``nn.Module``s and two layer kinds, for serving, and the training
-forward and loss for both.  Attention layers keep a per-layer KV cache,
+as ``nn.Module``s and three layer kinds for serving, and the training
+forward and loss for two of them.  Attention layers keep a per-layer KV cache,
 optionally int8 (QUIDAM's precision axis applied to serving), and run
 prefill through K6 and decode through K5; training runs them through K6
 and its backward.  Their feed-forward is a dense MLP (swiglu, gelu or
@@ -8,9 +8,12 @@ relu2) or, on the layers ``cfg.block_pattern()`` marks, a capacity-routed
 MoE whose aux loss enters the train loss.  RWKV-6 layers (time mix +
 channel mix, attention-free) keep a recurrent state and run prefill
 through K7 and decode through the per-token WKV6 update; training runs
-them through K7 and its backward.  Norms are rmsnorm, layernorm or olmo's
-non-parametric layernorm; positions RoPE, a learned table or sinusoids;
-a vlm's training batch may open with image embeddings.
+them through K7 and its backward.  Mamba layers (jamba's hybrid, an
+attention layer and seven Mamba layers a block) keep a recurrent state
+and a conv window, and serve through ``ssm``'s eager scan; they train
+with slice 8c.  Norms are rmsnorm, layernorm or olmo's non-parametric
+layernorm; positions RoPE, a learned table or sinusoids; a vlm's
+training batch may open with image embeddings.
 
 Differences from the reference, none of them in the numbers:
   * the reference scans over stacked blocks; here the layers are a
@@ -30,8 +33,7 @@ Differences from the reference, none of them in the numbers:
     the reference's tree, whose ``blocks/sub{i}`` leaves are stacked on
     ``n_blocks``.
 
-Mamba (jamba's hybrid layers) and encoder-decoder models raise
-``NotImplementedError`` naming slice 8b, which brings them.
+Encoder-decoder models are ``models.encdec``'s.
 """
 from __future__ import annotations
 
@@ -58,21 +60,13 @@ Tree = Dict[str, Any]
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_supported(cfg: ModelConfig) -> None:
-  """Raise NotImplementedError for what this slice of the port lacks."""
-  if cfg.family == "hybrid":
-    raise NotImplementedError(f"{cfg.name}: mamba layers come with slice 8b "
-                              "of the port")
-  if cfg.family == "encdec":
-    raise NotImplementedError(f"{cfg.name}: encoder-decoder models come "
-                              "with slice 8b of the port")
-
-
 def check_trainable(cfg: ModelConfig) -> None:
-  """Raise NotImplementedError for what training in the port lacks: today
-  nothing, since every layer kind that :func:`check_supported` admits
-  trains; a layer kind that serves before it trains names its slice
-  here."""
+  """Raise NotImplementedError for what serves in the port but does not
+  train yet: Mamba layers (jamba's hybrid) and encoder-decoder models,
+  whose training comes with slice 8c."""
+  if cfg.family == "encdec" or "mamba" in cfg.layer_kinds():
+    raise NotImplementedError(f"{cfg.name} serves in the port since slice "
+                              "8b; its training comes with slice 8c")
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +212,9 @@ def prefill_attn_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Layer(nn.Module):
-  """One entry of :func:`layer_pattern`: attention with a dense MLP or,
-  where ``is_moe``, a MoE; or an RWKV layer, whose channel mix lives in
-  its ``mix`` (``cm_*``), with no ``ffn``."""
+  """One entry of :func:`layer_pattern`: attention or Mamba with a dense
+  MLP or, where ``is_moe``, a MoE; or an RWKV layer, whose channel mix
+  lives in its ``mix`` (``cm_*``), with no ``ffn``."""
 
   def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool,
                device: Device = None, dtype: Optional[torch.dtype] = None):
@@ -229,6 +223,8 @@ class Layer(nn.Module):
     self.mix_norm = Norm(cfg, device)
     if kind == "rwkv":
       self.mix = ssm.RWKVMix(cfg, device, dtype)
+    elif kind == "mamba":
+      self.mix = ssm.MambaMix(cfg, device, dtype)
     else:
       self.mix = Attention(cfg, device, dtype)
     self.ffn_norm = Norm(cfg, device)
@@ -279,7 +275,6 @@ class Transformer(nn.Module):
   def __init__(self, cfg: ModelConfig, device: Device = None,
                param_dtype: Optional[str] = None):
     super().__init__()
-    check_supported(cfg)
     if param_dtype is not None:
       check_trainable(cfg)
       if param_dtype not in PARAM_DTYPES:
@@ -570,14 +565,11 @@ def train_loss(tree: Tree, batch: Mapping[str, torch.Tensor],
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> Cache:
-  check_supported(cfg)
-  if cfg.family == "ssm":
-    layers = [ssm.init_rwkv_cache(cfg, batch, device)
-              for _ in range(cfg.n_layers)]
-  else:
-    layers = [init_attn_cache(cfg, batch, max_len, device)
-              for _ in range(cfg.n_layers)]
-  return {"layers": layers, "length": 0}
+  make = {"attn": lambda: init_attn_cache(cfg, batch, max_len, device),
+          "mamba": lambda: ssm.init_mamba_cache(cfg, batch, device),
+          "rwkv": lambda: ssm.init_rwkv_cache(cfg, batch, device)}
+  return {"layers": [make[kind]() for kind, _ in layer_pattern(cfg)],
+          "length": 0}
 
 
 def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
@@ -595,7 +587,7 @@ def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
     pos = torch.full((b,), length, dtype=torch.int32, device=dev)
     rope_cs = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
   lens = None
-  if cfg.family != "ssm":
+  if "attn" in cfg.layer_kinds():
     lens = torch.full((b,), length + 1, dtype=torch.int32, device=dev)
   layer_caches: List[Cache] = cache["layers"]
   for layer, c in zip(params.layers, layer_caches):
@@ -607,7 +599,11 @@ def decode_step(params: Transformer, tokens: torch.Tensor, cache: Cache,
       x = x + ssm.rwkv_channel_decode(layer.mix, h2, c["cm_prev"], cfg)
       c["cm_prev"].copy_(h2)
       continue
-    out, _ = apply_attn_decode(layer.mix, h, c, length, cfg, rope_cs, lens)
+    if layer.kind == "mamba":
+      out, _ = ssm.mamba_decode_step(layer.mix, h, c, cfg)
+    else:
+      out, _ = apply_attn_decode(layer.mix, h, c, length, cfg, rope_cs,
+                                 lens)
     x = x + out
     x = x + layer.feed_forward(layer.ffn_norm(x))
   x = params.final_norm(x)
@@ -638,6 +634,12 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
       x = x + ssm.apply_rwkv_channel_mix(layer.mix, h2, cfg)
       layer_caches.append({"s": s_final, "tm_prev": h[:, -1].clone(),
                            "cm_prev": h2[:, -1].clone()})
+      continue
+    if layer.kind == "mamba":
+      out, c = ssm.mamba_prefill(layer.mix, h, cfg)
+      x = x + out
+      layer_caches.append(c)
+      x = x + layer.feed_forward(layer.ffn_norm(x))
       continue
     mix = layer.mix
     q, k, v = _project_qkv(h, cfg, mix.wq, mix.wkv, mix.q_norm, mix.k_norm)

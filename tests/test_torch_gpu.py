@@ -368,6 +368,32 @@ def test_flash_kernel_matches_plain_version(cuda, case, dtype):
   assert _rel_err(got, want) < 1e-4
 
 
+# K6 at S_q != S_k (whisper-base's cross-attention, non-causal): queries
+# of one row and at the 64-row tile's edges against keys of one tile and
+# of whisper's 1,500 encoder frames (a ragged last tile)
+@pytest.mark.parametrize("sk", [64, 1500])
+@pytest.mark.parametrize("sq", [1, 63, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_fewer_or_more_keys_than_queries(cuda, sq, sk,
+                                                            dtype):
+  b, h, hkv, d = 2, 8, 8, 64
+  rng = np.random.RandomState(sq * 7 + sk)
+  q = _normal(rng, (b, sq, h, d), cuda, dtype)
+  kv = _normal(rng, (b, sk, 2, hkv, d), cuda, dtype)
+  k, v = kv[:, :, 0], kv[:, :, 1]
+  fa_kernel.reset_launch_counts()
+  got = fa.flash_attention(q, k, v, causal=False)
+  assert fa_kernel.LAUNCHES["flash_attention"] == 1
+  want = fa.flash_attention_reference(q, k, v, causal=False)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float32 and got.shape == (b, sq, h, d)
+  assert _rel_err(got, want) < 1e-4
+  # causal or windowed attention compares positions: S_k = S_q only
+  for causal, window in ((True, 0), (False, 16)):
+    with pytest.raises(ValueError, match="as many keys as queries"):
+      fa_kernel.flash_attention(q, k, v, 0.125, causal=causal, window=window)
+
+
 # K6's backward: the kernels against the plain backward on the same q, k,
 # v, output, output gradient and lse.  Everything inside is float32, so
 # float32 inputs are held to 1e-5 of each gradient's largest |value|;

@@ -451,9 +451,17 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
 @pytest.mark.parametrize("change", [dict(family="hybrid", attn_period=2)],
                          ids=str)
 def test_rwkv_variants_still_to_port_name_their_slice(change):
+  """A hybrid of attention and Mamba layers serves since slice 8b: it
+  builds, inits and prefills; its training names slice 8c."""
   cfg = dataclasses.replace(reduce_for_smoke(get_config(ARCH)), **change)
-  with pytest.raises(NotImplementedError, match="slice 8b"):
-    build_model(cfg, device="cpu")
+  model = build_model(cfg, device="cpu")
+  params = model.init(0)
+  assert [layer.kind for layer in params.layers] == ["attn", "mamba"]
+  toks = torch.zeros((1, 8), dtype=torch.int64)
+  logits, _ = model.prefill(params, toks, 16)
+  assert bool(torch.isfinite(logits).all())
+  with pytest.raises(NotImplementedError, match="slice 8c"):
+    model.train_loss(params, {"tokens": toks, "labels": toks})
 
 
 @pytest.mark.parametrize("change", [dict(n_experts=4, n_experts_active=2,

@@ -35,9 +35,11 @@ from repro_torch.models import build_model, common, transformer
 from repro_torch.serve import EngineConfig, ServeEngine
 
 ARCH = "qwen3-0.6b"
-# the archs the port serves (list_archs' order)
-SERVED = ("granite-34b", "minitron-4b", "mixtral-8x22b", "olmo-1b",
-          "pixtral-12b", "qwen2-moe-a2.7b", "qwen3-0.6b", "rwkv6-1.6b")
+# the archs the port serves (list_archs' order): every one of the
+# reference's since slice 8b
+SERVED = ("granite-34b", "jamba-1.5-large", "minitron-4b", "mixtral-8x22b",
+          "olmo-1b", "pixtral-12b", "qwen2-moe-a2.7b", "qwen3-0.6b",
+          "rwkv6-1.6b", "whisper-base")
 
 
 def ref_and_port(kv_quant="int8", **overrides):
@@ -61,32 +63,45 @@ def rel_err(got, want) -> float:
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_config_is_a_copy(arch):
+  # 4 blocks of the layer pattern (4 layers but for jamba's 8-layer block)
+  n_layers = 4 * len(get_config(arch).layer_kinds())
   for ref_cfg, cfg in (
       (ref_get_config(arch), get_config(arch)),
       (ref_reduce(ref_get_config(arch)), reduce_for_smoke(get_config(arch))),
-      (ref_reduce(ref_get_config(arch), d_model=128, n_layers=4),
-       reduce_for_smoke(get_config(arch), d_model=128, n_layers=4))):
+      (ref_reduce(ref_get_config(arch), d_model=128, n_layers=n_layers),
+       reduce_for_smoke(get_config(arch), d_model=128, n_layers=n_layers))):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
     assert cfg.padded_vocab == ref_cfg.padded_vocab
     assert cfg.block_pattern() == ref_cfg.block_pattern()
   assert list_archs() == list(SERVED)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - set(SERVED)))
+@pytest.mark.parametrize("arch", ["jamba-1.5-large", "whisper-base"])
 def test_other_archs_name_the_slice_that_brings_them(arch):
-  with pytest.raises(NotImplementedError, match="slice 8b"):
-    get_config(arch)
+  """Slice 8b's archs: the config is a copy of the reference's, every arch
+  of the reference is served, and training names slice 8c, which brings
+  it."""
+  assert dataclasses.asdict(get_config(arch)) == \
+      dataclasses.asdict(ref_get_config(arch))
+  assert sorted(ALL_ARCHS) == list_archs()
+  with pytest.raises(NotImplementedError, match="slice 8c"):
+    transformer.check_trainable(get_config(arch))
 
 
 def test_unported_layer_kinds_raise():
-  """Mamba (jamba's hybrid) and encoder-decoder raise naming slice 8b;
-  slice 8a's MoE, learned positions, non-parametric layernorm and gelu
-  MLPs build."""
+  """Mamba (jamba's hybrid) and encoder-decoder build and init, and their
+  training raises naming slice 8c; slice 8a's MoE, learned positions,
+  non-parametric layernorm and gelu MLPs build."""
   cfg = reduce_for_smoke(get_config(ARCH))
+  toks = torch.zeros((1, 8), dtype=torch.int64)
   for change in (dict(family="hybrid", attn_period=2),
-                 dict(family="encdec")):
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-      build_model(dataclasses.replace(cfg, **change), device="cpu")
+                 dict(family="encdec", n_encoder_layers=2, max_position=64)):
+    model = build_model(dataclasses.replace(cfg, **change), device="cpu")
+    params = model.init(0)
+    with pytest.raises(NotImplementedError, match="slice 8c"):
+      model.train_loss(params, {"tokens": toks, "labels": toks})
+    with pytest.raises(NotImplementedError, match="slice 8c"):
+      model.init(0, param_dtype="float32")
   for change in (dict(n_experts=4, n_experts_active=2, d_ff_expert=32),
                  dict(pos_embed="learned", max_position=64),
                  dict(norm="layernorm_np"), dict(mlp_variant="gelu")):
